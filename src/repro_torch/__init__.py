@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of the Radar DataTree framework (NVIDIA H100).
+
+A package of its own beside the JAX reference package ``repro``: it keeps
+its own copies of the numpy-only layers it needs (store, core, etl,
+geometry), so it never imports ``repro`` or ``jax``.  The archive format
+is byte-identical, so archives written by either package read back
+bitwise through the other.
+
+Slice 1 covers the paper's two case studies read from the versioned
+archive: ``repro_torch.radar.products.compute_product`` for the
+quasi-vertical profile (``kind="qvp"``) and Z-R accumulation
+(``kind="qpe"``), carried by the hand-written CUDA kernels in
+``repro_torch.kernels``.
+"""
