@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 
 from . import ref
+from .grid_map import grid_map_cuda
+from .grid_update import grid_update_cuda
 from .qvp_reduce import qvp_reduce_cuda
 from .zr_accum import zr_accum_cuda
 
@@ -54,6 +56,37 @@ def qvp_reduce(
                            quality.to(torch.float32).contiguous(),
                            quality_min=float(quality_min),
                            min_valid_fraction=min_valid_fraction)
+
+
+def grid_map(
+    field: torch.Tensor,       # (time, gates) flattened polar block
+    gate_idx: torch.Tensor,    # (cells, k) integer
+    weights: torch.Tensor,     # (cells, k) float32
+    *,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """Polar-to-grid gather-accumulate (kernel or plain version)."""
+    if not _use_kernel(field, mode):
+        return ref.grid_map(field, gate_idx, weights)
+    return grid_map_cuda(field.to(torch.float32).contiguous(),
+                         gate_idx.to(torch.int32).contiguous(),
+                         weights.to(torch.float32).contiguous())
+
+
+def grid_update(
+    state: torch.Tensor,       # (time, cells) current product state
+    upd: torch.Tensor,         # (time, touched) compact update block
+    pos: torch.Tensor,         # (cells,) integer, < 0 = untouched
+    *,
+    op: str = "set",
+    mode: str = "auto",
+) -> torch.Tensor:
+    """Incremental patch of a gridded product (kernel or plain version)."""
+    if not _use_kernel(state, mode):
+        return ref.grid_update(state, upd, pos, op=op)
+    return grid_update_cuda(state.to(torch.float32).contiguous(),
+                            upd.to(torch.float32).contiguous(),
+                            pos.to(torch.int32).contiguous(), op=op)
 
 
 def zr_accum(

@@ -2,18 +2,19 @@
 
 A :class:`ProductRequest` names the product and carries every parameter;
 :func:`compute_product` dispatches on the request *kind* and the target.
-This package computes the session-target QVP and QPE products on the GPU;
-the other kinds and the multi-repository ``Catalog`` target are later
-slices of the port (``ROADMAP.md``) and raise ``NotImplementedError``.
+This package computes the session-target QVP, QPE, CAPPI and column-max
+products on the GPU; the multi-repository ``Catalog`` target (and with it
+``mosaic``) is a later slice of the port (``ROADMAP.md``) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple
 
-import torch
-
+from ._device import DeviceLike, resolve_device
+from .grid import _cappi_from_session, _column_max_from_session
 from .qpe import _qpe_from_session
 from .qvp import _qvp_from_session
 
@@ -45,7 +46,7 @@ class ProductRequest:
     within: Any = None                       # catalog spatial predicate
     repos: Optional[Tuple[str, ...]] = None  # catalog repo subset
     # -- gridding ------------------------------------------------------
-    grid: Any = None
+    grid: Any = None                         # a CartesianGrid of this package
     ny: int = 240
     nx: int = 240
     altitude_m: float = 2000.0
@@ -86,18 +87,7 @@ def _is_catalog(target) -> bool:
     return hasattr(target, "open_session") and hasattr(target, "entries")
 
 
-def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "compute_product runs on the GPU and no CUDA device is "
-            "available; pass device='cpu' to run the plain PyTorch path "
-            "on the CPU"
-        )
-    return dev
-
-
-def _compute_session(session, req: ProductRequest, device: torch.device):
+def _compute_session(session, req: ProductRequest, device):
     if req.kind == "qvp":
         req._require("vcp", "sweep")
         return _qvp_from_session(
@@ -113,11 +103,21 @@ def _compute_session(session, req: ProductRequest, device: torch.device):
             moment=req.moment, time_slice=req.time_slice,
             a=req.a, b=req.b, mode=req.mode, device=device,
         )
-    if req.kind in ("cappi", "column_max"):
-        raise NotImplementedError(
-            f"product {req.kind!r} is not ported yet: see ROADMAP.md, "
-            "'Modules to port', item 3 (repro_torch.radar.grid and the "
-            "grid_map kernel)"
+    if req.kind == "cappi":
+        req._require("vcp")
+        return _cappi_from_session(
+            session, vcp=req.vcp, moment=req.moment,
+            altitude_m=req.altitude_m, grid=req.grid, sweeps=req.sweeps,
+            time_slice=req.time_slice, method=req.method, mode=req.mode,
+            ny=req.ny, nx=req.nx, device=device,
+        )
+    if req.kind == "column_max":
+        req._require("vcp")
+        return _column_max_from_session(
+            session, vcp=req.vcp, moment=req.moment, grid=req.grid,
+            sweeps=req.sweeps, time_slice=req.time_slice,
+            method=req.method, mode=req.mode, ny=req.ny, nx=req.nx,
+            device=device,
         )
     raise ValueError(
         f"product {req.kind!r} needs a Catalog target, got a session"
@@ -125,14 +125,15 @@ def _compute_session(session, req: ProductRequest, device: torch.device):
 
 
 def compute_product(target, request: ProductRequest, *,
-                    device: Union[None, str, torch.device] = None,
+                    device: DeviceLike = None,
                     workers: Optional[int] = None, read_workers: int = 1):
     """Compute ``request`` against ``target`` and return its result.
 
     ``target`` is a read :class:`~repro_torch.store.Session` (one archive;
-    returns ``QVPResult`` / ``QPEResult``).  ``device`` is where the
-    product is computed: ``None`` means ``"cuda"``, and a missing GPU
-    raises ``RuntimeError`` unless the caller passes ``device="cpu"``.
+    returns ``QVPResult`` / ``QPEResult`` / ``GridProduct``).  ``device``
+    is where the product is computed: ``None`` means ``"cuda"``, and a
+    missing GPU raises ``RuntimeError`` unless the caller passes
+    ``device="cpu"``.
     ``device``, ``workers`` and ``read_workers`` are execution settings
     and deliberately *not* part of the request; ``workers`` and
     ``read_workers`` apply to catalog targets, which this package does not
@@ -148,7 +149,7 @@ def compute_product(target, request: ProductRequest, *,
             "ROADMAP.md, 'Modules to port', item 4 "
             "(repro_torch.catalog.federation)"
         )
-    return _compute_session(target, request, _resolve_device(device))
+    return _compute_session(target, request, resolve_device(device))
 
 
 __all__ = [

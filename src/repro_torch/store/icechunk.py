@@ -283,6 +283,9 @@ class Session:
         return self._cached_obj(f"stats:{sh}", f"stats/{sh}.json")
 
     # -- structure -------------------------------------------------------
+    def list_groups(self) -> List[str]:
+        return sorted(self._doc["groups"])
+
     def list_arrays(self, prefix: str = "") -> List[str]:
         return sorted(p for p in self._doc["arrays"] if p.startswith(prefix))
 
@@ -641,6 +644,18 @@ class Transaction(Session):
         doc["shape"] = list(new)
         self._touched.add(path)
         return self.array(path)
+
+    def delete_array(self, path: str) -> None:
+        """Drop an array (metadata, manifest, stat sidecar and anything
+        staged for it) from this transaction's snapshot."""
+        self._doc["arrays"].pop(path, None)
+        self._doc["manifests"].pop(path, None)
+        self._doc.get("stats", {}).pop(path, None)
+        self._staged_chunks.pop(path, None)
+        self._staged_arrays.pop(path, None)
+        self._staged_stats.pop(path, None)
+        self._manifest_cache.pop(path, None)
+        self._touched.add(path)
 
     # -- chunk staging -------------------------------------------------
     def stage_chunk_array(self, array_path: str, cid, chunk) -> None:

@@ -123,14 +123,14 @@ def test_compute_product_needs_the_gpu_unless_cpu_is_asked(archive,
 
 
 @pytest.mark.parametrize("kind, error", [
-    ("cappi", NotImplementedError),  # ROADMAP.md modules, item 3
-    ("column_max", NotImplementedError),
-    ("mosaic", ValueError),
+    ("mosaic", ValueError),      # a session target cannot mosaic
 ])
 def test_unported_kinds_raise(archive, kind, error):
+    """Every session kind is ported (cappi and column_max in
+    tests/test_torch_grid.py); the mosaic needs a Catalog target."""
     path, _ = archive
     with RadarArchive(Repository.open(path)).session() as session:
-        with pytest.raises(error):
+        with pytest.raises(error, match="needs a Catalog target"):
             compute_product(session, ProductRequest(kind=kind, vcp="VCP-212"),
                             device="cpu")
 
