@@ -10,10 +10,13 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together) into the package's
    ``kernels/build/`` directory;
 3. kernel check: each kernel against its plain PyTorch version on the
-   card, at the paths' shapes and at ragged ones (``qvp_reduce`` and
-   ``zr_accum`` with the tolerances of the reference package's kernel
-   tests, ``grid_map`` and ``grid_update`` bitwise), and twice for bitwise
-   stability;
+   card, at the paths' shapes and at ragged ones (``qvp_reduce``,
+   ``zr_accum`` and ``flash_attention`` with the tolerances of the
+   reference package's kernel tests, ``grid_map`` and ``grid_update``
+   bitwise), and twice for bitwise stability; ``flash_attention`` at the
+   LM's prefill shape and at its decode shape (one query against a strided
+   prefix of a 2048-long cache), in float32 and bfloat16, timed beside its
+   plain version and ``F.scaled_dot_product_attention``;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -28,11 +31,19 @@ Phases, each printing its own lines:
 5. times: each kernel (CUDA events, median) beside its plain version and
    its bound, and each product end to end, split into store read and
    decode, host-to-device copy, kernel, and device-to-host copy;
-6. the incremental path (last, since it appends to the archive):
-   incremental CAPPI, column-max and QPE states built at the archive's
-   head, then 3 scans appended one commit each; after each append every
-   state catches up and is held bitwise against the from-scratch product
-   at that head.
+6. the incremental path (it appends to the archive): incremental CAPPI,
+   column-max and QPE states built at the archive's head, then 3 scans
+   appended one commit each; after each append every state catches up and
+   is held bitwise against the from-scratch product at that head;
+7. the LM serve path: radar-lm-100m at full width from
+   ``init_params(seed=0)`` serves 8 radar scans of 1024 tokens drawn from
+   the archive (``RadarTokenDataset``) through ``Engine.generate``, 32 new
+   tokens each, greedy: in float32 the kernel route is held against the
+   blocked core (last-position prefill logits within 2e-3, greedy tokens
+   equal where the top-1/top-2 margin allows, exactly 12 x (1 + decode
+   steps) kernel launches), then the bfloat16 run of ``launch.serve`` is
+   timed: end to end, prefill, one decode step, the kernel's share, and a
+   profiler trace of decode steps.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -74,13 +85,14 @@ VCP_NAME = "VCP-212"
 DEV = "cuda"
 
 # published peaks (NVIDIA data sheets, dense, at the full power limit):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
-# Matched against the card's name in this order.
+# device-memory bytes/s, float32 FLOP/s outside the tensor cores, and
+# bfloat16 FLOP/s on the tensor cores.  Matched against the card's name in
+# this order.
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 QVP_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py, qvp_reduce
@@ -101,9 +113,9 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    for key, bw, flops in CARD_PEAKS:
+    for key, bw, flops, tc_flops in CARD_PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, tc_flops
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
@@ -485,6 +497,155 @@ def check_grid_kernels(peak_bw: float, peak_flops: float):
     return rows
 
 
+# -- phase 3c: the flash-attention kernel ------------------------------------
+
+# the LM serve path: radar-lm-100m at full width (12 layers, 12 query and 4
+# KV heads of 64), 8 archive scans of 1024 tokens as prompts, 32 new tokens
+# each, a 2048-long KV cache
+LM_ARCH = "radar-lm-100m"
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS, LM_MAX_LEN = 8, 1024, 32, 2048
+FA_F32_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_kernels.py:281
+FA_BF16_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_kernels.py:291
+LOGIT_TOL = 2e-3                           # tests/test_serve.py:33
+
+
+def lm_shape():
+    """(B, Hq, Hkv, D) of the serve path's attention calls."""
+    from repro_torch.configs import get_any_config
+
+    cfg = get_any_config(LM_ARCH)
+    return LM_PROMPTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """Query-key pairs the end-aligned causal mask lets through: query i
+    sees keys 0 .. skv - sq + i."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, skv - sq + i + 1) for i in range(sq))
+
+
+def attention_cost(b, hq, hkv, sq, skv, d, causal, itemsize):
+    """(bytes, operations) the function needs: q, k, v read once, o written
+    once; 2 flops for each of the d products of q.k and of p.v per pair."""
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
+    return nbytes, 4 * b * hq * d * visible_pairs(sq, skv, causal)
+
+
+def sdpa(q, k, v, causal: bool):
+    """One PyTorch call for the same function, the yardstick beside the
+    kernel (never called by the port).  Its ``is_causal`` aligns the mask
+    to the top left, so it is set only where Sq == Skv; a single query at
+    the end of the keys sees them all, which is no mask."""
+    from torch.nn import functional as F
+
+    sq, skv = q.shape[2], k.shape[2]
+    if causal and sq not in (1, skv):
+        raise ValueError("sdpa yardstick: an end-aligned causal mask needs "
+                         "Sq == Skv or Sq == 1")
+    return F.scaled_dot_product_attention(q, k, v,
+                                          is_causal=causal and sq == skv,
+                                          enable_gqa=True)
+
+
+def check_flash_attention(peak_bw: float, peak_flops: float,
+                          peak_tc: float):
+    """flash_attention against its plain version on the card: at the serve
+    path's prefill and decode shapes (the decode keys a strided prefix of
+    a longer cache), float32 at 2e-4 and bfloat16 at 5e-2, and at ragged
+    shapes; twice each, bitwise equal run to run.  Then timed beside the
+    plain version, SDPA and the bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    B, Hq, Hkv, D = lm_shape()
+    S = LM_PROMPT_LEN
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    def check(label, q, k, v, causal):
+        tol = FA_F32_TOL if q.dtype == torch.float32 else FA_BF16_TOL
+        got = ops.flash_attention(q, k, v, causal=causal, mode="kernel")
+        again = ops.flash_attention(q, k, v, causal=causal, mode="kernel")
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention {label}: not bitwise "
+                                 "stable")
+        err = compare(f"flash_attention {label}", got,
+                      ref.flash_attention(q, k, v, causal=causal), **tol)
+        say(f"check flash_attention {label}: max_abs_err {err:.3e} "
+            f"(tolerance {tol['atol']}), bitwise stable")
+        return err
+
+    # the path's shapes ------------------------------------------------------
+    errs, cases = [], {}
+    cache_k, cache_v = randn(B, Hkv, LM_MAX_LEN, D), randn(B, Hkv, LM_MAX_LEN,
+                                                           D)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        q = randn(B, Hq, S, D).to(dtype)
+        k, v = randn(B, Hkv, S, D).to(dtype), randn(B, Hkv, S, D).to(dtype)
+        errs.append(check(f"prefill {tag} B={B} Hq={Hq} Hkv={Hkv} Sq=Skv={S}"
+                          f" D={D}", q, k, v, True))
+        cases[f"prefill {tag}"] = (q, k, v, True)
+        ck, cv = cache_k.to(dtype), cache_v.to(dtype)
+        for kv_len in (S + 1, S + LM_NEW_TOKENS):
+            q1 = randn(B, Hq, 1, D).to(dtype)
+            k1, v1 = ck[:, :, :kv_len], cv[:, :, :kv_len]
+            errs.append(check(f"decode {tag} Sq=1 kv_len={kv_len} of a "
+                              f"{LM_MAX_LEN}-long cache", q1, k1, v1, True))
+            cases[f"decode {tag} {kv_len}"] = (q1, k1, v1, True)
+    # ragged shapes: Sq 1-130, Skv - Sq 0-140, D 16/32/64/128, both masks
+    rng = np.random.default_rng(SEED)
+    for i in range(24):
+        d = (16, 32, 64, 128)[i % 4]
+        hkv = int(rng.choice([1, 2, 4]))
+        hq = hkv * int(rng.choice([1, 2, 4]))
+        sq, extra = int(rng.integers(1, 131)), int(rng.integers(0, 141))
+        b, causal = int(rng.integers(1, 3)), bool(i % 3)
+        dtype = torch.bfloat16 if i % 5 == 4 else torch.float32
+        check(f"ragged B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={sq + extra} "
+              f"D={d} causal={causal} {str(dtype)[6:]}",
+              randn(b, hq, sq, d).to(dtype), randn(b, hkv, sq + extra, d)
+              .to(dtype), randn(b, hkv, sq + extra, d).to(dtype), causal)
+
+    # times at the path's shapes -----------------------------------------------
+    timed = {}
+    for label in ("prefill f32", "prefill bf16",
+                  f"decode bf16 {S + LM_NEW_TOKENS}"):
+        q, k, v, causal = cases[label]
+        row = {
+            "ms": time_cuda(lambda: ops.flash_attention(
+                q, k, v, causal=causal, mode="kernel")),
+            "plain_ms": time_cuda(lambda: ref.flash_attention(
+                q, k, v, causal=causal), reps=3, inner=3),
+            "library_ms": time_cuda(lambda: sdpa(q, k, v, causal)),
+        }
+        nbytes, nops = attention_cost(*q.shape[:2], k.shape[1], q.shape[2],
+                                      k.shape[2], q.shape[3], causal,
+                                      q.element_size())
+        peak = peak_tc if q.dtype == torch.bfloat16 else peak_flops
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        say(f"time flash_attention {label} (B={q.shape[0]} Hq={q.shape[1]} "
+            f"Hkv={k.shape[1]} Sq={q.shape[2]} Skv={k.shape[2]} "
+            f"D={q.shape[3]}): kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s), {nops / row['ms'] / 1e9:.1f} "
+            f"GFLOP/s and {nbytes / row['ms'] / 1e6:.1f} GB/s achieved")
+        timed[label] = row
+    # the JSON row: the bf16 prefill, the serve path's one call by operations
+    row = dict(timed["prefill bf16"], max_abs_err=max(errs))
+    row["decode_ms"] = timed[f"decode bf16 {S + LM_NEW_TOKENS}"]["ms"]
+    return {"flash_attention": row}
+
+
 # -- phase 4: the archive and the main path -----------------------------------
 
 def archive_volume(sim, site, vcp, i: int):
@@ -542,10 +703,12 @@ def build_archive(path: str):
 
 def kernel_modules():
     """Each kernel's wrapper module, which holds its launch counter."""
-    from repro_torch.kernels import grid_map, grid_update, qvp_reduce, zr_accum
+    from repro_torch.kernels import (flash_attention, grid_map, grid_update,
+                                     qvp_reduce, zr_accum)
 
     return {"qvp_reduce": qvp_reduce, "zr_accum": zr_accum,
-            "grid_map": grid_map, "grid_update": grid_update}
+            "grid_map": grid_map, "grid_update": grid_update,
+            "flash_attention": flash_attention}
 
 
 def reset_launches() -> None:
@@ -932,17 +1095,239 @@ def drive_incremental_path(archive, vcp, sim, site, rows) -> None:
         "no-ops")
 
 
+# -- phase 7: the LM serve path ------------------------------------------------
+
+def lm_prompts(archive):
+    """``LM_PROMPTS`` radar scans of ``LM_PROMPT_LEN`` tokens from the
+    archive (sweep 0, DBZH), the first batch of ``RadarTokenDataset``."""
+    from repro_torch.data import RadarTokenDataset
+
+    with archive.session() as session:
+        ds = RadarTokenDataset(session, vcp=VCP_NAME, sweep=QPE_SWEEP,
+                               moment="DBZH", seq_len=LM_PROMPT_LEN)
+        toks = next(iter(ds.batches(LM_PROMPTS, seed=SEED)))["tokens"]
+    say(f"lm prompts: {toks.shape[0]} scans of {toks.shape[1]} tokens from "
+        f"{VCP_NAME}/sweep_{QPE_SWEEP}/DBZH, {len(np.unique(toks))} distinct "
+        f"ids of {ds.tok.vocab_size}")
+    return toks
+
+
+def sync() -> None:
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive_lm_path(archive, rows) -> None:
+    """radar-lm-100m at full width from ``init_params(seed=0)`` serves the
+    archive prompts through ``Engine.generate``, greedy: first in float32
+    with the kernel against the blocked core (JAX's non-kernel core, plain
+    torch), then in bfloat16 as ``launch.serve`` runs on the card, timed."""
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, Request, decode, prefill
+
+    cfg = get_any_config(LM_ARCH)
+    t = time.perf_counter()
+    params = M.init_params(cfg, 0, device=DEV)
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    say(f"lm: {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters from init_params(seed=0) on {DEV} in "
+        f"{time.perf_counter() - t:.1f} s")
+    toks = lm_prompts(archive)
+    reqs = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in toks]
+    B, S = toks.shape
+
+    # float32: the kernel against the blocked core ----------------------------
+    f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
+                         remat="none")
+    last = {}
+    for impl in ("kernel", "blocked"):
+        caches = M.init_caches(cfg, f32, B, LM_MAX_LEN, device=DEV)
+        last[impl], _ = prefill(cfg, f32, params, caches,
+                                torch.from_numpy(toks).to(DEV),
+                                attn_impl=impl)
+        del caches
+    err = compare("lm prefill last-position logits, kernel vs blocked",
+                  last["kernel"], last["blocked"], rtol=LOGIT_TOL,
+                  atol=LOGIT_TOL)
+    say(f"lm f32 prefill: last-position logits {tuple(last['kernel'].shape)},"
+        f" kernel vs blocked max_abs_err {err:.3e} (tolerance {LOGIT_TOL})")
+    gens = {}
+    for impl in ("kernel", "blocked"):
+        eng = Engine(cfg, f32, params, max_len=LM_MAX_LEN, attn_impl=impl,
+                     device=DEV)
+        reset_launches()
+        out = eng.generate(reqs, seed=SEED)
+        launched = read_launches()
+        gens[impl] = np.stack([o.tokens for o in out])
+        expect = cfg.n_layers * (1 + eng.decode_steps) if impl == "kernel" \
+            else 0
+        say(f"lm f32 generate attn_impl={impl}: {gens[impl].shape} tokens, "
+            f"{eng.decode_steps} decode steps, kernel launches {launched}")
+        if launched["flash_attention"] != expect or any(
+                n for k, n in launched.items() if k != "flash_attention"):
+            raise AssertionError(f"lm {impl}: expected {expect} "
+                                 f"flash_attention launches and no other, "
+                                 f"got {launched}")
+        if gens[impl].shape != (B, LM_NEW_TOKENS) or not all(
+                o.finished == "length" for o in out):
+            raise AssertionError(f"lm {impl}: completions {gens[impl].shape}")
+    # the margins along the kernel's run: a full forward over prompt and
+    # generated tokens gives every step's logits
+    seqs = torch.from_numpy(np.concatenate([toks, gens["kernel"]], axis=1))
+    logits, _ = M.forward(cfg, f32, params, {"tokens": seqs.to(DEV)},
+                          attn_impl="kernel")
+    step_logits = logits[:, S - 1:-1]
+    margins = torch.topk(step_logits, 2, dim=-1).values
+    margins = (margins[..., 0] - margins[..., 1]).cpu()
+    del logits, step_logits
+    min_margin = float(margins.min())
+    same = gens["kernel"] == gens["blocked"]
+    if min_margin > LOGIT_TOL:
+        if not same.all():
+            raise AssertionError("lm: greedy tokens differ between the "
+                                 "kernel and the blocked core")
+        say(f"lm f32 greedy tokens: kernel == blocked for all {same.size}; "
+            f"smallest top-1/top-2 margin {min_margin:.4e} > {LOGIT_TOL}")
+    else:
+        # each row is compared up to its first step within the tolerance
+        for i in range(B):
+            low = np.flatnonzero(margins[i].numpy() <= LOGIT_TOL)
+            n = int(low[0]) if low.size else LM_NEW_TOKENS
+            if not same[i, :n].all():
+                raise AssertionError(f"lm: greedy tokens of request {i} "
+                                     f"differ before step {n}")
+        say(f"lm f32 greedy tokens: kernel == blocked up to each row's "
+            f"first step with a top-1/top-2 margin <= {LOGIT_TOL} "
+            f"(smallest margin {min_margin:.4e}); {int(same.sum())} of "
+            f"{same.size} equal")
+
+    # bfloat16, as launch.serve runs on the card, timed ------------------------
+    bf16 = ParallelConfig(compute_dtype="bfloat16",
+                          kv_cache_dtype="bfloat16", remat="none")
+    eng = Engine(cfg, bf16, params, max_len=LM_MAX_LEN, device=DEV)
+    eng.generate(reqs[:1], seed=SEED)          # warm-up (allocator, cuBLAS)
+    sync()
+    reset_launches()
+    steps0 = eng.decode_steps
+    t = time.perf_counter()
+    out = eng.generate(reqs, seed=SEED)
+    sync()
+    wall = time.perf_counter() - t
+    launched = read_launches()
+    steps = eng.decode_steps - steps0
+    new = sum(len(o.tokens) for o in out)
+    if launched["flash_attention"] != cfg.n_layers * (1 + steps):
+        raise AssertionError(f"lm bf16: launches {launched}, {steps} steps")
+    gen_bf16 = np.stack([o.tokens for o in out])
+    if gen_bf16.shape != (B, LM_NEW_TOKENS) or gen_bf16.min() < 0 \
+            or gen_bf16.max() >= cfg.vocab_size:
+        raise AssertionError(f"lm bf16: tokens {gen_bf16.shape}")
+    say(f"lm bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens after "
+        f"{S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
+        f"tokens/s; kernel launches {launched}; "
+        f"{int((gen_bf16 == gens['kernel']).sum())} of {gen_bf16.size} "
+        "tokens equal to the float32 run")
+    rows["flash_attention"]["launches"] = launched["flash_attention"]
+
+    # the split: prefill, then single decode steps
+    cp = eng.cparams
+    prompt = torch.from_numpy(toks).to(DEV)
+    pre, dec = [], []
+    for _ in range(3):
+        caches = M.init_caches(cfg, bf16, B, LM_MAX_LEN, device=DEV)
+        sync()
+        t = time.perf_counter()
+        logits, caches = prefill(cfg, bf16, cp, caches, prompt)
+        sync()
+        pre.append((time.perf_counter() - t) * 1e3)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    for i in range(LM_NEW_TOKENS):
+        t = time.perf_counter()
+        logits, caches = decode(cfg, bf16, cp, caches, nxt, S + i)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        sync()
+        dec.append((time.perf_counter() - t) * 1e3)
+    pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
+    row = rows["flash_attention"]
+    share_pre = cfg.n_layers * row["ms"] / pre_ms
+    share_dec = cfg.n_layers * row["decode_ms"] / dec_ms
+    say(f"time lm bf16: prefill {pre_ms:.2f} ms ({B} x {S} tokens, median "
+        f"of 3), decode {dec_ms:.3f} ms per step of {B} tokens (median of "
+        f"{LM_NEW_TOKENS}, {B / dec_ms * 1e3:.1f} tokens/s); flash_attention "
+        f"{cfg.n_layers} x {row['ms']:.4f} ms = {share_pre:.1%} of prefill, "
+        f"{cfg.n_layers} x {row['decode_ms']:.4f} ms = {share_dec:.1%} of a "
+        "decode step")
+    profile_decode(cfg, bf16, cp, caches, nxt, S + LM_NEW_TOKENS, dec_ms)
+
+
+def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
+                   n: int = 4, warmup: int = 2):
+    """``n`` decode steps traced by ``torch.profiler`` (device activity
+    only, after ``warmup`` traced steps so its start-up stays out): the
+    device's busy time per step by kernel name, set against the step time
+    measured without the profiler (``step_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.serve import decode
+
+    if DEV != "cuda":
+        return
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=n,
+                                   repeat=1)) as prof:
+        for i in range(warmup + n):
+            if i == warmup:
+                sync()
+                t = time.perf_counter()
+            logits, caches = decode(cfg, pcfg, cparams, caches, nxt,
+                                    start + i)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            if i == warmup + n - 1:
+                sync()
+                wall_ms = (time.perf_counter() - t) * 1e3 / n
+            prof.step()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
+    if not kernels or busy_ms <= 0:
+        say("profile lm decode: the profiler saw no device time; busy share "
+            "not measured")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    per_step = len(kernels) / n
+    say(f"profile lm decode ({n} steps traced): {per_step:.0f} device "
+        f"kernels per step, device busy {busy_ms:.3f} ms per step = "
+        f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms step measured "
+        f"without the profiler (idle {1 - busy_ms / step_ms:.1%}; "
+        f"{wall_ms:.3f} ms per step under the profiler); host time per "
+        f"launch {(step_ms - busy_ms) / per_step * 1e3:.1f} us; per step: "
+        + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+
+
 # the TPU kernel each hand-written kernel replaces (wrapper function)
 REPLACES = {
     "qvp_reduce": "src/repro/kernels/qvp_reduce.py:43",
     "zr_accum": "src/repro/kernels/zr_accum.py:44",
     "grid_map": "src/repro/kernels/grid_map.py:58",
     "grid_update": "src/repro/kernels/grid_update.py:59",
+    "flash_attention": "src/repro/kernels/flash_attention.py:87",
 }
 
 
-def run_phases(peak_bw: float, peak_flops: float):
-    """Phases 3 to 6; returns the per-kernel rows of the JSON line."""
+def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
+    """Phases 3 to 7; returns the per-kernel rows of the JSON line."""
     t_start = time.perf_counter()
 
     def elapsed(phase: str) -> None:
@@ -951,6 +1336,7 @@ def run_phases(peak_bw: float, peak_flops: float):
     # 3. kernels against their plain versions
     rows = check_kernels(peak_bw, peak_flops)
     rows.update(check_grid_kernels(peak_bw, peak_flops))
+    rows.update(check_flash_attention(peak_bw, peak_flops, peak_tc))
     elapsed("3 (kernel check)")
 
     # 4. the paths
@@ -973,19 +1359,24 @@ def run_phases(peak_bw: float, peak_flops: float):
         # 6. the incremental path, which appends to the archive
         drive_incremental_path(archive, vcp, sim, site, rows)
         elapsed("6 (incremental path)")
+        # 7. the LM serve path, prompts drawn from the archive
+        drive_lm_path(archive, rows)
+        elapsed("7 (LM serve path)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    say("library_ms: null for every kernel: no single PyTorch call computes "
-        "a quality-masked azimuthal mean, a Z-R integral, a masked weighted "
-        "mean over a gather map or a pos-mapped set/add/max combine")
+    say("library_ms: F.scaled_dot_product_attention for flash_attention "
+        "(timed beside it, never called by the port); null for the others: "
+        "no single PyTorch call computes a quality-masked azimuthal mean, a "
+        "Z-R integral, a masked weighted mean over a gather map or a "
+        "pos-mapped set/add/max combine")
     return [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
         "replaces": REPLACES[kname], "launches": row["launches"],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
+        "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
     } for kname, row in rows.items()]
 
 
@@ -1009,7 +1400,7 @@ def main() -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    peak_bw, peak_flops = card_peaks(name)
+    peak_bw, peak_flops, peak_tc = card_peaks(name)
     say(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda},"
         f" {torch.cuda.device_count()} device(s))")
 
@@ -1023,7 +1414,7 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 say(f"build {kname}: {line.strip()}")
 
-    kernels = run_phases(peak_bw, peak_flops)
+    kernels = run_phases(peak_bw, peak_flops, peak_tc)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

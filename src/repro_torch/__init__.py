@@ -6,9 +6,11 @@ geometry), so it never imports ``repro`` or ``jax``.  The archive format
 is byte-identical, so archives written by either package read back
 bitwise through the other.
 
-Slice 1 covers the paper's two case studies read from the versioned
-archive: ``repro_torch.radar.products.compute_product`` for the
-quasi-vertical profile (``kind="qvp"``) and Z-R accumulation
-(``kind="qpe"``), carried by the hand-written CUDA kernels in
+It covers the paper's two case studies read from the versioned archive
+(``repro_torch.radar.products.compute_product`` for the quasi-vertical
+profile and Z-R accumulation), the Cartesian and incremental products
+(``repro_torch.radar.grid``, ``.incremental``), and serving the
+radar-token LM (``repro_torch.serve.Engine``, ``python -m
+repro_torch.launch.serve``), carried by the hand-written CUDA kernels in
 ``repro_torch.kernels``.
 """

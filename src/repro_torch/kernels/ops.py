@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .flash_attention import flash_attention_cuda
 from .grid_map import grid_map_cuda
 from .grid_update import grid_update_cuda
 from .qvp_reduce import qvp_reduce_cuda
@@ -106,3 +107,19 @@ def zr_accum(
     return zr_accum_cuda(dbz.to(torch.float32).contiguous(),
                          dt_s.to(torch.float32).contiguous(),
                          a=a, b=b, dbz_min=dbz_min, dbz_max=dbz_max)
+
+
+def flash_attention(
+    q: torch.Tensor,           # (B, Hq, Sq, D)
+    k: torch.Tensor,           # (B, Hkv, Skv, D)
+    v: torch.Tensor,           # (B, Hkv, Skv, D)
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """Flash attention (kernel or plain version).  The kernel reads q, k
+    and v through their strides (a slice of a KV cache is not copied)."""
+    if not _use_kernel(q, mode):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)

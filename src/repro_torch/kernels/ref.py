@@ -142,3 +142,34 @@ def zr_accum(
     rate = torch.where(torch.isfinite(dbz) & (dbz >= dbz_min), rate, 0.0)
     w = (dt_s / 3600.0).to(torch.float32)[:, None, None]
     return torch.sum(rate * w, dim=0).to(torch.float32)
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, Hq, Sq, D)
+    k: torch.Tensor,            # (B, Hkv, Skv, D)
+    v: torch.Tensor,            # (B, Hkv, Skv, D)
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Reference attention with GQA head grouping.
+
+    For decode (Sq < Skv) the query block is aligned to the *end* of the
+    key sequence, i.e. query i attends to keys <= Skv - Sq + i.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum(
+        "bhqd,bhkd->bhqk", q.to(torch.float32), kk.to(torch.float32)
+    ) * scale
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        k_pos = torch.arange(Skv, device=q.device)[None, :]
+        logits = torch.where(q_pos >= k_pos, logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vv.to(torch.float32))
+    return out.to(q.dtype)

@@ -1,0 +1,87 @@
+"""Serving from the command line: batched generation on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch radar-lm-100m --requests 8 --prompt-len 64 --new-tokens 32
+
+The port of the reference package's ``launch/serve.py``: random
+parameters (``init_params(cfg, 0)``) and random prompts, as there.
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
+versions of the kernels.  Off the CPU the model computes in bfloat16 with a
+bfloat16 KV cache, on the CPU in float32.  ``--ckpt`` needs the training
+checkpoints (``train.checkpoint``), which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_any_config
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.models import model as M
+from repro_torch.radar._device import resolve_device
+from repro_torch.serve import Engine, Request
+
+
+def main(argv=None) -> None:
+    """CLI entry point; see the module docstring."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="radar-lm-100m")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="bound the engine batch size; requests are "
+                         "planned into FIFO batches (default: one batch)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the hand-written kernels) or cpu (their "
+                         "plain PyTorch versions)")
+    args = ap.parse_args(argv)
+
+    if args.ckpt:
+        raise SystemExit(
+            "--ckpt is not ported yet: loading a checkpoint needs "
+            "train.checkpoint (ROADMAP, 'Modules to port', item 7.3); drop "
+            "--ckpt to serve random parameters")
+    device = resolve_device(args.device)
+    cfg = get_any_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dtype = "float32" if device.type == "cpu" else "bfloat16"
+    pcfg = ParallelConfig(compute_dtype=dtype, kv_cache_dtype=dtype,
+                          remat="none")
+    params = M.init_params(cfg, 0, device=device)
+
+    eng = Engine(cfg, pcfg, params, max_len=args.max_len, device=device)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(
+            prompt=rng.integers(2, cfg.vocab_size,
+                                size=(args.prompt_len,)).astype(np.int32),
+            max_new_tokens=args.new_tokens,
+            temperature=args.temperature,
+        )
+        for _ in range(args.requests)
+    ]
+    t0 = time.time()
+    outs = eng.generate(reqs, seed=1, max_batch=args.max_batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    total_new = sum(int(np.asarray(o.tokens).shape[-1]) for o in outs)
+    print(f"{len(outs)} completions, {total_new} tokens in {dt:.2f}s "
+          f"({total_new / dt:.1f} tok/s) on {device}")
+    for i, o in enumerate(outs[:4]):
+        print(f"  req{i}: {np.asarray(o.tokens).ravel()[:16]} ... "
+              f"[{o.finished}]")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""Parameters of the reference package's model, as numpy arrays, into the
+port's :class:`~repro_torch.models.model.LMParams`.
+
+The reference's tree is ``{"embed": {"tokens", "head"}, "groups": [
+{"layer_i": {"mixer": {wq, wk, wv, wo}, "norm1", "ffn": {w_gate, w_up,
+w_down}, "norm2"}} stacked over the group's repeats, ...], "final_norm"}``.
+The port keeps the reference's leaf names and ``(d_in, d_out)`` layouts
+(it multiplies by the kernels itself and uses no ``nn.Linear``), so each
+leaf is copied as it is, and a stacked leaf is split along its leading
+repeat axis into one layer each.  A leaf of the one tree that the other
+lacks, or a shape that differs, raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..radar._device import DeviceLike, resolve_device
+from .model import LMParams, init_params
+
+Path = Tuple[Any, ...]
+
+
+def _flatten(tree: Any, prefix: Path = ()) -> Dict[Path, Any]:
+    if isinstance(tree, Mapping):
+        out: Dict[Path, Any] = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, prefix + (i,)))
+        return out
+    return {prefix: tree}
+
+
+def _port_leaves(params: LMParams):
+    """``(reference path, repeat or None, owning dict, leaf name)`` of every
+    parameter of ``params``."""
+    for group in ("embed", "final_norm"):
+        for name in params[group]:
+            yield (group, name), None, params[group], name
+    for gi, group in enumerate(params["groups"]):
+        for r, unit in enumerate(group):
+            for layer, p in unit.items():
+                for part, sub in p.items():
+                    for name in sub:
+                        yield ("groups", gi, layer, part, name), r, sub, name
+
+
+def from_reference(cfg: ModelConfig, tree: Any, *,
+                   dtype: torch.dtype = torch.float32,
+                   device: DeviceLike = None) -> LMParams:
+    """``tree`` (the reference's parameter pytree with numpy leaves) as the
+    port's parameters on ``device`` (``None`` means ``"cuda"``)."""
+    dev = resolve_device(device)
+    params = init_params(cfg, device="meta", dtype=dtype)
+    leaves = _flatten(tree)
+    seen = set()
+    for path, rep, owner, name in _port_leaves(params):
+        if path not in leaves:
+            raise ValueError("reference parameters lack "
+                             + "/".join(map(str, path)))
+        seen.add(path)
+        value = np.asarray(leaves[path])
+        if rep is not None:
+            reps = len(params["groups"][path[1]])
+            if value.ndim == 0 or value.shape[0] != reps:
+                raise ValueError(f"{'/'.join(map(str, path))}: reference "
+                                 f"shape {value.shape}, expected {reps} "
+                                 "stacked repeats")
+            value = value[rep]
+        want = tuple(owner[name].shape)
+        if value.shape != want:
+            raise ValueError(f"{'/'.join(map(str, path))}: reference shape "
+                             f"{value.shape}, port shape {want}")
+        owner[name] = nn.Parameter(
+            torch.from_numpy(np.array(value, dtype=np.float32)).to(
+                device=dev, dtype=dtype),
+            requires_grad=False)
+    extra = sorted("/".join(map(str, p)) for p in set(leaves) - seen)
+    if extra:
+        raise ValueError(f"reference parameters the port does not have: "
+                         f"{extra}")
+    return params

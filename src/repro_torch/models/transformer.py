@@ -1,0 +1,175 @@
+"""Block assembly: layer specs, layer groups, one block's forward pass.
+
+The port of the reference package's ``models/transformer.py`` for the
+``attn`` mixer with the ``dense`` FFN.  An architecture is a list of
+``(repeats, [LayerSpec, ...])`` groups (``layer_groups``, copied as it
+is); the reference stacks a group's parameters over the repeat dimension
+and runs it under ``lax.scan``, the port keeps one ``nn.ModuleDict`` per
+repeat in an ``nn.ModuleList`` and loops over them in Python (no remat: the
+port runs forward only).
+
+The other mixers (``mla``, ``mamba2``, ``mlstm``, ``slstm``,
+``shared_attn``) and the ``moe`` FFN raise ``NotImplementedError`` naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import attention
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+
+Params = Any
+
+# what each unported mixer or FFN is, and its ROADMAP "Modules to port" item
+_LATER = {
+    "mamba2": ("the Mamba-2 mixer (models.ssm, kernel mamba2_scan)", "8.1"),
+    "shared_attn": ("zamba2's shared attention block", "8.1"),
+    "mla": ("DeepSeek MLA", "8.2"),
+    "moe": ("the mixture-of-experts FFN (models.moe)", "8.2"),
+    "mlstm": ("the mLSTM mixer (models.xlstm)", "8.2"),
+    "slstm": ("the sLSTM mixer (models.xlstm)", "8.2"),
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error for a mixer or FFN that the port does not have yet."""
+    name, item = _LATER.get(what, (what, "8"))
+    return NotImplementedError(f"{name} is not ported yet: ROADMAP, "
+                               f"'Modules to port', item {item}")
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """Which mixer/FFN pair one layer instantiates."""
+    mixer: str                    # attn|mla|mamba2|mlstm|slstm|shared_attn
+    ffn: str = "dense"            # dense|moe|none
+    d_ff: int = 0                 # 0 -> cfg.d_ff
+
+
+def layer_groups(cfg: ModelConfig) -> List[Tuple[int, List[LayerSpec]]]:
+    """The (repeats, unit) decomposition for each architecture family."""
+    if cfg.mixer == "mamba2" and cfg.ssm and cfg.ssm.attn_every:
+        period = cfg.ssm.attn_every
+        unit = [LayerSpec("mamba2", "none")] * period + [
+            LayerSpec("shared_attn", "none")
+        ]
+        n_units = cfg.n_layers // period
+        rem = cfg.n_layers - n_units * period
+        groups = [(n_units, unit)]
+        if rem:
+            groups.append((rem, [LayerSpec("mamba2", "none")]))
+        return groups
+    if cfg.mixer == "mamba2":
+        return [(cfg.n_layers, [LayerSpec("mamba2", "none")])]
+    if cfg.mixer == "mlstm":
+        x = cfg.xlstm
+        per = x.slstm_every
+        unit = [LayerSpec("mlstm", "none")] * (per - 1) + [
+            LayerSpec("slstm", "none")
+        ]
+        return [(cfg.n_layers // per, unit)]
+    mixer = "mla" if cfg.mla is not None else "attn"
+    if cfg.moe is not None:
+        m = cfg.moe
+        groups: List[Tuple[int, List[LayerSpec]]] = []
+        if m.first_dense:
+            groups.append(
+                (m.first_dense,
+                 [LayerSpec(mixer, "dense", m.dense_d_ff or cfg.d_ff)])
+            )
+        remaining = cfg.n_layers - m.first_dense
+        if m.interleave > 1:
+            unit = [LayerSpec(mixer, "dense", m.dense_d_ff or cfg.d_ff)] * (
+                m.interleave - 1
+            ) + [LayerSpec(mixer, "moe")]
+            groups.append((remaining // m.interleave, unit))
+        else:
+            groups.append((remaining, [LayerSpec(mixer, "moe")]))
+        return groups
+    return [(cfg.n_layers, [LayerSpec(mixer, "dense")])]
+
+
+# ---------------------------------------------------------------------------
+# per-spec init / apply
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dtype,
+               device) -> nn.ModuleDict:
+    """One layer's parameters: ``mixer``, ``norm1``, ``ffn``, ``norm2``."""
+    if spec.mixer != "attn":
+        raise not_ported(spec.mixer)
+    if spec.ffn not in ("dense", "none"):
+        raise not_ported(spec.ffn)
+    p = nn.ModuleDict({
+        "mixer": attention.init_attn(cfg, gen, dtype, device),
+        "norm1": init_norm(cfg, cfg.d_model, dtype, device),
+    })
+    if spec.ffn == "dense":
+        p["ffn"] = init_mlp(cfg, gen, cfg.d_model, spec.d_ff or cfg.d_ff,
+                            dtype, device)
+        p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
+    return p
+
+
+def apply_layer(
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    p: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,
+    attn_impl: str = "blocked",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Dict]]:
+    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual)."""
+    if spec.mixer != "attn":
+        raise not_ported(spec.mixer)
+    h = apply_norm(cfg, p["norm1"], x)
+    o, new_cache = attention.apply_attn(
+        cfg, p["mixer"], h, positions, cache=cache, cache_index=cache_index,
+        impl=attn_impl,
+    )
+    x = x + o
+    if spec.ffn == "dense":
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_mlp(dataclasses.replace(cfg, d_ff=spec.d_ff or cfg.d_ff),
+                          p["ffn"], h)
+    elif spec.ffn != "none":
+        raise not_ported(spec.ffn)
+    return x, {}, new_cache
+
+
+def apply_unit(
+    cfg: ModelConfig,
+    unit: List[LayerSpec],
+    unit_params: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    caches: Optional[List] = None,
+    cache_index: Optional[int] = None,
+    attn_impl: str = "blocked",
+):
+    """Apply one repeat unit (its list of layers, ``layer_{i}`` each)."""
+    aux_total: Dict[str, torch.Tensor] = {}
+    new_caches = [] if caches is not None else None
+    for i, spec in enumerate(unit):
+        x, aux, nc = apply_layer(
+            cfg, spec, unit_params[f"layer_{i}"], x, positions,
+            cache=caches[i] if caches is not None else None,
+            cache_index=cache_index, attn_impl=attn_impl,
+        )
+        for k, v in aux.items():
+            aux_total[k] = aux_total.get(k, 0.0) + v
+        if new_caches is not None:
+            new_caches.append(nc)
+    return x, aux_total, new_caches

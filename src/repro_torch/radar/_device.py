@@ -1,4 +1,6 @@
-"""Where a product is computed: the GPU unless the caller asks for the CPU."""
+"""Where the port computes: the GPU unless the caller asks for the CPU.
+
+Shared by every entry point: the radar products and the LM serve stack."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ def resolve_device(device: DeviceLike) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "this product runs on the GPU and no CUDA device is available; "
+            "this entry point runs on the GPU and no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev

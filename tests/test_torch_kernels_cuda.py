@@ -12,8 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (grid_map, grid_update, ops,  # noqa: E402
-                                 qvp_reduce, zr_accum)
+from repro_torch.kernels import (flash_attention, grid_map,  # noqa: E402
+                                 grid_update, ops, qvp_reduce, zr_accum)
 from repro_torch.kernels import ref  # noqa: E402
 
 QVP_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py, qvp_reduce
@@ -130,3 +130,35 @@ def test_grid_update_kernel_matches_plain_on_card_bitwise(t, c, frac, op):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     with pytest.raises(ValueError, match="unknown grid_update op"):
         ops.grid_update(state, upd, pos, op="mul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, hq, hkv, sq, extra, d, causal", [
+    (1, 4, 2, 1, 0, 16, True), (2, 4, 1, 130, 140, 32, True),
+    (1, 2, 2, 65, 0, 128, False), (2, 12, 4, 1, 1055, 64, True),
+    (1, 12, 4, 200, 0, 64, True), (1, 8, 8, 3, 61, 16, False)])
+def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
+                                                      d, causal, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(sq + extra + d)
+    skv = sq + extra
+    dt = getattr(torch, dtype)
+    q = _t(rng.normal(size=(b, hq, sq, d)).astype(np.float32)).cuda().to(dt)
+    # keys and values as the prefix of a longer cache, read in place
+    cache = _t(rng.normal(size=(2, b, hkv, skv + 37, d)).astype(np.float32))
+    k, v = (c[:, :, :skv] for c in cache.cuda().to(dt))
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-4 if dtype == "float32" else 5e-2    # tests/test_kernels.py
+    want = ref.flash_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :8], k[..., :8], v[..., :8])
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
