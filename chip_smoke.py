@@ -11,12 +11,17 @@ Phases, each printing its own lines:
    ``kernels/build/`` directory;
 3. kernel check: each kernel against its plain PyTorch version on the
    card, at the paths' shapes and at ragged ones (``qvp_reduce``,
-   ``zr_accum`` and ``flash_attention`` with the tolerances of the
-   reference package's kernel tests, ``grid_map`` and ``grid_update``
-   bitwise), and twice for bitwise stability; ``flash_attention`` at the
-   LM's prefill shape and at its decode shape (one query against a strided
-   prefix of a 2048-long cache), in float32 and bfloat16, timed beside its
-   plain version and ``F.scaled_dot_product_attention``;
+   ``zr_accum``, ``flash_attention`` and ``mamba2_scan`` with the
+   tolerances of the reference package's kernel tests, ``grid_map`` and
+   ``grid_update`` bitwise), and twice for bitwise stability;
+   ``flash_attention`` at the LM's prefill shape and at its decode shape
+   (one query against a strided prefix of a 2048-long cache), in float32
+   and bfloat16, timed beside its plain version and
+   ``F.scaled_dot_product_attention``; ``mamba2_scan`` at zamba2's prefill
+   shape (8 x 1024 tokens, 64 heads, P = N = 64) with and without a start
+   state and at its decode shape (one token from a state), in float32 and
+   bfloat16, at ragged lengths, and split in two halves against the whole,
+   timed beside its plain version (the sequential recurrence);
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -43,7 +48,14 @@ Phases, each printing its own lines:
    equal where the top-1/top-2 margin allows, exactly 12 x (1 + decode
    steps) kernel launches), then the bfloat16 run of ``launch.serve`` is
    timed: end to end, prefill, one decode step, the kernel's share, and a
-   profiler trace of decode steps.
+   profiler trace of decode steps;
+8. the zamba2 serve path: zamba2-1.2b at full width (38 Mamba-2 layers,
+   the shared attention block after every 6) from ``init_params(seed=0)``
+   serves the same prompts the same way: float32 kernel route against the
+   non-kernel one (the chunked SSD, the sequential recurrence and the
+   blocked core), exactly 38 x (1 + decode steps) ``mamba2_scan`` and
+   6 x (1 + decode steps) ``flash_attention`` launches, then bfloat16
+   timed, with the peak device memory.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -646,6 +658,155 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
     return {"flash_attention": row}
 
 
+# -- phase 3d: the mamba2_scan kernel ------------------------------------------
+
+# the zamba2 serve path: zamba2-1.2b at full width (38 Mamba-2 layers of
+# 64 heads, P = N = 64; a shared attention block of 32 query and 32 KV heads
+# of 64 after every 6), the same 8 archive prompts of 1024 tokens, 32 new
+# tokens each, a 2048-long KV cache
+ZAMBA_ARCH = "zamba2-1.2b"
+SSM_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py:330-331
+# bf16: the kernel and its plain version take the same bf16 inputs and
+# compute in float32; their y differ by the order of the sums and by one
+# bf16 rounding, at most one bf16 step (2**-7 of |y|); the state stays
+# float32 and is held at SSM_TOL
+SSM_BF16_Y_TOL = dict(rtol=1e-2, atol=1e-2)
+SSM_CHUNK = 64                             # csrc/mamba2_scan.cu, kCS
+
+
+def zamba_shape():
+    """(B, L, H, P, N) of the zamba2 serve path's prefill scans."""
+    from repro_torch.configs import get_any_config
+
+    cfg = get_any_config(ZAMBA_ARCH)
+    s = cfg.ssm
+    return (LM_PROMPTS, LM_PROMPT_LEN, s.expand * cfg.d_model // s.head_dim,
+            s.head_dim, s.d_state)
+
+
+def ssd_cost(b, l, h, p, n, itemsize, with_h0, cs=SSM_CHUNK):
+    """(bytes, operations) the scan needs: x, B, C, dt, A (and h0) read
+    once, y and the final state written once; operations of the chunked
+    form at the kernel's chunk length, with C.B^T once per (batch, chunk)
+    and only the s <= t half of a chunk's pairs: 2 N flops a pair for
+    C.B^T, 2 P a pair and head for M x, and 2 P N a token and head each
+    for C h and for the state update."""
+    nbytes = (2 * b * l * h * p + 2 * b * l * n) * itemsize + 4 * (
+        b * l * h + h + b * h * p * n * (2 if with_h0 else 1))
+    ops = 0
+    for c0 in range(0, l, cs):
+        c = min(cs, l - c0)
+        pairs = c * (c + 1) // 2
+        ops += b * (2 * pairs * n + h * (2 * pairs * p + 4 * c * p * n))
+    return nbytes, ops
+
+
+def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
+    """mamba2_scan against its plain version (the sequential recurrence) on
+    the card: at the zamba2 path's prefill shape with and without a start
+    state, float32 and bfloat16, at its decode shape (one token from a
+    state), at ragged lengths, and a scan split in two halves (the second
+    from the first's state) against the whole; twice each, bitwise equal
+    run to run.  Then timed beside the plain version and the bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    B, L, H, P, N = zamba_shape()
+
+    def inputs(b, l, h, p, n, dtype, with_h0):
+        # x, B and C as views of one wider last axis, as the conv output's
+        # split gives them to the kernel on the path
+        wide = torch.randn((b, l, h * p + 2 * n), generator=gen,
+                           device=DEV).to(dtype)
+        x = wide[..., :h * p].reshape(b, l, h, p)
+        dt = torch.rand((b, l, h), generator=gen, device=DEV) * 0.099 + 0.001
+        A = -torch.linspace(1.0, 16.0, h, device=DEV)   # -exp(A_log) at init
+        h0 = (torch.randn((b, h, p, n), generator=gen, device=DEV)
+              if with_h0 else None)
+        return x, dt, A, wide[..., h * p:h * p + n], wide[..., h * p + n:], h0
+
+    def run(args):
+        return ops.mamba2_scan(*args[:5], h0=args[5], mode="kernel")
+
+    def check(label, args):
+        y, h_n = run(args)
+        y2, h2 = run(args)
+        sync()
+        if not (torch.equal(y, y2) and torch.equal(h_n, h2)):
+            raise AssertionError(f"mamba2_scan {label}: not bitwise stable")
+        y_ref, h_ref = ref.mamba2_scan(*args[:5], h0=args[5])
+        ytol = SSM_TOL if args[0].dtype == torch.float32 else SSM_BF16_Y_TOL
+        err = max(compare(f"mamba2_scan {label} y", y, y_ref, **ytol),
+                  compare(f"mamba2_scan {label} state", h_n, h_ref,
+                          **SSM_TOL))
+        say(f"check mamba2_scan {label}: max_abs_err {err:.3e} (tolerance "
+            f"rtol = atol = {ytol['atol']} for y, {SSM_TOL['atol']} for the "
+            "state), bitwise stable")
+        return err, y, h_n
+
+    # the path's shapes -------------------------------------------------------
+    errs, cases = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for with_h0 in (False, True):
+            args = inputs(B, L, H, P, N, dtype, with_h0)
+            errs.append(check(f"prefill {tag} B={B} L={L} H={H} P={P} N={N}"
+                              f" h0={'given' if with_h0 else 'None'}",
+                              args)[0])
+            cases[f"prefill {tag}" + (" h0" if with_h0 else "")] = args
+        args = inputs(B, 1, H, P, N, dtype, True)
+        errs.append(check(f"decode {tag} L=1 from a state", args)[0])
+        cases[f"decode {tag}"] = args
+    # ragged lengths: one token, a non-multiple of the chunk, one above it
+    for i, (l, p, n) in enumerate(((1, 16, 16), (100, 16, 8), (SSM_CHUNK + 1,
+                                   32, 16), (1000, 64, 64))):
+        dtype = torch.bfloat16 if i % 2 else torch.float32
+        check(f"ragged B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
+              "state", inputs(2, l, 3, p, n, dtype, True))
+    # the state continues: two halves, the second from the first's state
+    x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, torch.float32, False)
+    _, y_all, h_all = check("whole B=2 L=512 H=4 f32", (x, dt, A, Bm, Cm,
+                                                         None))
+    y1, h1 = run((x[:, :300], dt[:, :300], A, Bm[:, :300], Cm[:, :300], None))
+    y2, h2 = run((x[:, 300:], dt[:, 300:], A, Bm[:, 300:], Cm[:, 300:], h1))
+    err = max(compare("mamba2_scan halves y", torch.cat([y1, y2], dim=1),
+                      y_all, **SSM_TOL),
+              compare("mamba2_scan halves state", h2, h_all, **SSM_TOL))
+    say(f"check mamba2_scan state continuation (300 + 212 tokens against "
+        f"512): max_abs_err {err:.3e} (tolerance {SSM_TOL['atol']})")
+
+    # times at the path's shapes -----------------------------------------------
+    timed = {}
+    for label in ("prefill f32 h0", "prefill bf16 h0", "decode bf16"):
+        args = cases[label]
+        x, h0 = args[0], args[5]
+        row = {
+            "ms": time_cuda(lambda: run(args)),
+            "plain_ms": time_cuda(lambda: ref.mamba2_scan(*args[:5], h0=h0),
+                                  reps=3, inner=1),
+            "library_ms": None,
+        }
+        nbytes, nops = ssd_cost(*x.shape, N, x.element_size(), h0 is not None)
+        peak = peak_tc if x.dtype == torch.bfloat16 else peak_flops
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        say(f"time mamba2_scan {label} (B={x.shape[0]} L={x.shape[1]} "
+            f"H={x.shape[2]} P={x.shape[3]} N={N}): kernel {row['ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+            f" ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+            f"{nops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
+            f"{nops / row['ms'] / 1e9:.1f} GFLOP/s and "
+            f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved")
+        timed[label] = row
+    # the JSON row: the bf16 prefill from the cache's state, as the path
+    # calls it
+    row = dict(timed["prefill bf16 h0"], max_abs_err=max(errs))
+    row["decode_ms"] = timed["decode bf16"]["ms"]
+    return {"mamba2_scan": row}
+
+
 # -- phase 4: the archive and the main path -----------------------------------
 
 def archive_volume(sim, site, vcp, i: int):
@@ -704,11 +865,11 @@ def build_archive(path: str):
 def kernel_modules():
     """Each kernel's wrapper module, which holds its launch counter."""
     from repro_torch.kernels import (flash_attention, grid_map, grid_update,
-                                     qvp_reduce, zr_accum)
+                                     mamba2_scan, qvp_reduce, zr_accum)
 
     return {"qvp_reduce": qvp_reduce, "zr_accum": zr_accum,
             "grid_map": grid_map, "grid_update": grid_update,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "mamba2_scan": mamba2_scan}
 
 
 def reset_launches() -> None:
@@ -1119,46 +1280,123 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
+def path_launches(cfg):
+    """Kernel launches per prefill or decode step under
+    ``attn_impl="kernel"``: one ``flash_attention`` per attention layer
+    (zamba2's shared block included) and one ``mamba2_scan`` per Mamba-2
+    layer."""
+    from repro_torch.models.model import layer_groups
+
+    kernel = {"attn": "flash_attention", "shared_attn": "flash_attention",
+              "mamba2": "mamba2_scan"}
+    out = {}
+    for reps, unit in layer_groups(cfg):
+        for spec in unit:
+            name = kernel[spec.mixer]
+            out[name] = out.get(name, 0) + reps
+    return out
+
+
+def time_attention_at(cfg):
+    """flash_attention at a serve path's own shapes, bf16 (CUDA events):
+    -> (prefill ms, decode ms of one query against a
+    ``LM_PROMPT_LEN + LM_NEW_TOKENS`` prefix of the cache)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    B, S, hq, hkv, d = (LM_PROMPTS, LM_PROMPT_LEN, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.head_dim)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16)
+
+    q, k, v = randn(B, hq, S, d), randn(B, hkv, S, d), randn(B, hkv, S, d)
+    pre = time_cuda(lambda: ops.flash_attention(q, k, v, mode="kernel"))
+    q1 = randn(B, hq, 1, d)
+    ck, cv = randn(B, hkv, LM_MAX_LEN, d), randn(B, hkv, LM_MAX_LEN, d)
+    n = S + LM_NEW_TOKENS
+    dec = time_cuda(lambda: ops.flash_attention(q1, ck[:, :, :n],
+                                                cv[:, :, :n], mode="kernel"))
+    return pre, dec
+
+
 def drive_lm_path(archive, rows) -> None:
-    """radar-lm-100m at full width from ``init_params(seed=0)`` serves the
+    """radar-lm-100m at full width serves the archive prompts."""
+    row = rows["flash_attention"]
+    drive_serve_path(archive, rows, LM_ARCH, "lm",
+                     {"flash_attention": (row["ms"], row["decode_ms"])})
+
+
+def drive_zamba2_path(archive, rows) -> None:
+    """zamba2-1.2b at full width serves the archive prompts; its attention
+    shape is timed here, its scans' times come from the kernel check."""
+    from repro_torch.configs import get_any_config
+
+    row = rows["mamba2_scan"]
+    drive_serve_path(archive, rows, ZAMBA_ARCH, "zamba2", {
+        "flash_attention": time_attention_at(get_any_config(ZAMBA_ARCH)),
+        "mamba2_scan": (row["ms"], row["decode_ms"])})
+
+
+def drive_serve_path(archive, rows, arch: str, tag: str,
+                     kernel_ms) -> None:
+    """``arch`` at full width from ``init_params(seed=0)`` serves the
     archive prompts through ``Engine.generate``, greedy: first in float32
-    with the kernel against the blocked core (JAX's non-kernel core, plain
-    torch), then in bfloat16 as ``launch.serve`` runs on the card, timed."""
+    with the kernel route against the non-kernel one (JAX's blocked
+    attention core, chunked SSD and sequential recurrence, in plain
+    torch), then in bfloat16 as ``launch.serve`` runs on the card, timed.
+    ``kernel_ms`` gives each kernel's (prefill, decode) ms at this path's
+    shapes, for its share of a step."""
     import torch
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, Request, decode, prefill
 
-    cfg = get_any_config(LM_ARCH)
+    cfg = get_any_config(arch)
+    per_call = path_launches(cfg)
     t = time.perf_counter()
     params = M.init_params(cfg, 0, device=DEV)
     sync()
     n_params = sum(p.numel() for p in params.parameters())
-    say(f"lm: {cfg.name} at full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{n_params} parameters from init_params(seed=0) on {DEV} in "
-        f"{time.perf_counter() - t:.1f} s")
+    mixers = sorted({s.mixer for _r, u in M.layer_groups(cfg) for s in u})
+    say(f"{tag}: {cfg.name} at full width: {cfg.n_layers} layers "
+        f"({', '.join(mixers)}), d_model {cfg.d_model}, {cfg.n_heads} query "
+        f"/ {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; {n_params} parameters from "
+        f"init_params(seed=0) on {DEV} in {time.perf_counter() - t:.1f} s; "
+        f"kernel launches per prefill or step {per_call}")
     toks = lm_prompts(archive)
     reqs = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in toks]
     B, S = toks.shape
 
-    # float32: the kernel against the blocked core ----------------------------
+    def expected(impl, steps):
+        return {k: per_call.get(k, 0) * (1 + steps) if impl == "kernel"
+                else 0 for k in kernel_modules()}
+
+    # float32: the kernel route against the non-kernel one ---------------------
     f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
                          remat="none")
     last = {}
     for impl in ("kernel", "blocked"):
         caches = M.init_caches(cfg, f32, B, LM_MAX_LEN, device=DEV)
+        sync()
+        t = time.perf_counter()
         last[impl], _ = prefill(cfg, f32, params, caches,
                                 torch.from_numpy(toks).to(DEV),
                                 attn_impl=impl)
+        sync()
+        say(f"{tag} f32 prefill attn_impl={impl}: "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms")
         del caches
-    err = compare("lm prefill last-position logits, kernel vs blocked",
+    err = compare(f"{tag} prefill last-position logits, kernel vs blocked",
                   last["kernel"], last["blocked"], rtol=LOGIT_TOL,
                   atol=LOGIT_TOL)
-    say(f"lm f32 prefill: last-position logits {tuple(last['kernel'].shape)},"
-        f" kernel vs blocked max_abs_err {err:.3e} (tolerance {LOGIT_TOL})")
+    say(f"{tag} f32 prefill: last-position logits "
+        f"{tuple(last['kernel'].shape)}, kernel vs blocked max_abs_err "
+        f"{err:.3e} (tolerance {LOGIT_TOL})")
     gens = {}
     for impl in ("kernel", "blocked"):
         eng = Engine(cfg, f32, params, max_len=LM_MAX_LEN, attn_impl=impl,
@@ -1167,18 +1405,17 @@ def drive_lm_path(archive, rows) -> None:
         out = eng.generate(reqs, seed=SEED)
         launched = read_launches()
         gens[impl] = np.stack([o.tokens for o in out])
-        expect = cfg.n_layers * (1 + eng.decode_steps) if impl == "kernel" \
-            else 0
-        say(f"lm f32 generate attn_impl={impl}: {gens[impl].shape} tokens, "
-            f"{eng.decode_steps} decode steps, kernel launches {launched}")
-        if launched["flash_attention"] != expect or any(
-                n for k, n in launched.items() if k != "flash_attention"):
-            raise AssertionError(f"lm {impl}: expected {expect} "
-                                 f"flash_attention launches and no other, "
+        expect = expected(impl, eng.decode_steps)
+        say(f"{tag} f32 generate attn_impl={impl}: {gens[impl].shape} "
+            f"tokens, {eng.decode_steps} decode steps, kernel launches "
+            f"{launched}")
+        if launched != expect:
+            raise AssertionError(f"{tag} {impl}: expected launches {expect}, "
                                  f"got {launched}")
         if gens[impl].shape != (B, LM_NEW_TOKENS) or not all(
                 o.finished == "length" for o in out):
-            raise AssertionError(f"lm {impl}: completions {gens[impl].shape}")
+            raise AssertionError(f"{tag} {impl}: completions "
+                                 f"{gens[impl].shape}")
     # the margins along the kernel's run: a full forward over prompt and
     # generated tokens gives every step's logits
     seqs = torch.from_numpy(np.concatenate([toks, gens["kernel"]], axis=1))
@@ -1192,19 +1429,20 @@ def drive_lm_path(archive, rows) -> None:
     same = gens["kernel"] == gens["blocked"]
     if min_margin > LOGIT_TOL:
         if not same.all():
-            raise AssertionError("lm: greedy tokens differ between the "
-                                 "kernel and the blocked core")
-        say(f"lm f32 greedy tokens: kernel == blocked for all {same.size}; "
-            f"smallest top-1/top-2 margin {min_margin:.4e} > {LOGIT_TOL}")
+            raise AssertionError(f"{tag}: greedy tokens differ between the "
+                                 "kernel and the blocked route")
+        say(f"{tag} f32 greedy tokens: kernel == blocked for all "
+            f"{same.size}; smallest top-1/top-2 margin {min_margin:.4e} > "
+            f"{LOGIT_TOL}")
     else:
         # each row is compared up to its first step within the tolerance
         for i in range(B):
             low = np.flatnonzero(margins[i].numpy() <= LOGIT_TOL)
             n = int(low[0]) if low.size else LM_NEW_TOKENS
             if not same[i, :n].all():
-                raise AssertionError(f"lm: greedy tokens of request {i} "
+                raise AssertionError(f"{tag}: greedy tokens of request {i} "
                                      f"differ before step {n}")
-        say(f"lm f32 greedy tokens: kernel == blocked up to each row's "
+        say(f"{tag} f32 greedy tokens: kernel == blocked up to each row's "
             f"first step with a top-1/top-2 margin <= {LOGIT_TOL} "
             f"(smallest margin {min_margin:.4e}); {int(same.sum())} of "
             f"{same.size} equal")
@@ -1215,6 +1453,8 @@ def drive_lm_path(archive, rows) -> None:
     eng = Engine(cfg, bf16, params, max_len=LM_MAX_LEN, device=DEV)
     eng.generate(reqs[:1], seed=SEED)          # warm-up (allocator, cuBLAS)
     sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_launches()
     steps0 = eng.decode_steps
     t = time.perf_counter()
@@ -1222,20 +1462,26 @@ def drive_lm_path(archive, rows) -> None:
     sync()
     wall = time.perf_counter() - t
     launched = read_launches()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
+               else float("nan"))
     steps = eng.decode_steps - steps0
     new = sum(len(o.tokens) for o in out)
-    if launched["flash_attention"] != cfg.n_layers * (1 + steps):
-        raise AssertionError(f"lm bf16: launches {launched}, {steps} steps")
+    if launched != expected("kernel", steps):
+        raise AssertionError(f"{tag} bf16: launches {launched}, {steps} "
+                             "steps")
     gen_bf16 = np.stack([o.tokens for o in out])
     if gen_bf16.shape != (B, LM_NEW_TOKENS) or gen_bf16.min() < 0 \
             or gen_bf16.max() >= cfg.vocab_size:
-        raise AssertionError(f"lm bf16: tokens {gen_bf16.shape}")
-    say(f"lm bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens after "
-        f"{S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
-        f"tokens/s; kernel launches {launched}; "
+        raise AssertionError(f"{tag} bf16: tokens {gen_bf16.shape}")
+    say(f"{tag} bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens "
+        f"after {S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
+        f"tokens/s; kernel launches {launched}; peak device memory "
+        f"{peak_gb:.2f} GB (max_memory_allocated); "
         f"{int((gen_bf16 == gens['kernel']).sum())} of {gen_bf16.size} "
         "tokens equal to the float32 run")
-    rows["flash_attention"]["launches"] = launched["flash_attention"]
+    for name, n in launched.items():
+        if n:
+            rows[name]["launches"] = rows[name].get("launches", 0) + n
 
     # the split: prefill, then single decode steps
     cp = eng.cparams
@@ -1256,20 +1502,22 @@ def drive_lm_path(archive, rows) -> None:
         sync()
         dec.append((time.perf_counter() - t) * 1e3)
     pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
-    row = rows["flash_attention"]
-    share_pre = cfg.n_layers * row["ms"] / pre_ms
-    share_dec = cfg.n_layers * row["decode_ms"] / dec_ms
-    say(f"time lm bf16: prefill {pre_ms:.2f} ms ({B} x {S} tokens, median "
-        f"of 3), decode {dec_ms:.3f} ms per step of {B} tokens (median of "
-        f"{LM_NEW_TOKENS}, {B / dec_ms * 1e3:.1f} tokens/s); flash_attention "
-        f"{cfg.n_layers} x {row['ms']:.4f} ms = {share_pre:.1%} of prefill, "
-        f"{cfg.n_layers} x {row['decode_ms']:.4f} ms = {share_dec:.1%} of a "
-        "decode step")
-    profile_decode(cfg, bf16, cp, caches, nxt, S + LM_NEW_TOKENS, dec_ms)
+    shares = "; ".join(
+        f"{name} {n} x {kernel_ms[name][0]:.4f} ms = "
+        f"{n * kernel_ms[name][0] / pre_ms:.1%} of prefill, {n} x "
+        f"{kernel_ms[name][1]:.4f} ms = "
+        f"{n * kernel_ms[name][1] / dec_ms:.1%} of a decode step"
+        for name, n in per_call.items())
+    say(f"time {tag} bf16: prefill {pre_ms:.2f} ms ({B} x {S} tokens, "
+        f"median of 3), decode {dec_ms:.3f} ms per step of {B} tokens "
+        f"(median of {LM_NEW_TOKENS}, {B / dec_ms * 1e3:.1f} tokens/s); "
+        f"{shares}")
+    profile_decode(cfg, bf16, cp, caches, nxt, S + LM_NEW_TOKENS, dec_ms,
+                   tag=tag)
 
 
 def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
-                   n: int = 4, warmup: int = 2):
+                   n: int = 4, warmup: int = 2, tag: str = "lm"):
     """``n`` decode steps traced by ``torch.profiler`` (device activity
     only, after ``warmup`` traced steps so its start-up stays out): the
     device's busy time per step by kernel name, set against the step time
@@ -1299,15 +1547,15 @@ def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
     if not kernels or busy_ms <= 0:
-        say("profile lm decode: the profiler saw no device time; busy share "
-            "not measured")
+        say(f"profile {tag} decode: the profiler saw no device time; busy "
+            "share not measured")
         return
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     per_step = len(kernels) / n
-    say(f"profile lm decode ({n} steps traced): {per_step:.0f} device "
+    say(f"profile {tag} decode ({n} steps traced): {per_step:.0f} device "
         f"kernels per step, device busy {busy_ms:.3f} ms per step = "
         f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms step measured "
         f"without the profiler (idle {1 - busy_ms / step_ms:.1%}; "
@@ -1323,11 +1571,12 @@ REPLACES = {
     "grid_map": "src/repro/kernels/grid_map.py:58",
     "grid_update": "src/repro/kernels/grid_update.py:59",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan.py:74",
 }
 
 
 def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
-    """Phases 3 to 7; returns the per-kernel rows of the JSON line."""
+    """Phases 3 to 8; returns the per-kernel rows of the JSON line."""
     t_start = time.perf_counter()
 
     def elapsed(phase: str) -> None:
@@ -1337,6 +1586,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     rows = check_kernels(peak_bw, peak_flops)
     rows.update(check_grid_kernels(peak_bw, peak_flops))
     rows.update(check_flash_attention(peak_bw, peak_flops, peak_tc))
+    rows.update(check_mamba2_scan(peak_bw, peak_flops, peak_tc))
     elapsed("3 (kernel check)")
 
     # 4. the paths
@@ -1362,14 +1612,19 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 7. the LM serve path, prompts drawn from the archive
         drive_lm_path(archive, rows)
         elapsed("7 (LM serve path)")
+        # 8. the zamba2 serve path, the same prompts
+        drive_zamba2_path(archive, rows)
+        elapsed("8 (zamba2 serve path)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     say("library_ms: F.scaled_dot_product_attention for flash_attention "
         "(timed beside it, never called by the port); null for the others: "
         "no single PyTorch call computes a quality-masked azimuthal mean, a "
-        "Z-R integral, a masked weighted mean over a gather map or a "
-        "pos-mapped set/add/max combine")
+        "Z-R integral, a masked weighted mean over a gather map, a "
+        "pos-mapped set/add/max combine or an SSD (Mamba-2) scan")
+    say("launches: summed over the counted runs of every path that "
+        "launches the kernel (flash_attention: radar-lm and zamba2)")
     return [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kname}.cu",

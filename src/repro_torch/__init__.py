@@ -10,7 +10,7 @@ It covers the paper's two case studies read from the versioned archive
 (``repro_torch.radar.products.compute_product`` for the quasi-vertical
 profile and Z-R accumulation), the Cartesian and incremental products
 (``repro_torch.radar.grid``, ``.incremental``), and serving the
-radar-token LM (``repro_torch.serve.Engine``, ``python -m
+radar-token LM and zamba2 (``repro_torch.serve.Engine``, ``python -m
 repro_torch.launch.serve``), carried by the hand-written CUDA kernels in
 ``repro_torch.kernels``.
 """

@@ -11,7 +11,7 @@ PyTorch version for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,6 +19,7 @@ from . import ref
 from .flash_attention import flash_attention_cuda
 from .grid_map import grid_map_cuda
 from .grid_update import grid_update_cuda
+from .mamba2_scan import mamba2_scan_cuda
 from .qvp_reduce import qvp_reduce_cuda
 from .zr_accum import zr_accum_cuda
 
@@ -123,3 +124,24 @@ def flash_attention(
     if not _use_kernel(q, mode):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def mamba2_scan(
+    x: torch.Tensor,           # (B, L, H, P)
+    dt: torch.Tensor,          # (B, L, H)
+    A: torch.Tensor,           # (H,)
+    Bmat: torch.Tensor,        # (B, L, N)
+    Cmat: torch.Tensor,        # (B, L, N)
+    *,
+    h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    mode: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 selective scan (kernel or plain version) -> (y, final
+    state).  Unlike the reference's ``ops.mamba2_scan``, a given ``h0``
+    goes to the kernel too: it starts its carried state there, which is
+    the function ``ref.mamba2_scan(..., h0=h0)`` computes."""
+    if not _use_kernel(x, mode):
+        return ref.mamba2_scan(x, dt, A, Bmat, Cmat, h0=h0)
+    return mamba2_scan_cuda(
+        x, dt.to(torch.float32), A.to(torch.float32), Bmat.to(x.dtype),
+        Cmat.to(x.dtype), h0=None if h0 is None else h0.to(torch.float32))

@@ -9,7 +9,7 @@ tensors).  Both take and return tensors on any device.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,3 +173,44 @@ def flash_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vv.to(torch.float32))
     return out.to(q.dtype)
+
+
+def mamba2_scan(
+    x: torch.Tensor,            # (B, L, H, P)
+    dt: torch.Tensor,           # (B, L, H)   positive (already softplus'd)
+    A: torch.Tensor,            # (H,)        negative
+    Bmat: torch.Tensor,         # (B, L, N)   input projection (ngroups=1)
+    Cmat: torch.Tensor,         # (B, L, N)   output projection
+    *,
+    h0: Optional[torch.Tensor] = None,   # (B, H, P, N) initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential oracle for the Mamba2/SSD recurrence.
+
+        h_t = exp(A * dt_t) * h_{t-1} + dt_t * x_t  B_t^T
+        y_t = h_t C_t + 0  (skip connection handled by the caller)
+
+    Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) in
+    float32).  A Python loop over L stands in for the reference's
+    ``lax.scan``.
+    """
+    Bsz, L, H, P = x.shape
+    N = Bmat.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    Bf = Bmat.to(torch.float32)
+    Cf = Cmat.to(torch.float32)
+    Af = A.to(torch.float32)
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(L):
+        x_t, dt_t, b_t, c_t = xf[:, t], dtf[:, t], Bf[:, t], Cf[:, t]
+        decay = torch.exp(Af[None, :] * dt_t)                 # (B, H)
+        upd = (dt_t[..., None] * x_t)[..., None] * b_t[:, None, None, :]
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, c_t))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((Bsz, 0, H, P), dtype=torch.float32,
+                          device=x.device))
+    return y.to(x.dtype), h

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch radar-lm-100m --requests 8 --prompt-len 64 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
 
 The port of the reference package's ``launch/serve.py``: random
 parameters (``init_params(cfg, 0)``) and random prompts, as there.

@@ -3,7 +3,10 @@ port's :class:`~repro_torch.models.model.LMParams`.
 
 The reference's tree is ``{"embed": {"tokens", "head"}, "groups": [
 {"layer_i": {"mixer": {wq, wk, wv, wo}, "norm1", "ffn": {w_gate, w_up,
-w_down}, "norm2"}} stacked over the group's repeats, ...], "final_norm"}``.
+w_down}, "norm2"}} stacked over the group's repeats, ...], "final_norm"}``,
+and for zamba2 a Mamba-2 ``mixer`` ({w_in, conv, A_log, D, dt_bias, w_out,
+norm_scale}) and ``"shared": {"norm1", "concat_proj", "mixer", "ffn_shared"}``
+(one block, not stacked).
 The port keeps the reference's leaf names and ``(d_in, d_out)`` layouts
 (it multiplies by the kernels itself and uses no ``nn.Linear``), so each
 leaf is copied as it is, and a stacked leaf is split along its leading
@@ -52,6 +55,14 @@ def _port_leaves(params: LMParams):
                 for part, sub in p.items():
                     for name in sub:
                         yield ("groups", gi, layer, part, name), r, sub, name
+    if params.shared is not None:
+        shared = params["shared"]
+        for part, sub in shared.items():
+            if isinstance(sub, nn.Parameter):
+                yield ("shared", part), None, shared, part
+            else:
+                for name in sub:
+                    yield ("shared", part, name), None, sub, name
 
 
 def from_reference(cfg: ModelConfig, tree: Any, *,

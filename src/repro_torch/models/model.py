@@ -2,14 +2,14 @@
 
 The port of the reference package's ``models/model.py`` for the
 architectures whose layers are ported (the ``attn`` mixer with the dense
-FFN).  The parameters are an :class:`LMParams` module (token embedding
-and head, one ``nn.ModuleDict`` per layer, the final norm) on an explicit
+FFN; zamba2's ``mamba2`` mixer and shared block).  The parameters are an
+:class:`LMParams` module (token embedding and head, one ``nn.ModuleDict``
+per layer, the final norm, zamba2's ``shared`` block) on an explicit
 device, with the reference's leaf names and ``(d_in, d_out)`` layouts;
 ``params["embed"]`` reads like the reference's pytree.  Each pass casts
-them as the reference does: float32 leaves with ``ndim > 1`` go to
-``compute_dtype``, norm scales stay float32.  :func:`compute_params` does
-that cast once, and a caller that serves many steps (``serve.Engine``)
-hands its result back in, so the cast is paid once and not per step.
+them as the reference does (:func:`compute_params`); a caller that serves
+many steps (``serve.Engine``) hands the cast tree back in, so the cast is
+paid once and not per step.
 
 Batch formats by family:
   * LM: ``{"tokens": (B, S) int, "targets": (B, S) int}``
@@ -19,7 +19,7 @@ Batch formats by family:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,8 +29,9 @@ from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
 from .layers import (apply_norm, embed_tokens, init_embeddings, init_norm,
                      unembed)
-from .transformer import (LayerSpec, apply_unit, init_layer, layer_groups,
-                          not_ported)
+from . import attention, ssm
+from .transformer import (LayerSpec, SharedBlock, apply_unit, init_layer,
+                          init_shared_block, layer_groups, not_ported)
 
 Params = Any
 Caches = List[List[Dict[str, torch.Tensor]]]
@@ -39,24 +40,31 @@ Caches = List[List[Dict[str, torch.Tensor]]]
 class LMParams(nn.Module):
     """The parameter tree: ``embed`` (``tokens``, ``head``), ``groups``
     (per layer group, per repeat, ``{"layer_i": {mixer, norm1, ffn,
-    norm2}}``) and ``final_norm``.  Indexing by name reads an attribute,
-    so ``params["groups"][g][r]["layer_0"]["mixer"]["wq"]`` is the
+    norm2}}``), ``final_norm`` and, for zamba2, ``shared``.  Indexing by
+    name reads an attribute, so
+    ``params["groups"][g][r]["layer_0"]["mixer"]["wq"]`` is the
     reference's ``params["groups"][g]["layer_0"]["mixer"]["wq"][r]``."""
 
     def __init__(self, embed: nn.ParameterDict, groups: nn.ModuleList,
-                 final_norm: nn.ParameterDict):
+                 final_norm: nn.ParameterDict,
+                 shared: Optional[SharedBlock] = None):
         super().__init__()
         self.embed = embed
         self.groups = groups
         self.final_norm = final_norm
+        self.shared = shared
+
+    def _names(self):
+        names = ["embed", "groups", "final_norm"]
+        return names + ["shared"] if self.shared is not None else names
 
     def __getitem__(self, key: str):
-        if key not in ("embed", "groups", "final_norm"):
+        if key not in self._names():
             raise KeyError(key)
         return getattr(self, key)
 
     def items(self):
-        return [(k, self[k]) for k in ("embed", "groups", "final_norm")]
+        return [(k, self[k]) for k in self._names()]
 
 
 # ---------------------------------------------------------------------------
@@ -75,13 +83,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
            else torch.Generator(device=dev).manual_seed(int(seed)))
     embed = init_embeddings(cfg, gen, dtype, dev)
     groups = nn.ModuleList()
-    for reps, unit in layer_groups(cfg):
+    specs = layer_groups(cfg)
+    for reps, unit in specs:
         groups.append(nn.ModuleList(
             nn.ModuleDict({f"layer_{i}": init_layer(cfg, spec, gen, dtype,
                                                     dev)
-                           for i, spec in enumerate(unit)})
+                           for i, spec in enumerate(unit)
+                           if spec.mixer != "shared_attn"})
             for _ in range(reps)))
-    return LMParams(embed, groups, init_norm(cfg, cfg.d_model, dtype, dev))
+    shared = None
+    if any(s.mixer == "shared_attn" for _r, u in specs for s in u):
+        shared = init_shared_block(cfg, gen, dtype, dev)
+    return LMParams(embed, groups, init_norm(cfg, cfg.d_model, dtype, dev),
+                    shared)
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -91,21 +105,28 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def compute_params(params: Params, compute_dtype) -> Dict[str, Any]:
-    """The reference's cast rule as a plain nested dict of tensors:
-    float32 leaves with ``ndim > 1`` in ``compute_dtype``, the rest as they
-    are.  Idempotent, so its result can be passed wherever ``params`` is."""
+    """The reference's cast rule as a plain nested dict of tensors.
+
+    The reference casts float32 leaves with ``ndim > 1`` to
+    ``compute_dtype``, on its tree in which every leaf under ``groups`` is
+    stacked over the group's repeats: there a 1-D leaf (a norm scale, a
+    bias, ``A_log``, ``dt_bias``, ``D``) is 2-D and is cast too.  So every
+    float32 leaf under ``groups`` goes to ``compute_dtype``; outside them
+    (``embed``, ``final_norm``, ``shared``) the ``ndim > 1`` rule holds as
+    written.  Idempotent, so its result can be passed wherever ``params``
+    is."""
     dtype = _dtype(compute_dtype)
 
-    def cast(node):
+    def cast(node, stacked: bool):
         if isinstance(node, torch.Tensor):
-            if node.dtype == torch.float32 and node.ndim > 1:
+            if node.dtype == torch.float32 and (stacked or node.ndim > 1):
                 return node.detach().to(dtype)
             return node.detach()
         if isinstance(node, (list, tuple, nn.ModuleList)):
-            return [cast(n) for n in node]
-        return {k: cast(v) for k, v in node.items()}
+            return [cast(n, stacked) for n in node]
+        return {k: cast(v, stacked) for k, v in node.items()}
 
-    return cast(params)
+    return {k: cast(v, k == "groups") for k, v in params.items()}
 
 
 def _dtype(name) -> torch.dtype:
@@ -159,11 +180,14 @@ def forward(
     compute_dtype = _dtype(pcfg.compute_dtype)
     cparams = compute_params(params, compute_dtype)
     x, positions = _embed_batch(cfg, cparams, batch, compute_dtype)
+    emb0 = x
+    shared = cparams.get("shared")
     aux_total: Dict[str, torch.Tensor] = {}
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
         for r in range(reps):
-            x, aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r], x,
-                                   positions, attn_impl=attn_impl)
+            x, aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
+                                   shared, x, positions, attn_impl=attn_impl,
+                                   emb0=emb0)
             for k, v in aux.items():
                 aux_total[k] = aux_total.get(k, 0.0) + v
     x = apply_norm(cfg, cparams["final_norm"], x)
@@ -196,18 +220,24 @@ def loss_fn(
 
 def _init_one_cache(cfg: ModelConfig, spec: LayerSpec, reps: int, batch: int,
                     max_len: int, dtype, device) -> Dict[str, torch.Tensor]:
-    if spec.mixer != "attn":
+    if spec.mixer in ("attn", "shared_attn"):
+        one = attention.init_kv_cache(cfg, batch, max_len, dtype, "meta")
+    elif spec.mixer == "mamba2":
+        one = ssm.init_mamba2_state(cfg, batch, "meta")
+    else:
         raise not_ported(spec.mixer)
-    shape = (reps, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {k: torch.zeros(shape, dtype=dtype, device=device)
-            for k in ("k", "v")}
+    return {k: torch.zeros((reps, *v.shape), dtype=v.dtype, device=device)
+            for k, v in one.items()}
 
 
 def init_caches(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
                 max_len: int, *, device: DeviceLike = None) -> Caches:
     """Zeroed caches in the reference's layout: ``caches[group][unit_pos]``
-    holds ``{"k", "v"}`` of shape ``(reps, B, Hkv, max_len, head_dim)`` in
-    ``pcfg.kv_cache_dtype``.  Each step writes into them in place."""
+    holds, with a leading ``reps`` axis, ``{"k", "v"}`` of shape
+    ``(reps, B, Hkv, max_len, head_dim)`` in ``pcfg.kv_cache_dtype`` for an
+    attention layer (zamba2's shared block too), and ``{"ssm": (reps, B,
+    H, P, N), "conv": (reps, B, W - 1, d_inner + 2N)}`` in float32 for a
+    Mamba-2 layer.  Each step writes into them in place."""
     dev = resolve_device(device)
     dtype = _dtype(pcfg.kv_cache_dtype)
     return [[_init_one_cache(cfg, spec, reps, batch, max_len, dtype, dev)
@@ -228,7 +258,9 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Caches]:
     """Run S new tokens (S = 1 decode, S > 1 prefill or a prefill chunk)
     through the stack, writing their keys and values into ``caches`` at
-    ``cache_index`` in place -> (float32 logits (B, S, V), caches)."""
+    ``cache_index``, and each Mamba-2 layer's new SSM state and conv window
+    over its old ones (``ssm.apply_mamba2`` copies them), in place ->
+    (float32 logits (B, S, V), caches)."""
     compute_dtype = _dtype(pcfg.compute_dtype)
     cparams = compute_params(params, compute_dtype)
     dev = _device(cparams)
@@ -243,12 +275,15 @@ def decode_step(
                        device=dev).expand(B, S)
     positions = pos[:, None, :].expand(B, 3, S) if cfg.mrope else pos
     x = x.to(compute_dtype)
+    emb0 = x
+    shared = cparams.get("shared")
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
         for r in range(reps):
             layer_caches = [{k: c[r] for k, c in caches[gi][i].items()}
                             for i in range(len(unit))]
-            x, _aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r], x,
-                                    positions, caches=layer_caches,
-                                    cache_index=start, attn_impl=attn_impl)
+            x, _aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
+                                    shared, x, positions, caches=layer_caches,
+                                    cache_index=start, attn_impl=attn_impl,
+                                    emb0=emb0)
     x = apply_norm(cfg, cparams["final_norm"], x)
     return unembed(cfg, cparams["embed"], x), caches

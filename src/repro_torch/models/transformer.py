@@ -1,16 +1,19 @@
 """Block assembly: layer specs, layer groups, one block's forward pass.
 
 The port of the reference package's ``models/transformer.py`` for the
-``attn`` mixer with the ``dense`` FFN.  An architecture is a list of
+``attn`` mixer with the ``dense`` FFN, and zamba2's ``mamba2`` mixer with
+its weight-shared ``shared_attn`` block (attention + MLP over
+``concat(h, embedding)``).  An architecture is a list of
 ``(repeats, [LayerSpec, ...])`` groups (``layer_groups``, copied as it
 is); the reference stacks a group's parameters over the repeat dimension
 and runs it under ``lax.scan``, the port keeps one ``nn.ModuleDict`` per
 repeat in an ``nn.ModuleList`` and loops over them in Python (no remat: the
-port runs forward only).
+port runs forward only).  As in the reference, a group's parameters skip
+its ``shared_attn`` positions: the shared block's parameters live once,
+outside the groups (:func:`init_shared_block`).
 
-The other mixers (``mla``, ``mamba2``, ``mlstm``, ``slstm``,
-``shared_attn``) and the ``moe`` FFN raise ``NotImplementedError`` naming
-their ROADMAP item.
+The other mixers (``mla``, ``mlstm``, ``slstm``) and the ``moe`` FFN raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,15 +26,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import attention
-from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from . import attention, ssm
+from .layers import apply_mlp, apply_norm, dense_init, init_mlp, init_norm
 
 Params = Any
 
 # what each unported mixer or FFN is, and its ROADMAP "Modules to port" item
 _LATER = {
-    "mamba2": ("the Mamba-2 mixer (models.ssm, kernel mamba2_scan)", "8.1"),
-    "shared_attn": ("zamba2's shared attention block", "8.1"),
     "mla": ("DeepSeek MLA", "8.2"),
     "moe": ("the mixture-of-experts FFN (models.moe)", "8.2"),
     "mlstm": ("the mLSTM mixer (models.xlstm)", "8.2"),
@@ -104,12 +105,16 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[int, List[LayerSpec]]]:
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dtype,
                device) -> nn.ModuleDict:
     """One layer's parameters: ``mixer``, ``norm1``, ``ffn``, ``norm2``."""
-    if spec.mixer != "attn":
+    if spec.mixer == "attn":
+        mixer = attention.init_attn(cfg, gen, dtype, device)
+    elif spec.mixer == "mamba2":
+        mixer = ssm.init_mamba2(cfg, gen, dtype, device)
+    else:
         raise not_ported(spec.mixer)
     if spec.ffn not in ("dense", "none"):
         raise not_ported(spec.ffn)
     p = nn.ModuleDict({
-        "mixer": attention.init_attn(cfg, gen, dtype, device),
+        "mixer": mixer,
         "norm1": init_norm(cfg, cfg.d_model, dtype, device),
     })
     if spec.ffn == "dense":
@@ -129,15 +134,34 @@ def apply_layer(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
     attn_impl: str = "blocked",
+    emb0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Dict]]:
-    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual)."""
-    if spec.mixer != "attn":
-        raise not_ported(spec.mixer)
+    """One block: pre-norm mixer + residual (+ pre-norm FFN + residual).
+    ``attn_impl="kernel"`` (the reference's ``"pallas"``) also sends a
+    ``mamba2`` mixer to its kernel; any other impl sends it to the plain
+    chunked SSD, as in the reference."""
     h = apply_norm(cfg, p["norm1"], x)
-    o, new_cache = attention.apply_attn(
-        cfg, p["mixer"], h, positions, cache=cache, cache_index=cache_index,
-        impl=attn_impl,
-    )
+    if spec.mixer == "shared_attn":
+        # zamba2: shared weights, input concat(h, embedding stream)
+        h = torch.cat([h, emb0.to(h.dtype)], dim=-1)
+        h = h @ p["concat_proj"]
+        o, new_cache = attention.apply_attn(
+            cfg, p["mixer"], h, positions, cache=cache,
+            cache_index=cache_index, impl=attn_impl,
+        )
+        o = o + apply_mlp(cfg, p["ffn_shared"], o)
+    elif spec.mixer == "attn":
+        o, new_cache = attention.apply_attn(
+            cfg, p["mixer"], h, positions, cache=cache,
+            cache_index=cache_index, impl=attn_impl,
+        )
+    elif spec.mixer == "mamba2":
+        o, new_cache = ssm.apply_mamba2(
+            cfg, p["mixer"], h, state=cache,
+            impl="kernel" if attn_impl == "kernel" else "chunked",
+        )
+    else:
+        raise not_ported(spec.mixer)
     x = x + o
     if spec.ffn == "dense":
         h = apply_norm(cfg, p["norm2"], x)
@@ -148,25 +172,69 @@ def apply_layer(
     return x, {}, new_cache
 
 
+class SharedBlock(nn.Module):
+    """zamba2's shared block: ``norm1``, ``concat_proj`` (a leaf),
+    ``mixer`` and ``ffn_shared``, read by name like a dict."""
+
+    _NAMES = ("norm1", "concat_proj", "mixer", "ffn_shared")
+
+    def __init__(self, norm1: nn.ParameterDict, concat_proj: nn.Parameter,
+                 mixer: nn.ParameterDict, ffn_shared: nn.ParameterDict):
+        super().__init__()
+        self.norm1 = norm1
+        self.concat_proj = concat_proj
+        self.mixer = mixer
+        self.ffn_shared = ffn_shared
+
+    def __getitem__(self, key: str):
+        if key not in self._NAMES:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __setitem__(self, key: str, value: nn.Parameter) -> None:
+        if key != "concat_proj":
+            raise KeyError(key)
+        self.concat_proj = value
+
+    def items(self):
+        return [(k, self[k]) for k in self._NAMES]
+
+
+def init_shared_block(cfg: ModelConfig, gen, dtype, device) -> SharedBlock:
+    """zamba2's single shared attention+MLP block (+2D->D concat proj)."""
+    return SharedBlock(
+        norm1=init_norm(cfg, cfg.d_model, dtype, device),
+        concat_proj=dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype,
+                               device),
+        mixer=attention.init_attn(cfg, gen, dtype, device),
+        ffn_shared=init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, device),
+    )
+
+
 def apply_unit(
     cfg: ModelConfig,
     unit: List[LayerSpec],
     unit_params: Params,
+    shared_params: Optional[Params],
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
     caches: Optional[List] = None,
     cache_index: Optional[int] = None,
     attn_impl: str = "blocked",
+    emb0: Optional[torch.Tensor] = None,
 ):
-    """Apply one repeat unit (its list of layers, ``layer_{i}`` each)."""
+    """Apply one repeat unit (its list of layers, ``layer_{i}`` each, the
+    shared block woven in at its ``shared_attn`` positions)."""
     aux_total: Dict[str, torch.Tensor] = {}
     new_caches = [] if caches is not None else None
     for i, spec in enumerate(unit):
+        p = (shared_params if spec.mixer == "shared_attn"
+             else unit_params[f"layer_{i}"])
         x, aux, nc = apply_layer(
-            cfg, spec, unit_params[f"layer_{i}"], x, positions,
+            cfg, spec, p, x, positions,
             cache=caches[i] if caches is not None else None,
-            cache_index=cache_index, attn_impl=attn_impl,
+            cache_index=cache_index, attn_impl=attn_impl, emb0=emb0,
         )
         for k, v in aux.items():
             aux_total[k] = aux_total.get(k, 0.0) + v

@@ -12,7 +12,9 @@ The port of the reference package's ``serve/engine.py``.  Two layers:
 PyTorch runs eagerly, so ``cache_index`` is a Python int and every
 attention call, prefill and decode, goes through the hand-written
 flash-attention kernel under ``attn_impl="kernel"`` (the default here;
-the reference's steps default to its non-kernel ``"blocked"`` core).
+the reference's steps default to its non-kernel ``"blocked"`` core), and
+every Mamba-2 call (zamba2) through the ``mamba2_scan`` kernel from the
+cached SSM state.
 Temperature sampling draws from a ``torch.Generator`` seeded per batch
 with ``seed + batch index``: deterministic, but not the reference's
 ``jax.random`` numbers.  Greedy decoding is the same function.

@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (flash_attention, grid_map,  # noqa: E402
-                                 grid_update, ops, qvp_reduce, zr_accum)
+                                 grid_update, mamba2_scan, ops, qvp_reduce,
+                                 zr_accum)
 from repro_torch.kernels import ref  # noqa: E402
 
 QVP_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py, qvp_reduce
@@ -162,3 +163,47 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
         ops.flash_attention(q[..., :8], k[..., :8], v[..., :8])
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, l, h, p, n, with_h0", [
+    (1, 1, 2, 16, 16, True), (2, 64, 2, 16, 16, False),
+    (1, 65, 1, 8, 16, True), (2, 130, 4, 16, 8, True),
+    (2, 1000, 3, 64, 64, True), (1, 100, 2, 72, 80, False)])
+def test_mamba2_scan_kernel_matches_plain_on_card(b, l, h, p, n, with_h0,
+                                                  dtype):
+    _need_cuda()
+    rng = np.random.default_rng(l + h + p + n)
+    dt_ = getattr(torch, dtype)
+    # x, B and C as views of one wider last axis, as the conv output split
+    wide = _t(rng.normal(size=(b, l, h * p + 2 * n)).astype(np.float32))
+    wide = wide.cuda().to(dt_)
+    x = wide[..., :h * p].reshape(b, l, h, p)
+    Bm, Cm = wide[..., h * p:h * p + n], wide[..., h * p + n:]
+    dt = _t(rng.uniform(0.001, 0.1, size=(b, l, h)).astype(np.float32)).cuda()
+    A = _t(-rng.uniform(0.5, 4.0, size=(h,)).astype(np.float32)).cuda()
+    h0 = (_t(rng.normal(size=(b, h, p, n)).astype(np.float32)).cuda()
+          if with_h0 else None)
+    before = mamba2_scan.launches
+    y, hN = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    assert mamba2_scan.launches == before + 1
+    assert y.dtype == dt_ and y.shape == x.shape
+    assert hN.dtype == torch.float32 and hN.shape == (b, h, p, n)
+    y_ref, h_ref = ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    # float32: tests/test_kernels.py:330-331; bf16: both versions round y
+    # once to bf16 from float32 sums that differ only in order, so they
+    # differ by at most one bf16 step, 2**-7 of |y|
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(hN.cpu().numpy(), h_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    again = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        ops.mamba2_scan(x.half(), dt, A, Bm.half(), Cm.half())
+    wide_state = [torch.zeros(shape, device="cuda")
+                  for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 256))]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.mamba2_scan(*wide_state, wide_state[-1])

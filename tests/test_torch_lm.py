@@ -81,18 +81,23 @@ def test_forward_and_loss_match_reference(arch):
         assert float(metrics["loss"]) == float(loss)
 
 
-def test_bf16_cast_rule_keeps_norm_scales_float32(radar_lm):
+def test_bf16_cast_rule_casts_group_leaves_as_the_reference(radar_lm):
+    """The reference casts float32 leaves with ndim > 1 on its stacked
+    tree: a group's norm scales are 2-D there and go to bf16; the final
+    norm stays float32."""
     _, tcfg, _, tparams = radar_lm
     cp = M.compute_params(tparams, "bfloat16")
     layer = cp["groups"][0][0]["layer_0"]
     assert layer["mixer"]["wq"].dtype == torch.bfloat16
-    assert layer["norm1"]["scale"].dtype == torch.float32
+    assert layer["norm1"]["scale"].dtype == torch.bfloat16
     assert cp["final_norm"]["scale"].dtype == torch.float32
     assert cp["embed"]["tokens"].dtype == torch.bfloat16
     # idempotent: a cast tree passes through without a copy
     again = M.compute_params(cp, "bfloat16")
     wq = again["groups"][0][0]["layer_0"]["mixer"]["wq"]
     assert wq.data_ptr() == layer["mixer"]["wq"].data_ptr()
+    scale = again["groups"][0][0]["layer_0"]["norm1"]["scale"]
+    assert scale.data_ptr() == layer["norm1"]["scale"].data_ptr()
     toks = _tokens(2, 2, 16, tcfg.vocab_size)
     pcfg = ParallelConfig(compute_dtype="bfloat16",
                           kv_cache_dtype="bfloat16")
@@ -100,6 +105,47 @@ def test_bf16_cast_rule_keeps_norm_scales_float32(radar_lm):
                           attn_impl="kernel")
     assert logits.dtype == torch.float32
     assert torch.isfinite(logits).all()
+
+
+def _reference_cast(p):
+    """The reference's rule (src/repro/models/model.py:109-111)."""
+    return (p.astype(jnp.bfloat16) if p.dtype == jnp.float32 and p.ndim > 1
+            else p)
+
+
+def _cast_leaf(cp, path, rep):
+    node, rest = (cp["groups"][path[1]][rep], path[2:]) \
+        if path[0] == "groups" else (cp, path)
+    for key in rest:
+        node = node[key]
+    return node
+
+
+@pytest.mark.parametrize("arch", ["radar-lm-100m", "zamba2-1.2b"])
+def test_bf16_cast_tree_equals_the_reference_leaf_by_leaf(arch):
+    from repro_torch.models.convert import _flatten, _port_leaves
+
+    jcfg, tcfg, jparams, tparams = _lm(arch)
+    want = _flatten(jax.tree.map(_reference_cast, jparams))
+    cp = M.compute_params(tparams, "bfloat16")
+    n = 0
+    for path, rep, _owner, _name in _port_leaves(tparams):
+        w = np.asarray(want[path] if rep is None else want[path][rep])
+        got = _cast_leaf(cp, path, rep)
+        assert str(got.dtype)[6:] == str(w.dtype), path
+        bits = np.uint16 if w.dtype == jnp.bfloat16 else np.uint32
+        as_int = torch.int16 if bits is np.uint16 else torch.int32
+        np.testing.assert_array_equal(got.view(as_int).numpy().view(bits),
+                                      w.view(bits), err_msg=str(path))
+        n += 1
+    assert n == len(want) + sum(
+        (len(tparams["groups"][p[1]]) - 1 for p in want if p[0] == "groups"))
+    if arch == "zamba2-1.2b":
+        mixer = cp["groups"][0][0]["layer_0"]["mixer"]
+        for name in ("A_log", "D", "dt_bias", "norm_scale"):
+            assert mixer[name].dtype == torch.bfloat16, name
+        assert cp["shared"]["norm1"]["scale"].dtype == torch.float32
+        assert cp["shared"]["concat_proj"].dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +285,15 @@ def test_engine_runs_on_the_gpu_unless_told_otherwise(radar_lm, monkeypatch):
 # parameter count, converter, token batches, command line
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-1.2b"])
 def test_count_params_matches_reference_at_full_width(arch):
     tcfg = get_any_config(arch)
     want = JM.count_params(jax_config(arch))
     assert M.count_params(tcfg) == want == tcfg.param_count()
     if arch == "radar-lm-100m":
         assert 100e6 < want < 110e6
+    if arch == "zamba2-1.2b":
+        assert want == 1_178_699_904
 
 
 def test_init_params_shapes_follow_reference(radar_lm):
@@ -297,8 +345,8 @@ def test_converter_raises_on_a_wrong_shape_or_repeat_count(radar_lm):
         from_reference(radar_lm[1], tree, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "deepseek-v2-lite-16b",
-                                  "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "deepseek-v2-lite-16b", "xlstm-1.3b"])
 def test_unported_architectures_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.init_params(get_any_config(arch).reduced(), 0, device="meta")
