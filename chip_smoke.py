@@ -14,10 +14,16 @@ Phases, each printing its own lines:
    ``zr_accum``, ``flash_attention`` and ``mamba2_scan`` with the
    tolerances of the reference package's kernel tests, ``grid_map`` and
    ``grid_update`` bitwise), and twice for bitwise stability;
-   ``flash_attention`` at the LM's prefill shape and at its decode shape
-   (one query against a strided prefix of a 2048-long cache), in float32
-   and bfloat16, timed beside its plain version and
-   ``F.scaled_dot_product_attention``; ``mamba2_scan`` at zamba2's prefill
+   ``flash_attention`` on each of its three routes (``tc_prefill``, the
+   bf16 prefill on the tensor cores; ``decode``, one query against a
+   strided prefix of a 2048-long cache, split over the keys; ``f32``, the
+   float32 prefill) at radar-lm's and zamba2's prefill and decode shapes
+   and at 24 ragged ones, in float32 and bfloat16, each call on the route
+   its dtype and Sq choose; timed beside its plain version and
+   ``F.scaled_dot_product_attention``, the decode call also by
+   ``torch.profiler``, with the wrapper's host time per call and the
+   tensor-core instructions of the built library (``cuobjdump -sass``);
+   ``mamba2_scan`` at zamba2's prefill
    shape (8 x 1024 tokens, 64 heads, P = N = 64) with and without a start
    state and at its decode shape (one token from a state), in float32 and
    bfloat16, at ragged lengths, and split in two halves against the whole,
@@ -46,7 +52,8 @@ Phases, each printing its own lines:
    tokens each, greedy: in float32 the kernel route is held against the
    blocked core (last-position prefill logits within 2e-3, greedy tokens
    equal where the top-1/top-2 margin allows, exactly 12 x (1 + decode
-   steps) kernel launches), then the bfloat16 run of ``launch.serve`` is
+   steps) kernel launches: 12 on the prefill's route, the rest on
+   ``decode``), then the bfloat16 run of ``launch.serve`` is
    timed: end to end, prefill, one decode step, the kernel's share, and a
    profiler trace of decode steps;
 8. the zamba2 serve path: zamba2-1.2b at full width (38 Mamba-2 layers,
@@ -64,6 +71,7 @@ exits non-zero; without a CUDA device it exits non-zero before any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -518,15 +526,18 @@ LM_ARCH = "radar-lm-100m"
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS, LM_MAX_LEN = 8, 1024, 32, 2048
 FA_F32_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_kernels.py:281
 FA_BF16_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_kernels.py:291
+# bfloat16 is also held row by row: each output row's L2 error over that
+# row's L2 norm.  The elementwise 5e-2 is as large as a late row's outputs
+# (their spread is ~sqrt(e / (i + 1)), ~0.05 at row 1023), so a kernel that
+# lost a few keys on late rows could pass it; against each row's own scale
+# it cannot.  A right kernel differs from the plain version by one bf16
+# rounding of o in each (2**-9 relative) and, on the tensor cores, by P
+# rounded to bf16 before P.V (2**-9 per weight): a few 1e-3 a row.
+FA_BF16_ROW_RTOL = 2e-2
+# the planted fault that the row check must reject at the serve shapes:
+# the last 64-key tile dropped from the rows that see it
+FA_FAULT_KEYS = 64
 LOGIT_TOL = 2e-3                           # tests/test_serve.py:33
-
-
-def lm_shape():
-    """(B, Hq, Hkv, D) of the serve path's attention calls."""
-    from repro_torch.configs import get_any_config
-
-    cfg = get_any_config(LM_ARCH)
-    return LM_PROMPTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
 
 def visible_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -560,57 +571,210 @@ def sdpa(q, k, v, causal: bool):
                                           enable_gqa=True)
 
 
+FA_ROUTES = ("tc_prefill", "decode", "f32")
+L2_BYTES = 50e6                            # the H100's L2 cache
+
+
+def fa_shapes():
+    """{tag: (B, Hq, Hkv, D)} of the two serve paths' attention calls."""
+    from repro_torch.configs import get_any_config
+
+    out = {}
+    for tag, arch in (("lm", LM_ARCH), ("zamba2", ZAMBA_ARCH)):
+        cfg = get_any_config(arch)
+        out[tag] = (LM_PROMPTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    return out
+
+
+def host_us_per_call(fn, n: int = 1000) -> float:
+    """The host's time to enqueue one call: ``n`` calls back to back on a
+    synchronised card, the host clock stopped before the device is waited
+    for (the queue holds them all)."""
+    sync()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    sync()
+    return us
+
+
+def profiled_device_ms(fn, name: str, n: int = 20):
+    """Device time per call of the kernels whose name holds ``name``, from
+    ``torch.profiler`` over ``n`` calls (None when it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEV != "cuda":
+        return None
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    return sum(times) / 1e3 / n if times else None
+
+
+def sass_counts(lib_path) -> str:
+    """Tensor-core instructions in a built library's SASS, as
+    ``cuobjdump -sass`` shows them."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin",
+                                                 "cuobjdump")):
+        tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+    if not tool or not Path(lib_path).exists():
+        return "not available (no cuobjdump or no library)"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode:
+        return f"not available (cuobjdump exit {out.returncode})"
+    lines = out.stdout.splitlines()
+    return (f"{sum('HGMMA' in ln for ln in lines)} HGMMA and "
+            f"{sum('HMMA' in ln for ln in lines)} HMMA instructions")
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ``|got - want| / |want|`` over output rows (L2 over the
+    last dimension), in float32."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp(min=1e-30)).max())
+
+
+def planted_fault(q, k, v):
+    """The plain version with the last ``FA_FAULT_KEYS`` keys dropped from
+    the query rows that see them (the last ``FA_FAULT_KEYS`` of a causal
+    prefill, the one query of a decode): what a kernel that skipped its
+    last key tile there would give."""
+    from repro_torch.kernels import ref
+
+    n = FA_FAULT_KEYS
+    if q.shape[2] == 1:
+        return ref.flash_attention(q, k[:, :, :-n], v[:, :, :-n])
+    out = ref.flash_attention(q, k, v, causal=True)
+    out[:, :, -n:] = ref.flash_attention(q[:, :, -n:], k[:, :, :-n],
+                                         v[:, :, :-n], causal=False)
+    return out
+
+
 def check_flash_attention(peak_bw: float, peak_flops: float,
                           peak_tc: float):
-    """flash_attention against its plain version on the card: at the serve
-    path's prefill and decode shapes (the decode keys a strided prefix of
-    a longer cache), float32 at 2e-4 and bfloat16 at 5e-2, and at ragged
-    shapes; twice each, bitwise equal run to run.  Then timed beside the
-    plain version, SDPA and the bound."""
+    """Each flash_attention route against its plain version on the card: at
+    both serve paths' prefill and decode shapes (the decode keys a strided
+    prefix of a longer cache; decode also against ``ref.flash_decode`` with
+    the kernel's splits), float32 at 2e-4 and bfloat16 at 5e-2, and at 24
+    ragged shapes, each in both dtypes and as a one-query decode of its
+    keys; twice each, bitwise equal run to run, and each call on the route
+    and counter the dtype and Sq choose; bfloat16 also row by row
+    (``FA_BF16_ROW_RTOL``), a check that rejects a planted fault at the
+    serve shapes (``planted_fault``).  Then each route timed at both
+    paths' shapes beside its plain version, SDPA and the bound, the decode
+    call also by the profiler (cold L2), and the wrapper's host time per
+    call; and the tensor-core instructions of the built library counted."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _cuda, flash_attention, ops, ref
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
-    B, Hq, Hkv, D = lm_shape()
     S = LM_PROMPT_LEN
+    n_sm = (torch.cuda.get_device_properties(0).multi_processor_count
+            if DEV == "cuda" else 132)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEV)
 
+    errs = {r: 0.0 for r in FA_ROUTES}
+    row_errs = {r: 0.0 for r in FA_ROUTES}
+
     def check(label, q, k, v, causal):
+        which = flash_attention.route(q)
         tol = FA_F32_TOL if q.dtype == torch.float32 else FA_BF16_TOL
+        before = dict(flash_attention.route_launches)
         got = ops.flash_attention(q, k, v, causal=causal, mode="kernel")
         again = ops.flash_attention(q, k, v, causal=causal, mode="kernel")
-        if DEV == "cuda":
-            torch.cuda.synchronize()
+        sync()
+        before[which] += 2
+        if flash_attention.route_launches != before:
+            raise AssertionError(f"flash_attention {label}: route counters "
+                                 f"{flash_attention.route_launches}, "
+                                 f"expected {before}")
         if not torch.equal(got, again):
             raise AssertionError(f"flash_attention {label}: not bitwise "
                                  "stable")
-        err = compare(f"flash_attention {label}", got,
-                      ref.flash_attention(q, k, v, causal=causal), **tol)
-        say(f"check flash_attention {label}: max_abs_err {err:.3e} "
-            f"(tolerance {tol['atol']}), bitwise stable")
-        return err
+        want = ref.flash_attention(q, k, v, causal=causal)
+        err = compare(f"flash_attention {label}", got, want, **tol)
+        note = ""
+        if which == "decode":
+            n = flash_attention.decode_splits(k.shape[0] * k.shape[1],
+                                              k.shape[2], n_sm)
+            err = max(err, compare(f"flash_attention {label} vs flash_decode",
+                                   got, ref.flash_decode(q, k, v, n), **tol))
+            note = f", {n} split(s) also against ref.flash_decode"
+        if q.dtype == torch.bfloat16:
+            row = row_rel_err(got, want)
+            if row > FA_BF16_ROW_RTOL:
+                raise AssertionError(f"flash_attention {label}: a row's "
+                                     f"relative error {row:.3e} above "
+                                     f"{FA_BF16_ROW_RTOL}")
+            row_errs[which] = max(row_errs[which], row)
+            note += (f", row error {row:.3e} (tolerance "
+                     f"{FA_BF16_ROW_RTOL})")
+        errs[which] = max(errs[which], err)
+        say(f"check flash_attention {label} [{which}]: max_abs_err "
+            f"{err:.3e} (tolerance {tol['atol']}), bitwise stable{note}")
+        return want
 
-    # the path's shapes ------------------------------------------------------
-    errs, cases = [], {}
-    cache_k, cache_v = randn(B, Hkv, LM_MAX_LEN, D), randn(B, Hkv, LM_MAX_LEN,
-                                                           D)
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        q = randn(B, Hq, S, D).to(dtype)
-        k, v = randn(B, Hkv, S, D).to(dtype), randn(B, Hkv, S, D).to(dtype)
-        errs.append(check(f"prefill {tag} B={B} Hq={Hq} Hkv={Hkv} Sq=Skv={S}"
-                          f" D={D}", q, k, v, True))
-        cases[f"prefill {tag}"] = (q, k, v, True)
-        ck, cv = cache_k.to(dtype), cache_v.to(dtype)
-        for kv_len in (S + 1, S + LM_NEW_TOKENS):
-            q1 = randn(B, Hq, 1, D).to(dtype)
-            k1, v1 = ck[:, :, :kv_len], cv[:, :, :kv_len]
-            errs.append(check(f"decode {tag} Sq=1 kv_len={kv_len} of a "
-                              f"{LM_MAX_LEN}-long cache", q1, k1, v1, True))
-            cases[f"decode {tag} {kv_len}"] = (q1, k1, v1, True)
-    # ragged shapes: Sq 1-130, Skv - Sq 0-140, D 16/32/64/128, both masks
+    def check_fault(label, q, k, v, want):
+        # the checks must reject a kernel that drops the last key tile
+        bad = planted_fault(q, k, v)
+        row = row_rel_err(bad, want)
+        loose = bool(torch.allclose(bad.float(), want.float(),
+                                    **FA_BF16_TOL))
+        if row <= FA_BF16_ROW_RTOL:
+            raise AssertionError(f"flash_attention {label}: the planted "
+                                 f"fault's row error {row:.3e} passes the "
+                                 "row check")
+        say(f"check flash_attention {label}, planted fault (the last "
+            f"{FA_FAULT_KEYS} keys dropped from the rows that see them): "
+            f"max_abs_err {(bad.float() - want.float()).abs().max():.3e} "
+            f"({'passes' if loose else 'fails'} the elementwise "
+            f"{FA_BF16_TOL['atol']}), row error {row:.3e}: rejected by the "
+            f"row check ({FA_BF16_ROW_RTOL})")
+
+    # the paths' shapes ------------------------------------------------------
+    cases = {}
+    for tag, (B, Hq, Hkv, D) in fa_shapes().items():
+        cache_k = randn(B, Hkv, LM_MAX_LEN, D)
+        cache_v = randn(B, Hkv, LM_MAX_LEN, D)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q = randn(B, Hq, S, D).to(dtype)
+            k, v = randn(B, Hkv, S, D).to(dtype), randn(B, Hkv, S, D).to(dtype)
+            label = (f"{tag} prefill {dt} B={B} Hq={Hq} Hkv={Hkv} "
+                     f"Sq=Skv={S} D={D}")
+            want = check(label, q, k, v, True)
+            if dtype == torch.bfloat16:
+                check_fault(label, q, k, v, want)
+            cases[(tag, "prefill", dt)] = (q, k, v)
+            ck, cv = cache_k.to(dtype), cache_v.to(dtype)
+            for kv_len in (S + 1, S + LM_NEW_TOKENS):
+                q1 = randn(B, Hq, 1, D).to(dtype)
+                label = (f"{tag} decode {dt} Sq=1 kv_len={kv_len} of a "
+                         f"{LM_MAX_LEN}-long cache")
+                args = (q1, ck[:, :, :kv_len], cv[:, :, :kv_len])
+                want = check(label, *args, True)
+            if dtype == torch.bfloat16:
+                check_fault(label, *args, want)
+            cases[(tag, "decode", dt)] = (q1, ck, cv)
+            del want
+        del cache_k, cache_v
+    # ragged shapes: Sq 1-130, Skv - Sq 0-140, D 16/32/64/128, both masks;
+    # each in both dtypes and as a one-query decode of its keys
     rng = np.random.default_rng(SEED)
     for i in range(24):
         d = (16, 32, 64, 128)[i % 4]
@@ -618,44 +782,95 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
         hq = hkv * int(rng.choice([1, 2, 4]))
         sq, extra = int(rng.integers(1, 131)), int(rng.integers(0, 141))
         b, causal = int(rng.integers(1, 3)), bool(i % 3)
-        dtype = torch.bfloat16 if i % 5 == 4 else torch.float32
-        check(f"ragged B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={sq + extra} "
-              f"D={d} causal={causal} {str(dtype)[6:]}",
-              randn(b, hq, sq, d).to(dtype), randn(b, hkv, sq + extra, d)
-              .to(dtype), randn(b, hkv, sq + extra, d).to(dtype), causal)
+        q, k, v = (randn(b, hq, sq, d), randn(b, hkv, sq + extra, d),
+                   randn(b, hkv, sq + extra, d))
+        q1 = randn(b, hq, 1, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            check(f"ragged B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={sq + extra} "
+                  f"D={d} causal={causal} {dt}", q.to(dtype), k.to(dtype),
+                  v.to(dtype), causal)
+            check(f"ragged decode B={b} Hq={hq} Hkv={hkv} Skv={sq + extra} "
+                  f"D={d} {dt}", q1.to(dtype), k.to(dtype), v.to(dtype),
+                  causal)
 
-    # times at the path's shapes -----------------------------------------------
-    timed = {}
-    for label in ("prefill f32", "prefill bf16",
-                  f"decode bf16 {S + LM_NEW_TOKENS}"):
-        q, k, v, causal = cases[label]
-        row = {
-            "ms": time_cuda(lambda: ops.flash_attention(
-                q, k, v, causal=causal, mode="kernel")),
-            "plain_ms": time_cuda(lambda: ref.flash_attention(
-                q, k, v, causal=causal), reps=3, inner=3),
-            "library_ms": time_cuda(lambda: sdpa(q, k, v, causal)),
-        }
-        nbytes, nops = attention_cost(*q.shape[:2], k.shape[1], q.shape[2],
-                                      k.shape[2], q.shape[3], causal,
-                                      q.element_size())
-        peak = peak_tc if q.dtype == torch.bfloat16 else peak_flops
-        t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        say(f"time flash_attention {label} (B={q.shape[0]} Hq={q.shape[1]} "
-            f"Hkv={k.shape[1]} Sq={q.shape[2]} Skv={k.shape[2]} "
-            f"D={q.shape[3]}): kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-            f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
-            f"{peak / 1e12:.0f} TFLOP/s), {nops / row['ms'] / 1e9:.1f} "
-            f"GFLOP/s and {nbytes / row['ms'] / 1e6:.1f} GB/s achieved")
-        timed[label] = row
-    # the JSON row: the bf16 prefill, the serve path's one call by operations
-    row = dict(timed["prefill bf16"], max_abs_err=max(errs))
-    row["decode_ms"] = timed[f"decode bf16 {S + LM_NEW_TOKENS}"]["ms"]
-    return {"flash_attention": row}
+    # times at the paths' shapes ---------------------------------------------
+    rows = {}
+    n_kv = S + LM_NEW_TOKENS
+    for tag, (B, Hq, Hkv, D) in fa_shapes().items():
+        for which, kind, dt in (("tc_prefill", "prefill", "bf16"),
+                                ("decode", "decode", "bf16"),
+                                ("f32", "prefill", "f32")):
+            q, k, v = cases[(tag, kind, dt)]
+            skv = n_kv if kind == "decode" else k.shape[2]
+            pairs = [(k[:, :, :skv], v[:, :, :skv])]
+            if kind == "decode":
+                # a cold L2 as on the path, where each layer's cache is
+                # read once a step: turn over copies that exceed it
+                kb = pairs[0][0].numel() * k.element_size() * 2
+                n_copies = max(1, min(16, int(-(-2 * L2_BYTES // kb))))
+                pairs = [(k.clone()[:, :, :skv], v.clone()[:, :, :skv])
+                         for _ in range(n_copies)]
+            turns = itertools.cycle(pairs)
+
+            def call():
+                return ops.flash_attention(q, *next(turns), mode="kernel")
+
+            def plain():
+                return ref.flash_attention(q, *pairs[0])
+
+            def library():
+                return sdpa(q, *next(turns), True)
+
+            row = {"ms": time_cuda(call),
+                   "plain_ms": time_cuda(plain, reps=3, inner=3),
+                   "library_ms": time_cuda(library),
+                   "host_us": host_us_per_call(call)}
+            if kind == "decode":
+                row["device_ms"] = profiled_device_ms(call, "flash_decode")
+            nbytes, nops = attention_cost(B, Hq, Hkv, q.shape[2], skv, D,
+                                          True, q.element_size())
+            peak = peak_tc if q.dtype == torch.bfloat16 else peak_flops
+            t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            dev_ms = row.get("device_ms")
+            say(f"time flash_attention [{which}] {tag} (B={B} Hq={Hq} "
+                f"Hkv={Hkv} Sq={q.shape[2]} Skv={skv} D={D} {dt}"
+                + (f", {len(pairs)} caches in turn" if len(pairs) > 1
+                   else "") + "): "
+                f"kernel {row['ms']:.4f} ms (CUDA events), "
+                + (f"device {dev_ms:.4f} ms (torch.profiler), "
+                   if dev_ms is not None else
+                   ("device not measured (the profiler saw no kernel), "
+                    if kind == "decode" else ""))
+                + f"plain {row['plain_ms']:.4f} ms, SDPA "
+                f"{row['library_ms']:.4f} ms (kernel / SDPA "
+                f"{row['ms'] / row['library_ms']:.2f}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
+                f"{peak / 1e12:.0f} TFLOP/s), "
+                f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
+                f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved; wrapper "
+                f"host {row['host_us']:.2f} us per call (enqueue of 1000)")
+            rows[(which, tag)] = row
+    if DEV == "cuda":
+        say("sass flash_attention library (tc_prefill and f32 kernels): "
+            + sass_counts(_cuda.library_path("flash_attention")))
+    say("check flash_attention: worst bf16 row errors "
+        + ", ".join(f"{r} {row_errs[r]:.3e}" for r in FA_ROUTES
+                    if r != "f32") + f" (tolerance {FA_BF16_ROW_RTOL})")
+    # the JSON rows: each route at radar-lm's shape (the zamba2 shape's
+    # time rides along for that path's kernel shares), and the wrapper
+    # under its own name with the main path's prefill route's numbers
+    out = {"flash_attention": dict(rows[("tc_prefill", "lm")],
+                                   max_abs_err=max(errs.values()))}
+    for which in FA_ROUTES:
+        row = dict(rows[(which, "lm")], max_abs_err=errs[which])
+        row["zamba2_ms"] = rows[(which, "zamba2")]["ms"]
+        row["zamba2_device_ms"] = rows[(which, "zamba2")].get("device_ms")
+        out[f"flash_attention:{which}"] = row
+    return out
 
 
 # -- phase 3d: the mamba2_scan kernel ------------------------------------------
@@ -797,7 +1012,7 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
             f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
             f" ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
             f"{nops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
-            f"{nops / row['ms'] / 1e9:.1f} GFLOP/s and "
+            f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
             f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved")
         timed[label] = row
     # the JSON row: the bf16 prefill from the cache's state, as the path
@@ -873,8 +1088,12 @@ def kernel_modules():
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import flash_attention
+
     for mod in kernel_modules().values():
         mod.launches = 0
+    for which in flash_attention.route_launches:
+        flash_attention.route_launches[which] = 0
 
 
 def read_launches():
@@ -883,6 +1102,27 @@ def read_launches():
     if DEV == "cuda":
         torch.cuda.synchronize()
     return {k: m.launches for k, m in kernel_modules().items()}
+
+
+def read_routes():
+    """flash_attention's launches by route since the last reset."""
+    from repro_torch.kernels import flash_attention
+
+    return dict(flash_attention.route_launches)
+
+
+def add_path_launches(rows, launched, routes) -> None:
+    """Add a counted run's launches to the JSON rows: each kernel's, and
+    flash_attention's also by route."""
+    for name, n in launched.items():
+        if n:
+            rows[name]["launches"] = rows[name].get("launches", 0) + n
+    for which, m in routes.items():
+        if m:
+            row = rows[f"flash_attention:{which}"]
+            row["launches"] = row.get("launches", 0) + m
+            split = rows["flash_attention"].setdefault("routes", {})
+            split[which] = split.get(which, 0) + m
 
 
 def drive_main_path(archive, vcp, volumes, rows):
@@ -1297,46 +1537,28 @@ def path_launches(cfg):
     return out
 
 
-def time_attention_at(cfg):
-    """flash_attention at a serve path's own shapes, bf16 (CUDA events):
-    -> (prefill ms, decode ms of one query against a
-    ``LM_PROMPT_LEN + LM_NEW_TOKENS`` prefix of the cache)."""
-    import torch
-    from repro_torch.kernels import ops
-
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    B, S, hq, hkv, d = (LM_PROMPTS, LM_PROMPT_LEN, cfg.n_heads,
-                        cfg.n_kv_heads, cfg.head_dim)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=DEV).to(
-            torch.bfloat16)
-
-    q, k, v = randn(B, hq, S, d), randn(B, hkv, S, d), randn(B, hkv, S, d)
-    pre = time_cuda(lambda: ops.flash_attention(q, k, v, mode="kernel"))
-    q1 = randn(B, hq, 1, d)
-    ck, cv = randn(B, hkv, LM_MAX_LEN, d), randn(B, hkv, LM_MAX_LEN, d)
-    n = S + LM_NEW_TOKENS
-    dec = time_cuda(lambda: ops.flash_attention(q1, ck[:, :, :n],
-                                                cv[:, :, :n], mode="kernel"))
-    return pre, dec
+def fa_step_ms(rows, tag: str):
+    """flash_attention's (prefill, decode) ms at a serve path's shapes:
+    the tensor-core prefill by CUDA events, the decode call's device time
+    (the profiler's, else its CUDA-event time)."""
+    pre = rows["flash_attention:tc_prefill"]
+    dec = rows["flash_attention:decode"]
+    if tag == "lm":
+        return pre["ms"], dec.get("device_ms") or dec["ms"]
+    return pre["zamba2_ms"], dec.get("zamba2_device_ms") or dec["zamba2_ms"]
 
 
 def drive_lm_path(archive, rows) -> None:
     """radar-lm-100m at full width serves the archive prompts."""
-    row = rows["flash_attention"]
     drive_serve_path(archive, rows, LM_ARCH, "lm",
-                     {"flash_attention": (row["ms"], row["decode_ms"])})
+                     {"flash_attention": fa_step_ms(rows, "lm")})
 
 
 def drive_zamba2_path(archive, rows) -> None:
-    """zamba2-1.2b at full width serves the archive prompts; its attention
-    shape is timed here, its scans' times come from the kernel check."""
-    from repro_torch.configs import get_any_config
-
+    """zamba2-1.2b at full width serves the archive prompts."""
     row = rows["mamba2_scan"]
     drive_serve_path(archive, rows, ZAMBA_ARCH, "zamba2", {
-        "flash_attention": time_attention_at(get_any_config(ZAMBA_ARCH)),
+        "flash_attention": fa_step_ms(rows, "zamba2"),
         "mamba2_scan": (row["ms"], row["decode_ms"])})
 
 
@@ -1353,7 +1575,7 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import model as M
-    from repro_torch.serve import Engine, Request, decode, prefill
+    from repro_torch.serve import Engine, Request, prefill
 
     cfg = get_any_config(arch)
     per_call = path_launches(cfg)
@@ -1375,6 +1597,13 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
     def expected(impl, steps):
         return {k: per_call.get(k, 0) * (1 + steps) if impl == "kernel"
                 else 0 for k in kernel_modules()}
+
+    def expected_routes(impl, steps, prefill_route):
+        # one prefill call per attention layer on the dtype's route, then
+        # one decode call per layer and step
+        n = per_call.get("flash_attention", 0) if impl == "kernel" else 0
+        return {"decode": n * steps, "tc_prefill": 0, "f32": 0,
+                prefill_route: n}
 
     # float32: the kernel route against the non-kernel one ---------------------
     f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
@@ -1403,15 +1632,23 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
                      device=DEV)
         reset_launches()
         out = eng.generate(reqs, seed=SEED)
-        launched = read_launches()
+        launched, routes = read_launches(), read_routes()
         gens[impl] = np.stack([o.tokens for o in out])
         expect = expected(impl, eng.decode_steps)
+        expect_routes = expected_routes(impl, eng.decode_steps, "f32")
         say(f"{tag} f32 generate attn_impl={impl}: {gens[impl].shape} "
             f"tokens, {eng.decode_steps} decode steps, kernel launches "
-            f"{launched}")
-        if launched != expect:
-            raise AssertionError(f"{tag} {impl}: expected launches {expect}, "
-                                 f"got {launched}")
+            f"{launched}, flash_attention by route {routes}")
+        if launched != expect or routes != expect_routes:
+            raise AssertionError(f"{tag} {impl}: expected launches {expect} "
+                                 f"by route {expect_routes}, got {launched} "
+                                 f"by route {routes}")
+        if impl == "kernel":
+            # the bf16 path never takes the f32 route: its launches are
+            # counted here, the other kernels' from the bf16 run
+            rows["flash_attention:f32"]["launches"] = (
+                rows["flash_attention:f32"].get("launches", 0)
+                + routes["f32"])
         if gens[impl].shape != (B, LM_NEW_TOKENS) or not all(
                 o.finished == "length" for o in out):
             raise AssertionError(f"{tag} {impl}: completions "
@@ -1461,46 +1698,31 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
     out = eng.generate(reqs, seed=SEED)
     sync()
     wall = time.perf_counter() - t
-    launched = read_launches()
+    launched, routes = read_launches(), read_routes()
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
                else float("nan"))
     steps = eng.decode_steps - steps0
     new = sum(len(o.tokens) for o in out)
-    if launched != expected("kernel", steps):
-        raise AssertionError(f"{tag} bf16: launches {launched}, {steps} "
-                             "steps")
+    if launched != expected("kernel", steps) or routes != expected_routes(
+            "kernel", steps, "tc_prefill"):
+        raise AssertionError(f"{tag} bf16: launches {launched} by route "
+                             f"{routes}, {steps} steps")
     gen_bf16 = np.stack([o.tokens for o in out])
     if gen_bf16.shape != (B, LM_NEW_TOKENS) or gen_bf16.min() < 0 \
             or gen_bf16.max() >= cfg.vocab_size:
         raise AssertionError(f"{tag} bf16: tokens {gen_bf16.shape}")
     say(f"{tag} bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens "
         f"after {S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
-        f"tokens/s; kernel launches {launched}; peak device memory "
+        f"tokens/s; kernel launches {launched}, flash_attention by route "
+        f"{routes}; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated); "
         f"{int((gen_bf16 == gens['kernel']).sum())} of {gen_bf16.size} "
         "tokens equal to the float32 run")
-    for name, n in launched.items():
-        if n:
-            rows[name]["launches"] = rows[name].get("launches", 0) + n
+    add_path_launches(rows, launched, routes)
 
-    # the split: prefill, then single decode steps
-    cp = eng.cparams
+    # the split: prefill, then single decode steps, then each traced
     prompt = torch.from_numpy(toks).to(DEV)
-    pre, dec = [], []
-    for _ in range(3):
-        caches = M.init_caches(cfg, bf16, B, LM_MAX_LEN, device=DEV)
-        sync()
-        t = time.perf_counter()
-        logits, caches = prefill(cfg, bf16, cp, caches, prompt)
-        sync()
-        pre.append((time.perf_counter() - t) * 1e3)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    for i in range(LM_NEW_TOKENS):
-        t = time.perf_counter()
-        logits, caches = decode(cfg, bf16, cp, caches, nxt, S + i)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        sync()
-        dec.append((time.perf_counter() - t) * 1e3)
+    pre, dec, caches, nxt = serve_split(cfg, bf16, eng.cparams, prompt)
     pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
     shares = "; ".join(
         f"{name} {n} x {kernel_ms[name][0]:.4f} ms = "
@@ -1509,37 +1731,65 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         f"{n * kernel_ms[name][1] / dec_ms:.1%} of a decode step"
         for name, n in per_call.items())
     say(f"time {tag} bf16: prefill {pre_ms:.2f} ms ({B} x {S} tokens, "
-        f"median of 3), decode {dec_ms:.3f} ms per step of {B} tokens "
-        f"(median of {LM_NEW_TOKENS}, {B / dec_ms * 1e3:.1f} tokens/s); "
+        f"median of {len(pre)}: {', '.join(f'{x:.2f}' for x in pre)}), "
+        f"decode {dec_ms:.3f} ms per step of {B} tokens "
+        f"(median of {len(dec)}, {B / dec_ms * 1e3:.1f} tokens/s); "
         f"{shares}")
-    profile_decode(cfg, bf16, cp, caches, nxt, S + LM_NEW_TOKENS, dec_ms,
-                   tag=tag)
+    profile_prefill(cfg, bf16, eng.cparams, prompt, pre_ms, tag=tag)
+    profile_decode(cfg, bf16, eng.cparams, caches, nxt, S + len(dec),
+                   dec_ms, tag=tag)
 
 
-def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
-                   n: int = 4, warmup: int = 2, tag: str = "lm"):
-    """``n`` decode steps traced by ``torch.profiler`` (device activity
-    only, after ``warmup`` traced steps so its start-up stays out): the
-    device's busy time per step by kernel name, set against the step time
-    measured without the profiler (``step_ms``)."""
+def serve_split(cfg, pcfg, cparams, prompt, n_prefill: int = 3,
+                n_steps: int = LM_NEW_TOKENS):
+    """``n_prefill`` prefills of ``prompt``, each into fresh caches, then
+    ``n_steps`` greedy decode steps after the last, each timed by the host
+    clock around a synchronised call: (prefill ms, step ms, caches, next
+    tokens)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode, prefill
+
+    B, S = prompt.shape
+    pre, dec = [], []
+    for _ in range(n_prefill):
+        caches = M.init_caches(cfg, pcfg, B, LM_MAX_LEN, device=DEV)
+        sync()
+        t = time.perf_counter()
+        logits, caches = prefill(cfg, pcfg, cparams, caches, prompt)
+        sync()
+        pre.append((time.perf_counter() - t) * 1e3)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    for i in range(n_steps):
+        t = time.perf_counter()
+        logits, caches = decode(cfg, pcfg, cparams, caches, nxt, S + i)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        sync()
+        dec.append((time.perf_counter() - t) * 1e3)
+    return pre, dec, caches, nxt
+
+
+def trace_device(run, n: int, warmup: int = 2):
+    """``run(i)`` for i < ``warmup + n`` under ``torch.profiler`` (device
+    activity only; the first ``warmup >= 1`` calls traced but left out, so
+    the profiler's start-up stays out, and finished on the card before the
+    window opens, so a device-bound call's queue does not spill into it).
+    Per call of the last ``n``: (device kernels, their busy ms, the five
+    busiest kernel names with their ms, host ms under the profiler); None
+    when it saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch.serve import decode
 
-    if DEV != "cuda":
-        return
     sync()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=warmup, active=n,
                                    repeat=1)) as prof:
         for i in range(warmup + n):
-            if i == warmup:
+            run(i)
+            if i == warmup - 1:
                 sync()
                 t = time.perf_counter()
-            logits, caches = decode(cfg, pcfg, cparams, caches, nxt,
-                                    start + i)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            if i == warmup + n - 1:
+            elif i == warmup + n - 1:
                 sync()
                 wall_ms = (time.perf_counter() - t) * 1e3 / n
             prof.step()
@@ -1547,21 +1797,65 @@ def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
     if not kernels or busy_ms <= 0:
-        say(f"profile {tag} decode: the profiler saw no device time; busy "
-            "share not measured")
-        return
+        return None
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    per_step = len(kernels) / n
-    say(f"profile {tag} decode ({n} steps traced): {per_step:.0f} device "
-        f"kernels per step, device busy {busy_ms:.3f} ms per step = "
-        f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms step measured "
-        f"without the profiler (idle {1 - busy_ms / step_ms:.1%}; "
-        f"{wall_ms:.3f} ms per step under the profiler); host time per "
-        f"launch {(step_ms - busy_ms) / per_step * 1e3:.1f} us; per step: "
+    return len(kernels) / n, busy_ms, top, wall_ms
+
+
+def say_trace(label: str, traced, call_ms: float, what: str) -> None:
+    """One line of a ``trace_device`` result against ``call_ms``, the time
+    of one call measured without the profiler."""
+    if traced is None:
+        say(f"profile {label}: the profiler saw no device time; busy share "
+            "not measured")
+        return
+    per_call, busy_ms, top, wall_ms = traced
+    say(f"profile {label}: {per_call:.0f} device kernels per {what}, device "
+        f"busy {busy_ms:.3f} ms per {what} = {busy_ms / call_ms:.1%} of the "
+        f"{call_ms:.3f} ms measured without the profiler (idle "
+        f"{1 - busy_ms / call_ms:.1%}; {wall_ms:.3f} ms per {what} under the "
+        f"profiler); host time per launch "
+        f"{(call_ms - busy_ms) / per_call * 1e3:.1f} us; per {what}: "
         + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+
+
+def profile_prefill(cfg, pcfg, cparams, prompt, prefill_ms: float,
+                    n: int = 2, warmup: int = 1, tag: str = "lm"):
+    """``n`` prefills traced (after ``warmup``), each into caches made
+    before the trace, against ``prefill_ms``."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import prefill
+
+    if DEV != "cuda":
+        return
+    caches = [M.init_caches(cfg, pcfg, prompt.shape[0], LM_MAX_LEN,
+                            device=DEV) for _ in range(warmup + n)]
+    traced = trace_device(
+        lambda i: prefill(cfg, pcfg, cparams, caches[i], prompt), n, warmup)
+    say_trace(f"{tag} prefill ({n} prefills traced)", traced, prefill_ms,
+              "prefill")
+
+
+def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
+                   n: int = 4, warmup: int = 2, tag: str = "lm"):
+    """``n`` decode steps traced (after ``warmup``), against ``step_ms``."""
+    import torch
+    from repro_torch.serve import decode
+
+    if DEV != "cuda":
+        return
+    state = {"caches": caches, "nxt": nxt}
+
+    def step(i):
+        logits, state["caches"] = decode(cfg, pcfg, cparams, state["caches"],
+                                         state["nxt"], start + i)
+        state["nxt"] = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+    say_trace(f"{tag} decode ({n} steps traced)",
+              trace_device(step, n, warmup), step_ms, "step")
 
 
 # the TPU kernel each hand-written kernel replaces (wrapper function)
@@ -1573,6 +1867,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:74",
 }
+# the source of each flash_attention route (the others: csrc/<name>.cu)
+SOURCES = {"flash_attention:decode": "flash_decode"}
 
 
 def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
@@ -1624,15 +1920,31 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "Z-R integral, a masked weighted mean over a gather map, a "
         "pos-mapped set/add/max combine or an SSD (Mamba-2) scan")
     say("launches: summed over the counted runs of every path that "
-        "launches the kernel (flash_attention: radar-lm and zamba2)")
-    return [{
-        "name": kname, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
-        "replaces": REPLACES[kname], "launches": row["launches"],
-        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-    } for kname, row in rows.items()]
+        "launches the kernel (the serve paths: their bfloat16 generate, of "
+        "radar-lm and of zamba2); flash_attention is the wrapper, its calls "
+        "split by route in 'routes', with the numbers of its bf16 prefill "
+        "route (tc_prefill) at radar-lm's shape; flash_attention:<route> "
+        "is each of its three kernels at radar-lm's shapes, f32's launches "
+        "from the float32 kernel-route generate (the bf16 path never takes "
+        "it)")
+    idle = [k for k, row in rows.items() if not row.get("launches")]
+    if idle:
+        raise AssertionError(f"no path launched {idle}")
+    out = []
+    for kname, row in rows.items():
+        source = SOURCES.get(kname, kname.split(":")[0])
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": REPLACES[kname.split(":")[0]],
+            "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+        })
+        if "routes" in row:
+            out[-1]["routes"] = row["routes"]
+    return out
 
 
 def main() -> int:

@@ -18,12 +18,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("qvp_reduce", "zr_accum", "grid_map", "grid_update",
-           "flash_attention", "mamba2_scan")
+           "flash_attention", "flash_decode", "mamba2_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,21 +87,25 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     return logs
 
 
-def launcher(name: str, argtypes: Sequence) -> object:
-    """The ``<name>_launch`` C function of ``csrc/<name>.cu``, building and
-    loading its library on first use; it returns a ``cudaError_t``."""
+def launcher(name: str, argtypes: Sequence,
+             symbol: Optional[str] = None) -> object:
+    """The C function ``symbol`` (default ``<name>_launch``) of
+    ``csrc/<name>.cu``, building and loading its library on first use; it
+    returns a ``cudaError_t``."""
+    symbol = symbol or f"{name}_launch"
     with _lock:
-        fn = _fns.get(name)
+        fn = _fns.get(symbol)
         if fn is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, f"{name}_launch")
+            lib = _libs.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = _libs[name] = ctypes.CDLL(str(path))
+            fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-            _fns[name] = fn
+            _fns[symbol] = fn
         return fn
 
 

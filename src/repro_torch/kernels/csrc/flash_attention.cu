@@ -10,6 +10,15 @@
 // with G = Hq / Hkv.  Under `causal` the mask is aligned to the end of the
 // keys: query i sees the keys j <= Skv - Sq + i (Sq <= Skv).
 //
+// Two kernels live here; the wrapper picks one from the dtype and Sq (the
+// single-query decode call goes to csrc/flash_decode.cu):
+//   * flash_attention_launch, the float32 prefill on the CUDA cores
+//     (below; float32 only, since bfloat16 goes to the next one);
+//   * flash_attention_tc_launch, the bfloat16 prefill on the tensor cores
+//     (wgmma fed by TMA), after it.
+//
+// --- float32 prefill (CUDA cores) ------------------------------------------
+//
 // Work split.  One block per (64-row query tile, query head, batch).  The
 // TPU kernel walked the key tiles as the sequential last axis of its grid,
 // carrying the running max, normaliser and accumulator in VMEM scratch;
@@ -21,25 +30,21 @@
 // for the output, feature columns tx + 16 j.  The 16 threads of a row sit
 // in one half-warp, so the row max and row sum are shuffles.
 //
-// Numbers.  q, k and v tiles are widened to float32 in shared memory (bf16
-// through __bfloat162float); scores, the running max m, the normaliser l
-// and the accumulator are float32.  Masked scores are -1e30, as in the TPU
-// kernel.  expf, not __expf, and no fast math.  The output is
-// acc / max(l, 1e-30), rounded once to q's type.  No atomics, and a fixed
-// order over key tiles and over keys within a tile: the result is the same
-// bits from run to run.
+// Numbers.  The q, k and v tiles in shared memory, the scores, the running
+// max m, the normaliser l and the accumulator are float32.  Masked scores
+// are -1e30, as in the TPU kernel.  expf, not __expf, and no fast math.
+// The output is acc / max(l, 1e-30).  No atomics, and a fixed order over
+// key tiles and over keys within a tile: the result is the same bits from
+// run to run.
 //
 // Bound on Hopper.  Prefill is bounded by operations: 4 * B * Hq * D
-// flops for every visible query-key pair (QK^T and PV), at the bf16
-// tensor-core peak.  Decode (Sq = 1) is bounded by bytes: the K/V read.
-// This first version uses no tensor cores: its products are float32 FMAs
-// on the CUDA cores from shared memory, and a decode block computes a whole
-// 64-row tile for its one query.  mma.sync / wgmma, TMA loads, and packing
-// the Hq / Hkv query heads that share a KV head into one tile are later
-// work.
+// flops for every visible query-key pair (QK^T and PV).  Its products are
+// float32 FMAs on the CUDA cores from shared memory (67 TFLOP/s peak):
+// TF32 tensor cores would miss the float32 tolerance of 2e-4.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -50,19 +55,6 @@ constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr int smem_bytes() {
   // q and k tiles with rows padded to D + 1 (conflict-free column reads),
@@ -71,10 +63,11 @@ constexpr int smem_bytes() {
          static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int64_t qsb, int64_t qsh, int64_t qss,
                        int64_t ksb, int64_t ksh, int64_t kss,
                        int64_t vsb, int64_t vsh, int64_t vss,
@@ -96,13 +89,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / group;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    qs[r * LDK + c] = q0 + r < Sq ? widen(qb[(q0 + r) * qss + c]) : 0.f;
+    qs[r * LDK + c] = q0 + r < Sq ? qb[(q0 + r) * qss + c] : 0.f;
   }
 
   float m[RI], l[RI], acc[RI][DJ];
@@ -126,8 +119,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < Skv;
-      ks[r * LDK + c] = in ? widen(kb[(k0 + r) * kss + c]) : 0.f;
-      vs[r * D + c] = in ? widen(vb[(k0 + r) * vss + c]) : 0.f;
+      ks[r * LDK + c] = in ? kb[(k0 + r) * kss + c] : 0.f;
+      vs[r * D + c] = in ? vb[(k0 + r) * vss + c] : 0.f;
     }
     __syncthreads();
 
@@ -197,7 +190,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * osb + h * osh;
+  float* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -205,45 +198,44 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[r * oss + tx + 16 * j] = narrow<T>(acc[i][j] / den);
+      ob[r * oss + tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Skv, const int64_t* st, float scale,
            int causal, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       Hq / Hkv, Sq, Skv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
                float scale, int causal, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
-                           causal, stream);
+      return launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
+                        causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
-                           causal, stream);
+      return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
+                        causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
-                           causal, stream);
+      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
+                        causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
-                            causal, stream);
+      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale,
+                         causal, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -253,22 +245,539 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `strides` holds 12 element strides: batch, head and sequence of q, k, v
-// and o, in that order.  dtype 0 = float32, 1 = bfloat16.
+// and o, in that order.  q, k, v and o are float32.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
                                       const int64_t* strides, float scale,
-                                      int causal, int dtype, void* stream) {
+                                      int causal, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || B > 65535 || Hq > 65535 ||
       (causal && Sq > Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
-                             scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                     strides, scale, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides, scale,
+                    causal, s);
+}
+
+// --- bfloat16 prefill on the tensor cores (tc_prefill) ---------------------
+//
+// The same function for bfloat16 q, k, v and Sq >= 2, redesigned for
+// Hopper.  Bound: operations, 4 * B * Hq * D flops per visible pair at the
+// bf16 tensor-core peak (989 TFLOP/s dense): at radar-lm's prefill (B = 8,
+// Hq = 12, D = 64, Sq = Skv = 1024, causal) 12.9 GFLOP, 0.013 ms.  What the
+// design does about it:
+//   * one warpgroup (128 threads) per (64-row query tile, query head,
+//     batch), the longest causal tiles launched first;
+//   * q, k and v stay bfloat16 in shared memory, in the swizzled layout the
+//     tensor cores read (128-byte swizzle for rows of 64 values, 64- and
+//     32-byte for D = 32 and 16; D = 128 as two 64-wide halves);
+//   * TMA copies: one thread issues each tile as a 4-D box (D, rows, head,
+//     batch) of a tensor map built over the caller's strides, so a cache
+//     prefix or a transposed view is read in place and rows past Sq or Skv
+//     arrive as zeros.  K and V go through a ring of two stages, each with
+//     an mbarrier that counts the bytes: the next key tile is in flight
+//     while the current one is used;
+//   * S = Q K^T is wgmma m64n64k16 from shared memory (D / 16 steps, float32
+//     accumulators); the online softmax runs in float32 on those registers
+//     (row max and sum over the 4 threads of a row); P is rounded to bf16
+//     in registers and is the A operand of O += P V, wgmma m64nDk16 with V
+//     read MN-major (transposed) from the same tile;
+//   * masked scores are -1e30, expf without fast math, output
+//     acc / max(l, 1e-30) rounded once; no atomics and a fixed order: the
+//     same bits from run to run.
+
+namespace tc {
+
+constexpr int kRows = 64;       // query rows per block, wgmma's M
+constexpr int kKeys = 64;       // keys per tile
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kStages = 2;      // K/V ring
+
+// CUtensorMap and its enums come from cuda.h; cuTensorMapEncodeTiled is
+// taken from the driver through the runtime, so nothing links libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map over a bf16 (B, H, S, D) view with element strides sb, sh,
+// ss (last dim contiguous), cut into boxes of dh x kRows x 1 x 1.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
+              int H, int S, int D, int64_t sb, int64_t sh, int64_t ss,
+              int dh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  // a dim of extent 1 is never stepped over: any legal stride does
+  int64_t st[3] = {ss, sh, sb};
+  int64_t inner = D;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) st[i] = inner;
+    inner = st[i] * static_cast<int64_t>(dims[i + 1]);
+  }
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[2]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(dh), kRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : (dh == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of `map` at (c0, c1, c2, c3) into shared memory at `dst`; the
+// copy's bytes complete on the mbarrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B, 3 = 32 B)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins accumulator registers in place across the asynchronous wgmma, so
+// the compiler neither reads them before the wait nor moves writes past
+// the fence
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 64, float32) {+}= A (64 x 16, shared) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 16, float32) += A (64 x 16, bf16 in registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, float32) += A (64 x 16, bf16 in registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+template <int D>
+struct Tile {
+  static constexpr int kDH = D < 64 ? D : 64;     // columns of a sub-tile
+  static constexpr int kNH = D / kDH;             // sub-tiles (2 for D = 128)
+  static constexpr int kSub = kRows * kDH * 2;    // bytes of a sub-tile
+  static constexpr int kBytes = kNH * kSub;       // bytes of a 64-row tile
+  static constexpr uint32_t kSBO = 8 * kDH * 2;   // bytes of 8 rows
+  static constexpr uint64_t kLayout = kDH == 64 ? 1 : (kDH == 32 ? 2 : 3);
+  // q, then per stage k and v; 1024 B of slack to align the swizzled
+  // tiles, and the mbarriers
+  static constexpr int kSmem = 1024 + kBytes * (1 + 2 * kStages) + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh,
+                  int64_t oss, int group, int Sq, int Skv, float scale,
+                  int causal) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + T::kBytes;   // stage st: k at + 2 st tiles
+  const uint32_t bars = base + T::kBytes * (1 + 2 * kStages);
+  const uint32_t q_bar = bars + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  // query row r sits at key position r + (Skv - Sq)
+  const int offset = Skv - Sq;
+  const int kv_end = causal ? min(Skv, q0 + kRows + offset) : Skv;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+
+  const CUtensorMap* kp = &kmap;
+  const CUtensorMap* vp = &vmap;
+  auto load_kv = [=](int t, int st) {
+    const uint32_t bar = bars + 8 * st;
+    const uint32_t ks = kv_s + 2 * st * T::kBytes, vs = ks + T::kBytes;
+    mbar_expect_tx(bar, 2 * T::kBytes);
+#pragma unroll
+    for (int hh = 0; hh < T::kNH; ++hh) {
+      tma_load(ks + hh * T::kSub, kp, bar, hh * T::kDH, t * kKeys, hk, b);
+      tma_load(vs + hh * T::kSub, vp, bar, hh * T::kDH, t * kKeys, hk, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, T::kBytes);
+#pragma unroll
+    for (int hh = 0; hh < T::kNH; ++hh)
+      tma_load(q_s + hh * T::kSub, &qmap, q_bar, hh * T::kDH, q0, h, b);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t, t);
+  }
+
+  // accumulator fragments: warp w holds rows 16 w + lane / 4 (+ 8); in
+  // each 8-column block j, columns 8 j + 2 (lane % 4) (+ 1)
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(q_bar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t ks = kv_s + 2 * st * T::kBytes, vs = ks + T::kBytes;
+    mbar_wait(bars + 8 * st, (t / kStages) & 1);
+
+    // S = Q K^T: D / 16 steps of k16, both operands K-major
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / (T::kDH / 16)) * T::kSub +
+                           (kk % (T::kDH / 16)) * 32;
+      wgmma_ss_n64(s, make_desc(q_s + off, 16, T::kSBO, T::kLayout),
+                   make_desc(ks + off, 16, T::kSBO, T::kLayout), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // online softmax in float32 on the fragments
+    const int k0 = t * kKeys;
+    const bool edge = (causal && k0 + kKeys - 1 > q0 + offset) ||
+                      k0 + kKeys > Skv;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale;
+        if (edge) {
+          const int row = q0 + r0 + (e >> 1) * 8;
+          const int col = k0 + 8 * j + c0 + (e & 1);
+          if ((causal && row + offset < col) || col >= Skv) x = kNegInf;
+        }
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new[i]);
+    }
+    // p[2 j] holds row r0 of column block j, p[2 j + 1] row r0 + 8: the
+    // k16 step kk takes p[4 kk .. 4 kk + 3] as its A fragment
+    uint32_t p[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = expf(s[4 * j] - m_new[0]);
+      const float p1 = expf(s[4 * j + 1] - m_new[0]);
+      const float p2 = expf(s[4 * j + 2] - m_new[1]);
+      const float p3 = expf(s[4 * j + 3] - m_new[1]);
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      p[2 * j] = pack_bf16(p0, p1);
+      p[2 * j + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+      m[i] = m_new[i];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // O += P V: 4 steps of 16 keys; V is the MN-major B operand, its
+    // 64-wide halves T::kSub apart (the leading byte offset)
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_pv<D>(acc, &p[4 * kk],
+                  make_desc(vs + kk * 16 * T::kDH * 2, T::kSub, T::kSBO,
+                            T::kLayout));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+
+    // every thread's wgmma has read this stage: refill it
+    __syncthreads();
+    if (tid == 0 && t + kStages < n_tiles) load_kv(t + kStages, st);
+  }
+
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * oss + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] / den,
+                                acc[4 * j + 2 * i + 1] / den);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Skv, const int64_t* st, float scale,
+           int causal, cudaStream_t stream) {
+  using T = Tile<D>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  if (!make_map(encode, &qm, q, B, Hq, Sq, D, st[0], st[1], st[2], T::kDH) ||
+      !make_map(encode, &km, k, B, Hkv, Skv, D, st[3], st[4], st[5],
+                T::kDH) ||
+      !make_map(encode, &vm, v, B, Hkv, Skv, D, st[6], st[7], st[8], T::kDH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tc_prefill_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
+  kernel<<<grid, kThreads, T::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11],
+      Hq / Hkv, Sq, Skv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// The bfloat16 prefill on the tensor cores.  Same arguments as
+// flash_attention_launch, for bfloat16; q, k and v must be 16-byte
+// aligned with strides of whole 16-byte units (the wrapper sees to it) and
+// Sq >= 2.  Returns cudaGetLastError() (0 on success).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int Hq, int Hkv, int Sq, int Skv,
+                                         int D, const int64_t* strides,
+                                         float scale, int causal,
+                                         void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || B > 65535 || Hq > 65535 ||
+      (causal && Sq > Skv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
+                            causal, s);
+    case 32:
+      return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
+                            causal, s);
+    case 64:
+      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
+                            causal, s);
+    case 128:
+      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
+                             causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -175,6 +175,52 @@ def flash_attention(
     return out.to(q.dtype)
 
 
+def flash_decode(
+    q: torch.Tensor,            # (B, Hq, 1, D)
+    k: torch.Tensor,            # (B, Hkv, Skv, D)
+    v: torch.Tensor,            # (B, Hkv, Skv, D)
+    n_split: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Split-key decode attention, the plain version of the decode kernel
+    (``csrc/flash_decode.cu``): one query sees every key.  The keys fall
+    into ``n_split`` runs of ``ceil(Skv / n_split)`` (the last one ragged,
+    possibly empty); each run gives its max ``m``, sum ``l`` and weighted
+    values ``o`` in float32, and the runs merge in order as the
+    reference's ``_flash_decode_core`` combines its chunks:
+    ``out = sum(o_s w_s) / max(sum(l_s w_s), 1e-30)``,
+    ``w_s = exp(m_s - max m)``.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if Sq != 1:
+        raise ValueError(f"flash_decode: one query per head, got Sq={Sq}")
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    chunk = -(-Skv // n_split)
+    qg = q.reshape(B, Hkv, G, D).to(torch.float32)
+    ms, ls, os_ = [], [], []
+    for s in range(n_split):
+        kj = k[:, :, s * chunk:(s + 1) * chunk].to(torch.float32)
+        vj = v[:, :, s * chunk:(s + 1) * chunk].to(torch.float32)
+        sc = torch.einsum("bhgd,bhkd->bhgk", qg, kj) * scale
+        m = (torch.amax(sc, dim=-1) if kj.shape[2]
+             else torch.full((B, Hkv, G), -1e30, device=q.device))
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bhgk,bhkd->bhgd", p, vj))
+    m_all = torch.stack(ms).amax(dim=0)
+    l_all = torch.zeros_like(m_all)
+    o_all = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for m, l, o in zip(ms, ls, os_):
+        w = torch.exp(m - m_all)
+        l_all = l_all + l * w
+        o_all = o_all + o * w[..., None]
+    out = o_all / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
 def mamba2_scan(
     x: torch.Tensor,            # (B, L, H, P)
     dt: torch.Tensor,           # (B, L, H)   positive (already softplus'd)

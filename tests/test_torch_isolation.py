@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the reference package.
 
 An AST scan (nothing is imported, so it runs without torch) of every
-module under ``src/repro_torch``, of ``chip_smoke.py`` and of the GPU
-tests (which run where there is no JAX): an import of
+module under ``src/repro_torch``, of ``chip_smoke.py``, of the scripts
+under ``tools/`` that measure the port, and of the GPU tests (which run
+where there is no JAX): an import of
 ``jax``, ``jaxlib`` or ``repro`` anywhere — top level, inside a function,
 or under a guard — fails.  Relative imports stay inside the port.
 """
@@ -16,7 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_cuda.py",
-]
+] + sorted((REPO / "tools").glob("*.py"))
 
 
 def _imported_roots(tree: ast.AST):

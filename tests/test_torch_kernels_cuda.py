@@ -165,6 +165,138 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
         ops.flash_attention(q.half(), k.half(), v.half())
 
 
+# bfloat16 output rows against the plain version's, each relative to its
+# own L2 norm: the elementwise 5e-2 is as large as a late row's outputs,
+# while one bf16 rounding of o and of P leaves a few 1e-3 a row
+BF16_ROW_RTOL = 2e-2
+
+
+def _assert_bf16_rows(got, want):
+    g, w = got.float(), want.float()
+    rows = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp(min=1e-30)
+    assert float(rows.max()) <= BF16_ROW_RTOL, float(rows.max())
+
+
+def _route_call(q, k, v, causal=True):
+    """One kernel call, with the launch counters it must move."""
+    which = flash_attention.route(q)
+    before = dict(flash_attention.route_launches)
+    n = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n + 1
+    before[which] += 1
+    assert flash_attention.route_launches == before
+    return got, which
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 1055, 2048])
+def test_flash_decode_kernel_on_a_strided_cache_prefix(skv, group, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(skv + group)
+    dt = getattr(torch, dtype)
+    b, hkv, d = 3, 2, 64
+    q = _t(rng.normal(size=(b, hkv * group, 1, d)).astype(np.float32))
+    cache = _t(rng.normal(size=(2, b, hkv, 2100, d)).astype(np.float32))
+    q = q.cuda().to(dt)
+    k, v = (c[:, :, :skv] for c in cache.cuda().to(dt))
+    got, which = _route_call(q, k, v)
+    assert which == "decode" and got.dtype == dt and got.shape == q.shape
+    tol = 2e-4 if dtype == "float32" else 5e-2    # tests/test_kernels.py
+    for want in (ref.flash_attention(q, k, v, causal=True),
+                 ref.flash_decode(q, k, v, flash_attention.decode_splits(
+                     b * hkv, skv, torch.cuda.get_device_properties(
+                         0).multi_processor_count))):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+        if dt == torch.bfloat16:
+            _assert_bf16_rows(got, want)
+    again = ops.flash_attention(q, k, v)
+    assert torch.equal(got.view(torch.int16 if dt == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dt == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq, skv, causal", [
+    (100, 100, True), (130, 270, True), (65, 1100, True), (2, 2, True),
+    (200, 200, False), (77, 3, False)])
+def test_tc_prefill_kernel_bf16(sq, skv, causal, d):
+    _need_cuda()
+    rng = np.random.default_rng(sq + skv + d)
+    b, hq, hkv = 2, 6, 2
+    q = _t(rng.normal(size=(b, hq, sq, d)).astype(np.float32))
+    q = q.cuda().to(torch.bfloat16)
+    cache = _t(rng.normal(size=(2, b, hkv, skv + 64, d)).astype(np.float32))
+    k, v = (c[:, :, :skv] for c in cache.cuda().to(torch.bfloat16))
+    got, which = _route_call(q, k, v, causal)
+    assert which == "tc_prefill" and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=5e-2,
+                               atol=5e-2)
+    _assert_bf16_rows(got, want)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_routes_read_transposed_views(dtype):
+    # the model's forward without a cache hands (B, S, H, D) tensors
+    # transposed to (B, H, S, D)
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    b, s, hq, hkv, d = 2, 150, 8, 4, 64
+
+    def view(h, n):
+        x = _t(rng.normal(size=(b, n, h, d)).astype(np.float32))
+        return x.cuda().to(dt).transpose(1, 2)
+
+    q, k, v = view(hq, s), view(hkv, s), view(hkv, s)
+    got, which = _route_call(q, k, v)
+    assert which == ("tc_prefill" if dtype == "bfloat16" else "f32")
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.flash_attention(q, k, v).float().cpu().numpy(), rtol=tol,
+        atol=tol)
+    q1 = view(hq, 1)
+    got, which = _route_call(q1, k, v)
+    assert which == "decode"
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.flash_attention(q1, k, v).float().cpu().numpy(), rtol=tol,
+        atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 70])
+def test_flash_attention_takes_views_off_16_byte_units(sq):
+    # q starts one element into its buffer and k's rows sit 68 values
+    # apart: the vector and TMA loads need 16-byte units, so the wrapper
+    # copies such views rather than read them misaligned
+    _need_cuda()
+    rng = np.random.default_rng(sq)
+    b, hq, hkv, skv, d = 2, 4, 2, 90, 64
+    flat = _t(rng.normal(size=(b * hq * sq * d + 1,)).astype(np.float32))
+    q = flat.cuda().to(torch.bfloat16)[1:].view(b, hq, sq, d)
+    wide = _t(rng.normal(size=(2, b, hkv, skv, d + 4)).astype(np.float32))
+    k, v = (x[..., :d] for x in wide.cuda().to(torch.bfloat16))
+    got, which = _route_call(q, k, v)
+    assert which == ("decode" if sq == 1 else "tc_prefill")
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.flash_attention(q, k, v).float().cpu().numpy(), rtol=5e-2,
+        atol=5e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b, l, h, p, n, with_h0", [

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""``flash_attention`` against another checkout's, in one process on one card.
+
+    python3 tools/flash_ab.py --against OTHER/src [--arch radar-lm-100m]
+
+Loads ``OTHER/src/repro_torch/kernels`` as a package of its own beside
+this checkout's (that package imports nothing else of ``repro_torch``) and
+runs the two ``flash_attention`` wrappers in turns (this, other, other,
+this; ``ROUNDS`` times) with ``chip_smoke.py``'s helpers:
+
+* the wrapper's host time per call (``chip_smoke.host_us_per_call``: 1000
+  calls enqueued on a synchronised card) at radar-lm-100m's bf16 decode
+  call (one query on a 1056-key prefix of a 2048-long cache) and bf16
+  prefill (Sq = Skv = 1024);
+* ``--arch`` at full width, bf16, random weights from seed 0, 8 prompts of
+  1024 random tokens (``chip_smoke.serve_split``): prefill ms and decode
+  step ms, the model's attention layers calling one wrapper or the other.
+
+Prints one JSON line of medians, with the card's name and power limit as
+``nvidia-smi`` gives them; needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+ROUNDS = 4            # turns of (this, other, other, this)
+STEPS = 8             # decode steps timed per turn
+
+
+def load_ops(src, name: str):
+    """The ``ops`` module of the ``repro_torch.kernels`` package under the
+    ``src`` directory ``src``, imported as the package ``name``."""
+    pkg = Path(src).resolve() / "repro_torch" / "kernels"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", required=True,
+                    help="the src directory of another checkout")
+    ap.add_argument("--arch", default="radar-lm-100m")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import numpy as np
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+
+    wrappers = {"this": attention.kops,
+                "other": load_ops(args.against, "other_kernels")}
+    order = ("this", "other", "other", "this")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    B, Hq, Hkv, D, S = cs.LM_PROMPTS, 12, 4, 64, cs.LM_PROMPT_LEN
+    kv_len = S + cs.LM_NEW_TOKENS
+    cache_k, cache_v = (randn(B, Hkv, cs.LM_MAX_LEN, D),
+                        randn(B, Hkv, cs.LM_MAX_LEN, D))
+    calls = {"decode": (randn(B, Hq, 1, D), cache_k[:, :, :kv_len],
+                        cache_v[:, :, :kv_len]),
+             "prefill": (randn(B, Hq, S, D), randn(B, Hkv, S, D),
+                         randn(B, Hkv, S, D))}
+
+    cfg = get_any_config(args.arch)
+    pcfg = ParallelConfig(compute_dtype="bfloat16",
+                          kv_cache_dtype="bfloat16", remat="none")
+    params = M.compute_params(M.init_params(cfg, 0, device="cuda"),
+                              pcfg.compute_dtype)
+    prompt = torch.from_numpy(np.random.default_rng(cs.SEED).integers(
+        2, min(cfg.vocab_size, 256), size=(B, S)).astype(np.int32)).cuda()
+    samples = {}
+    for which in wrappers:                      # warm-up, each version
+        attention.kops = wrappers[which]
+        cs.serve_split(cfg, pcfg, params, prompt, 1, 2)
+    for _ in range(ROUNDS):
+        for which in order:
+            ops = attention.kops = wrappers[which]
+            for call, qkv in calls.items():
+                samples.setdefault((which, f"{call}_host_us"), []).append(
+                    cs.host_us_per_call(lambda: ops.flash_attention(*qkv)))
+            pre, dec, _, _ = cs.serve_split(cfg, pcfg, params, prompt, 1,
+                                            STEPS)
+            samples.setdefault((which, "prefill_ms"), []).extend(pre)
+            samples.setdefault((which, "decode_step_ms"), []).extend(dec)
+    attention.kops = wrappers["this"]
+    out = {"card": cs.card_line(), "arch": args.arch,
+           "against": args.against, "rounds": ROUNDS}
+    for (which, metric), xs in samples.items():
+        out.setdefault(which, {})[metric] = {
+            "median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
