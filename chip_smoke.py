@@ -23,11 +23,16 @@ Phases, each printing its own lines:
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
    tensor-core instructions of the built library (``cuobjdump -sass``);
-   ``mamba2_scan`` at zamba2's prefill
-   shape (8 x 1024 tokens, 64 heads, P = N = 64) with and without a start
-   state and at its decode shape (one token from a state), in float32 and
-   bfloat16, at ragged lengths, and split in two halves against the whole,
-   timed beside its plain version (the sequential recurrence);
+   ``mamba2_scan`` on each of its three routes (``chunk_tc``, the bf16
+   scan on the tensor cores; ``decode``, one token from a state; ``f32``,
+   the float32 scan) at zamba2's prefill shape (8 x 1024 tokens, 64 heads,
+   P = N = 64) with and without a start state and at its decode shape, in
+   float32 and bfloat16, at ragged lengths and widths, and split in two
+   halves against the whole, each call on the route its dtype and L
+   choose; two planted faults must fail the checks; timed beside its plain
+   version (the sequential recurrence), the decode call also by
+   ``torch.profiler`` with the wrapper's host time per call, and the
+   tensor-core instructions of the built library counted;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -60,8 +65,11 @@ Phases, each printing its own lines:
    the shared attention block after every 6) from ``init_params(seed=0)``
    serves the same prompts the same way: float32 kernel route against the
    non-kernel one (the chunked SSD, the sequential recurrence and the
-   blocked core), exactly 38 x (1 + decode steps) ``mamba2_scan`` and
-   6 x (1 + decode steps) ``flash_attention`` launches, then bfloat16
+   blocked core), exactly 38 x (1 + decode steps) ``mamba2_scan`` (38 on
+   ``f32``, the rest on ``decode``; in bfloat16 38 on ``chunk_tc``) and
+   6 x (1 + decode steps) ``flash_attention`` launches; the bf16 prefill's
+   last-position logits against the same prefill with only the scan on its
+   plain version (row by row, a planted fault rejected); then bfloat16
    timed, with the peak device memory.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
@@ -873,7 +881,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
     return out
 
 
-# -- phase 3d: the mamba2_scan kernel ------------------------------------------
+# -- phase 3d: the mamba2_scan kernels -----------------------------------------
 
 # the zamba2 serve path: zamba2-1.2b at full width (38 Mamba-2 layers of
 # 64 heads, P = N = 64; a shared attention block of 32 query and 32 KV heads
@@ -882,11 +890,31 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
 ZAMBA_ARCH = "zamba2-1.2b"
 SSM_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py:330-331
 # bf16: the kernel and its plain version take the same bf16 inputs and
-# compute in float32; their y differ by the order of the sums and by one
-# bf16 rounding, at most one bf16 step (2**-7 of |y|); the state stays
-# float32 and is held at SSM_TOL
+# compute in float32 (chunk_tc: every float32 operand of the tensor cores
+# as a bf16 pair, an error near float32's); their y differ by the order of
+# the sums and by one bf16 rounding, at most one bf16 step (2**-7 of |y|);
+# the state stays float32 and is held at SSM_TOL
 SSM_BF16_Y_TOL = dict(rtol=1e-2, atol=1e-2)
-SSM_CHUNK = 64                             # csrc/mamba2_scan.cu, kCS
+SSM_CHUNK = 64                             # csrc/mamba2_scan.cu, kCS and kT
+SSM_ROUTES = ("chunk_tc", "decode", "f32")
+# zamba2's bf16 prefill on the kernel routes against the same prefill with
+# only the Mamba-2 scan on its plain version: last-position logits, each
+# request's L2 error over its L2 norm.  The two scans' y differ in the last
+# bf16 bit of some elements; each such flip is carried on through every
+# later bf16 rounding, so the logits of two right scans differ by a floor
+# that grows with depth.  On the CPU (tools/ssm_logits_gate.py: zamba2 cut
+# to 13 layers of width 1024 over 512 tokens and to 26 of width 512 over
+# 1024) the plain recurrence against the chunked form gave 1.2e-2 and
+# 2.0e-2, so about 3e-2 at 38 layers; the tolerance leaves that 1.7x room.
+# At random weights the Mamba-2 outputs move the logits little (all of y
+# zeroed: 2.2e-2 and 3.0e-2 there), so a fault inside the recurrence (the
+# carried state dropped: 2.1e-2 and 2.8e-2) is within that floor; the
+# gate catches gross faults.  The planted one (SSM_LOGIT_FAULT) is what a
+# kernel that formed M above the diagonal would give, each token taking
+# the rest of its chunk, amplified by exp(L_t - L_s) > 1: 9.4e-2 and
+# 8.0e-2 there.  Phase 3d holds the kernel itself elementwise.
+SSM_LOGIT_ROW_TOL = 5e-2
+SSM_LOGIT_FAULT = "mask"
 
 
 def zamba_shape():
@@ -916,15 +944,58 @@ def ssd_cost(b, l, h, p, n, itemsize, with_h0, cs=SSM_CHUNK):
     return nbytes, ops
 
 
-def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
-    """mamba2_scan against its plain version (the sequential recurrence) on
-    the card: at the zamba2 path's prefill shape with and without a start
-    state, float32 and bfloat16, at its decode shape (one token from a
-    state), at ragged lengths, and a scan split in two halves (the second
-    from the first's state) against the whole; twice each, bitwise equal
-    run to run.  Then timed beside the plain version and the bound."""
+def ssm_fault(x, dt, A, Bm, Cm, h0, kind: str):
+    """The plain version with a planted fault: at the last chunk of
+    ``SSM_CHUNK`` tokens, ``"update"``, its state update skipped (the
+    final state is the state before it), or ``"carry"``, the carried state
+    dropped from its y (the chunk scanned from zeros); in every chunk,
+    ``"mask"``, M formed above the diagonal too (y_t also takes
+    exp(L_t - L_s) dt_s (C_t . B_s) x_s for the later s of its chunk).
+    What a kernel with that fault would give."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
+
+    if kind == "mask":
+        y, h = ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+        y = y.float()
+        for t0 in range(0, x.shape[1], SSM_CHUNK):
+            sl = slice(t0, t0 + SSM_CHUNK)
+            lc = torch.cumsum(A.float() * dt[:, sl].float(), dim=1)
+            c = lc.shape[1]
+            later = torch.ones((c, c), dtype=torch.bool, device=x.device)
+            seg = (lc[:, :, None] - lc[:, None, :]).masked_fill(
+                ~later.triu(1)[None, :, :, None], float("-inf"))
+            cb = torch.einsum("btn,bsn->bts", Cm[:, sl].float(),
+                              Bm[:, sl].float())
+            m = torch.exp(seg) * dt[:, None, sl].float() * cb[..., None]
+            y[:, sl] += torch.einsum("btsh,bshp->bthp", m, x[:, sl].float())
+        return y.to(x.dtype), h
+    cut = (x.shape[1] - 1) // SSM_CHUNK * SSM_CHUNK
+    head = ref.mamba2_scan(x[:, :cut], dt[:, :cut], A, Bm[:, :cut],
+                           Cm[:, :cut], h0=h0)
+    tail = (x[:, cut:], dt[:, cut:], A, Bm[:, cut:], Cm[:, cut:])
+    if kind == "update":
+        y_tail, _ = ref.mamba2_scan(*tail, h0=head[1])
+        return torch.cat([head[0], y_tail], dim=1), head[1]
+    y_tail, h_tail = ref.mamba2_scan(*tail)
+    return torch.cat([head[0], y_tail], dim=1), h_tail
+
+
+def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
+    """Each mamba2_scan route against its plain version (the sequential
+    recurrence; chunk_tc also against ``ref.mamba2_scan_chunks``, its
+    roundings) on the card: at the zamba2 path's prefill shape with and
+    without a start state, float32 (``f32``) and bfloat16 (``chunk_tc``),
+    at its decode shape (one token from a state, ``decode``) in both, at
+    ragged lengths and widths in both, and a scan split in two halves (the
+    second from the first's state) against the whole; twice each, bitwise
+    equal run to run, each call on the route and counter its dtype and L
+    choose.  Two planted faults must fail the checks.  Then each route
+    timed at the path's shapes beside its plain version and the bound, the
+    decode call also by the profiler (cold L2) with the wrapper's host time
+    per call, and the tensor-core instructions of the library counted."""
+    import torch
+    from repro_torch.kernels import _cuda, mamba2_scan, ops, ref
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     B, L, H, P, N = zamba_shape()
@@ -944,82 +1015,157 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
     def run(args):
         return ops.mamba2_scan(*args[:5], h0=args[5], mode="kernel")
 
+    def held(label, got, want, dtype):
+        """(y's, the state's) largest difference, each within its
+        tolerance."""
+        ytol = SSM_TOL if dtype == torch.float32 else SSM_BF16_Y_TOL
+        return (compare(f"mamba2_scan {label} y", got[0], want[0], **ytol),
+                compare(f"mamba2_scan {label} state", got[1], want[1],
+                        **SSM_TOL))
+
+    errs = {r: 0.0 for r in SSM_ROUTES}
+
     def check(label, args):
-        y, h_n = run(args)
-        y2, h2 = run(args)
+        which = mamba2_scan.route(args[0])
+        before = dict(mamba2_scan.route_launches)
+        got = run(args)
+        again = run(args)
         sync()
-        if not (torch.equal(y, y2) and torch.equal(h_n, h2)):
+        before[which] += 2
+        if mamba2_scan.route_launches != before:
+            raise AssertionError(f"mamba2_scan {label}: route counters "
+                                 f"{mamba2_scan.route_launches}, expected "
+                                 f"{before}")
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
             raise AssertionError(f"mamba2_scan {label}: not bitwise stable")
-        y_ref, h_ref = ref.mamba2_scan(*args[:5], h0=args[5])
+        want = ref.mamba2_scan(*args[:5], h0=args[5])
+        ey, eh = held(label, got, want, args[0].dtype)
+        note = ""
+        if which == "chunk_tc":
+            cy, ch = held(f"{label} vs mamba2_scan_chunks", got,
+                          ref.mamba2_scan_chunks(*args[:5], h0=args[5]),
+                          args[0].dtype)
+            note = (f", against ref.mamba2_scan_chunks y {cy:.3e}, state "
+                    f"{ch:.3e}")
+        errs[which] = max(errs[which], ey, eh)
         ytol = SSM_TOL if args[0].dtype == torch.float32 else SSM_BF16_Y_TOL
-        err = max(compare(f"mamba2_scan {label} y", y, y_ref, **ytol),
-                  compare(f"mamba2_scan {label} state", h_n, h_ref,
-                          **SSM_TOL))
-        say(f"check mamba2_scan {label}: max_abs_err {err:.3e} (tolerance "
-            f"rtol = atol = {ytol['atol']} for y, {SSM_TOL['atol']} for the "
-            "state), bitwise stable")
-        return err, y, h_n
+        say(f"check mamba2_scan {label} [{which}]: max_abs_err y {ey:.3e}, "
+            f"state {eh:.3e} (tolerance rtol = atol = {ytol['atol']} for y, "
+            f"{SSM_TOL['atol']} for the state), bitwise stable{note}")
+        return got, want
 
     # the path's shapes -------------------------------------------------------
-    errs, cases = [], {}
+    cases = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for with_h0 in (False, True):
             args = inputs(B, L, H, P, N, dtype, with_h0)
-            errs.append(check(f"prefill {tag} B={B} L={L} H={H} P={P} N={N}"
-                              f" h0={'given' if with_h0 else 'None'}",
-                              args)[0])
+            check(f"prefill {tag} B={B} L={L} H={H} P={P} N={N} "
+                  f"h0={'given' if with_h0 else 'None'}", args)
             cases[f"prefill {tag}" + (" h0" if with_h0 else "")] = args
         args = inputs(B, 1, H, P, N, dtype, True)
-        errs.append(check(f"decode {tag} L=1 from a state", args)[0])
+        check(f"decode {tag} L=1 from a state", args)
         cases[f"decode {tag}"] = args
-    # ragged lengths: one token, a non-multiple of the chunk, one above it
-    for i, (l, p, n) in enumerate(((1, 16, 16), (100, 16, 8), (SSM_CHUNK + 1,
-                                   32, 16), (1000, 64, 64))):
-        dtype = torch.bfloat16 if i % 2 else torch.float32
-        check(f"ragged B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
-              "state", inputs(2, l, 3, p, n, dtype, True))
+    # the planted faults, at the bf16 prefill from a state: the checks must
+    # reject both
+    args = cases["prefill bf16 h0"]
+    want = ref.mamba2_scan(*args[:5], h0=args[5])
+    for kind, what in (("update", "the last chunk's state update skipped"),
+                       ("carry", "the carried state dropped from the last "
+                                 "chunk's y")):
+        try:
+            held(f"planted fault ({what})", ssm_fault(*args, kind), want,
+                 torch.bfloat16)
+        except AssertionError as e:
+            say(f"check mamba2_scan planted fault ({what}): rejected: {e}")
+        else:
+            raise AssertionError(f"mamba2_scan: the planted fault ({what}) "
+                                 "passes the checks")
+    del want
+    # ragged lengths and widths, each in both dtypes: one token, a
+    # non-multiple of the chunk, one above it, several chunks
+    for l, p, n in ((1, 16, 16), (2, 72, 80), (63, 8, 16), (65, 16, 8),
+                    (100, 64, 64), (300, 72, 80), (1000, 64, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"ragged B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
+                  "state", inputs(2, l, 3, p, n, dtype, True))
     # the state continues: two halves, the second from the first's state
-    x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, torch.float32, False)
-    _, y_all, h_all = check("whole B=2 L=512 H=4 f32", (x, dt, A, Bm, Cm,
-                                                         None))
-    y1, h1 = run((x[:, :300], dt[:, :300], A, Bm[:, :300], Cm[:, :300], None))
-    y2, h2 = run((x[:, 300:], dt[:, 300:], A, Bm[:, 300:], Cm[:, 300:], h1))
-    err = max(compare("mamba2_scan halves y", torch.cat([y1, y2], dim=1),
-                      y_all, **SSM_TOL),
-              compare("mamba2_scan halves state", h2, h_all, **SSM_TOL))
-    say(f"check mamba2_scan state continuation (300 + 212 tokens against "
-        f"512): max_abs_err {err:.3e} (tolerance {SSM_TOL['atol']})")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, dtype, False)
+        (y_all, h_all), _ = check(f"whole B=2 L=512 H=4 {str(dtype)[6:]}",
+                                  (x, dt, A, Bm, Cm, None))
+        y1, h1 = run((x[:, :300], dt[:, :300], A, Bm[:, :300], Cm[:, :300],
+                      None))
+        y2, h2 = run((x[:, 300:], dt[:, 300:], A, Bm[:, 300:], Cm[:, 300:],
+                      h1))
+        ey, eh = held("halves", (torch.cat([y1, y2], dim=1), h2),
+                      (y_all, h_all), dtype)
+        say(f"check mamba2_scan state continuation {str(dtype)[6:]} (300 + "
+            f"212 tokens against 512): max_abs_err y {ey:.3e}, state "
+            f"{eh:.3e}")
 
-    # times at the path's shapes -----------------------------------------------
+    # times at the path's shapes ----------------------------------------------
     timed = {}
-    for label in ("prefill f32 h0", "prefill bf16 h0", "decode bf16"):
+    for which, label in (("chunk_tc", "prefill bf16 h0"),
+                         ("f32", "prefill f32 h0"),
+                         ("decode", "decode bf16")):
         args = cases[label]
         x, h0 = args[0], args[5]
+        states = [h0]
+        if which == "decode":
+            # a cold L2 as on the path, where each layer's state is read
+            # once a step: turn over copies whose reads exceed it twice
+            n_copies = max(1, min(16, int(-(-2 * L2_BYTES // (
+                h0.numel() * h0.element_size())))))
+            states = [h0.clone() for _ in range(n_copies)]
+        turns = itertools.cycle(states)
+
+        def call():
+            return ops.mamba2_scan(*args[:5], h0=next(turns), mode="kernel")
+
         row = {
-            "ms": time_cuda(lambda: run(args)),
+            "ms": time_cuda(call),
             "plain_ms": time_cuda(lambda: ref.mamba2_scan(*args[:5], h0=h0),
                                   reps=3, inner=1),
             "library_ms": None,
         }
+        if which == "decode":
+            row["device_ms"] = profiled_device_ms(call, "mamba2_decode")
+            row["host_us"] = host_us_per_call(call)
         nbytes, nops = ssd_cost(*x.shape, N, x.element_size(), h0 is not None)
         peak = peak_tc if x.dtype == torch.bfloat16 else peak_flops
         t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        say(f"time mamba2_scan {label} (B={x.shape[0]} L={x.shape[1]} "
-            f"H={x.shape[2]} P={x.shape[3]} N={N}): kernel {row['ms']:.4f} "
-            f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+        dev_ms = row.get("device_ms")
+        say(f"time mamba2_scan [{which}] {label} (B={x.shape[0]} "
+            f"L={x.shape[1]} H={x.shape[2]} P={x.shape[3]} N={N}"
+            + (f", {len(states)} states in turn" if len(states) > 1 else "")
+            + f"): kernel {row['ms']:.4f} ms (CUDA events), "
+            + (f"device {dev_ms:.4f} ms (torch.profiler), "
+               if dev_ms is not None else
+               ("device not measured (the profiler saw no kernel), "
+                if which == "decode" else ""))
+            + f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
             f" ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
             f"{nops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
             f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
-            f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved")
-        timed[label] = row
-    # the JSON row: the bf16 prefill from the cache's state, as the path
-    # calls it
-    row = dict(timed["prefill bf16 h0"], max_abs_err=max(errs))
-    row["decode_ms"] = timed["decode bf16"]["ms"]
-    return {"mamba2_scan": row}
+            f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved"
+            + (f"; wrapper host {row['host_us']:.2f} us per call (enqueue "
+               "of 1000)" if "host_us" in row else ""))
+        timed[which] = row
+    if DEV == "cuda":
+        say("sass mamba2_scan library (chunk_tc and f32 kernels): "
+            + sass_counts(_cuda.library_path("mamba2_scan")))
+    # the JSON rows: each route at the path's shapes, and the wrapper under
+    # its own name with the main path's prefill route's numbers
+    out = {"mamba2_scan": dict(timed["chunk_tc"],
+                               max_abs_err=max(errs.values()))}
+    for which in SSM_ROUTES:
+        out[f"mamba2_scan:{which}"] = dict(timed[which],
+                                           max_abs_err=errs[which])
+    return out
 
 
 # -- phase 4: the archive and the main path -----------------------------------
@@ -1087,13 +1233,17 @@ def kernel_modules():
             "flash_attention": flash_attention, "mamba2_scan": mamba2_scan}
 
 
-def reset_launches() -> None:
-    from repro_torch.kernels import flash_attention
+# the kernels whose wrapper splits its launches by route
+ROUTED = ("flash_attention", "mamba2_scan")
 
-    for mod in kernel_modules().values():
+
+def reset_launches() -> None:
+    mods = kernel_modules()
+    for mod in mods.values():
         mod.launches = 0
-    for which in flash_attention.route_launches:
-        flash_attention.route_launches[which] = 0
+    for name in ROUTED:
+        for which in mods[name].route_launches:
+            mods[name].route_launches[which] = 0
 
 
 def read_launches():
@@ -1105,24 +1255,25 @@ def read_launches():
 
 
 def read_routes():
-    """flash_attention's launches by route since the last reset."""
-    from repro_torch.kernels import flash_attention
-
-    return dict(flash_attention.route_launches)
+    """{kernel: {route: launches}} since the last reset, for the kernels
+    whose wrapper has routes."""
+    mods = kernel_modules()
+    return {name: dict(mods[name].route_launches) for name in ROUTED}
 
 
 def add_path_launches(rows, launched, routes) -> None:
-    """Add a counted run's launches to the JSON rows: each kernel's, and
-    flash_attention's also by route."""
+    """Add a counted run's launches to the JSON rows: each kernel's, and a
+    routed kernel's also by route."""
     for name, n in launched.items():
         if n:
             rows[name]["launches"] = rows[name].get("launches", 0) + n
-    for which, m in routes.items():
-        if m:
-            row = rows[f"flash_attention:{which}"]
-            row["launches"] = row.get("launches", 0) + m
-            split = rows["flash_attention"].setdefault("routes", {})
-            split[which] = split.get(which, 0) + m
+    for name, split in routes.items():
+        for which, m in split.items():
+            if m:
+                row = rows[f"{name}:{which}"]
+                row["launches"] = row.get("launches", 0) + m
+                counts = rows[name].setdefault("routes", {})
+                counts[which] = counts.get(which, 0) + m
 
 
 def drive_main_path(archive, vcp, volumes, rows):
@@ -1556,10 +1707,11 @@ def drive_lm_path(archive, rows) -> None:
 
 def drive_zamba2_path(archive, rows) -> None:
     """zamba2-1.2b at full width serves the archive prompts."""
-    row = rows["mamba2_scan"]
+    dec = rows["mamba2_scan:decode"]
     drive_serve_path(archive, rows, ZAMBA_ARCH, "zamba2", {
         "flash_attention": fa_step_ms(rows, "zamba2"),
-        "mamba2_scan": (row["ms"], row["decode_ms"])})
+        "mamba2_scan": (rows["mamba2_scan:chunk_tc"]["ms"],
+                        dec.get("device_ms") or dec["ms"])})
 
 
 def drive_serve_path(archive, rows, arch: str, tag: str,
@@ -1598,12 +1750,17 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         return {k: per_call.get(k, 0) * (1 + steps) if impl == "kernel"
                 else 0 for k in kernel_modules()}
 
-    def expected_routes(impl, steps, prefill_route):
-        # one prefill call per attention layer on the dtype's route, then
-        # one decode call per layer and step
-        n = per_call.get("flash_attention", 0) if impl == "kernel" else 0
-        return {"decode": n * steps, "tc_prefill": 0, "f32": 0,
-                prefill_route: n}
+    def expected_routes(impl, steps, dtype):
+        # one prefill call per attention or Mamba-2 layer on the dtype's
+        # route, then one decode call per layer and step
+        out = {}
+        for name, prefill_route in (
+                ("flash_attention", "f32" if dtype == "f32" else "tc_prefill"),
+                ("mamba2_scan", "f32" if dtype == "f32" else "chunk_tc")):
+            n = per_call.get(name, 0) if impl == "kernel" else 0
+            out[name] = {r: 0 for r in kernel_modules()[name].route_launches}
+            out[name].update({"decode": n * steps, prefill_route: n})
+        return out
 
     # float32: the kernel route against the non-kernel one ---------------------
     f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
@@ -1638,17 +1795,19 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         expect_routes = expected_routes(impl, eng.decode_steps, "f32")
         say(f"{tag} f32 generate attn_impl={impl}: {gens[impl].shape} "
             f"tokens, {eng.decode_steps} decode steps, kernel launches "
-            f"{launched}, flash_attention by route {routes}")
+            f"{launched}, by route {routes}")
         if launched != expect or routes != expect_routes:
             raise AssertionError(f"{tag} {impl}: expected launches {expect} "
                                  f"by route {expect_routes}, got {launched} "
                                  f"by route {routes}")
         if impl == "kernel":
-            # the bf16 path never takes the f32 route: its launches are
+            # the bf16 path never takes the f32 routes: their launches are
             # counted here, the other kernels' from the bf16 run
-            rows["flash_attention:f32"]["launches"] = (
-                rows["flash_attention:f32"].get("launches", 0)
-                + routes["f32"])
+            for name in ROUTED:
+                if routes[name]["f32"]:
+                    row = rows[f"{name}:f32"]
+                    row["launches"] = (row.get("launches", 0)
+                                       + routes[name]["f32"])
         if gens[impl].shape != (B, LM_NEW_TOKENS) or not all(
                 o.finished == "length" for o in out):
             raise AssertionError(f"{tag} {impl}: completions "
@@ -1704,7 +1863,7 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
     steps = eng.decode_steps - steps0
     new = sum(len(o.tokens) for o in out)
     if launched != expected("kernel", steps) or routes != expected_routes(
-            "kernel", steps, "tc_prefill"):
+            "kernel", steps, "bf16"):
         raise AssertionError(f"{tag} bf16: launches {launched} by route "
                              f"{routes}, {steps} steps")
     gen_bf16 = np.stack([o.tokens for o in out])
@@ -1713,15 +1872,18 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         raise AssertionError(f"{tag} bf16: tokens {gen_bf16.shape}")
     say(f"{tag} bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens "
         f"after {S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
-        f"tokens/s; kernel launches {launched}, flash_attention by route "
+        f"tokens/s; kernel launches {launched}, by route "
         f"{routes}; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated); "
         f"{int((gen_bf16 == gens['kernel']).sum())} of {gen_bf16.size} "
         "tokens equal to the float32 run")
     add_path_launches(rows, launched, routes)
 
-    # the split: prefill, then single decode steps, then each traced
     prompt = torch.from_numpy(toks).to(DEV)
+    if "mamba2_scan" in per_call:
+        check_scan_logits(cfg, bf16, eng.cparams, prompt, tag)
+
+    # the split: prefill, then single decode steps, then each traced
     pre, dec, caches, nxt = serve_split(cfg, bf16, eng.cparams, prompt)
     pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
     shares = "; ".join(
@@ -1738,6 +1900,65 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
     profile_prefill(cfg, bf16, eng.cparams, prompt, pre_ms, tag=tag)
     profile_decode(cfg, bf16, eng.cparams, caches, nxt, S + len(dec),
                    dec_ms, tag=tag)
+
+
+class ScanShim:
+    """Stands in for ``kernels.ops`` in ``models.ssm`` (its only use there
+    is ``mamba2_scan``): the scan is ``fn(x, dt, A, Bmat, Cmat, h0)``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def mamba2_scan(self, x, dt, A, Bmat, Cmat, *, h0=None, mode="auto"):
+        return self.fn(x, dt, A, Bmat, Cmat, h0)
+
+
+def plain_scan(x, dt, A, Bmat, Cmat, h0):
+    """The scan's plain version, the sequential recurrence."""
+    from repro_torch.kernels import ref
+
+    return ref.mamba2_scan(x, dt, A, Bmat, Cmat, h0=h0)
+
+
+def check_scan_logits(cfg, pcfg, cparams, prompt, tag: str) -> None:
+    """The bf16 prefill's last-position logits on the kernel routes
+    against the same prefill with only the Mamba-2 scan on its plain
+    version, row by row (``SSM_LOGIT_ROW_TOL``); the same gate must reject
+    the plain version with the planted fault ``SSM_LOGIT_FAULT``."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.serve import prefill
+
+    def last_logits(kops=None):
+        saved = ssm.kops
+        if kops is not None:
+            ssm.kops = kops
+        try:
+            caches = M.init_caches(cfg, pcfg, prompt.shape[0], LM_MAX_LEN,
+                                   device=DEV)
+            logits, _ = prefill(cfg, pcfg, cparams, caches, prompt)
+            sync()
+            return logits.float()
+        finally:
+            ssm.kops = saved
+
+    got = last_logits()
+    want = last_logits(ScanShim(plain_scan))
+    bad = last_logits(ScanShim(lambda *a: ssm_fault(*a, SSM_LOGIT_FAULT)))
+    err, err_bad = row_rel_err(got, want), row_rel_err(bad, want)
+    if not err <= SSM_LOGIT_ROW_TOL:
+        raise AssertionError(f"{tag} bf16 prefill: last-position logits on "
+                             f"the kernel routes {err:.3e} from the plain "
+                             f"scan's, above {SSM_LOGIT_ROW_TOL}")
+    if err_bad <= SSM_LOGIT_ROW_TOL:
+        raise AssertionError(f"{tag} bf16 prefill: the planted fault's "
+                             f"logits error {err_bad:.3e} passes the gate")
+    say(f"check {tag} bf16 prefill last-position logits {tuple(got.shape)}, "
+        f"kernel routes vs the plain scan: worst row error {err:.3e} "
+        f"(tolerance {SSM_LOGIT_ROW_TOL}); the planted fault (M formed "
+        f"above the diagonal) {err_bad:.3e}, finite logits "
+        f"{bool(torch.isfinite(bad).all())}: rejected")
 
 
 def serve_split(cfg, pcfg, cparams, prompt, n_prefill: int = 3,
@@ -1867,8 +2088,10 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:74",
 }
-# the source of each flash_attention route (the others: csrc/<name>.cu)
-SOURCES = {"flash_attention:decode": "flash_decode"}
+# the source of each route in a file of its own (the others:
+# csrc/<name>.cu)
+SOURCES = {"flash_attention:decode": "flash_decode",
+           "mamba2_scan:decode": "mamba2_decode"}
 
 
 def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
@@ -1921,12 +2144,13 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "pos-mapped set/add/max combine or an SSD (Mamba-2) scan")
     say("launches: summed over the counted runs of every path that "
         "launches the kernel (the serve paths: their bfloat16 generate, of "
-        "radar-lm and of zamba2); flash_attention is the wrapper, its calls "
-        "split by route in 'routes', with the numbers of its bf16 prefill "
-        "route (tc_prefill) at radar-lm's shape; flash_attention:<route> "
-        "is each of its three kernels at radar-lm's shapes, f32's launches "
+        "radar-lm and of zamba2); flash_attention and mamba2_scan are the "
+        "wrappers, their calls split by route in 'routes', with the numbers "
+        "of their bf16 prefill route (tc_prefill at radar-lm's shape, "
+        "chunk_tc at zamba2's); <wrapper>:<route> is each of their kernels "
+        "(flash_attention's at radar-lm's shapes), the f32 routes' launches "
         "from the float32 kernel-route generate (the bf16 path never takes "
-        "it)")
+        "them)")
     idle = [k for k, row in rows.items() if not row.get("launches")]
     if idle:
         raise AssertionError(f"no path launched {idle}")
@@ -1978,7 +2202,10 @@ def main() -> int:
         f"{time.perf_counter() - t:.1f} s into {_cuda.BUILD_DIR}")
     for kname, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            # registers and spills, errors, and ptxas' wgmma notes (C75xx:
+            # a serialized or waited tensor-core pipeline)
+            if ("registers" in line or "error" in line.lower()
+                    or "(C75" in line):
                 say(f"build {kname}: {line.strip()}")
 
     kernels = run_phases(peak_bw, peak_flops, peak_tc)

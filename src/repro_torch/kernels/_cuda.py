@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled on first use into its own shared
 library with a plain C interface (one ``extern "C"`` launcher per kernel
 that returns the launch's ``cudaGetLastError()``).  Libraries land in
 ``kernels/build/`` inside the package (ignored by git), named by a hash
-of the source and the flags, so an edited source is never served by a
-stale library.  :func:`build` compiles several sources in parallel, one
-``nvcc`` process each; nothing is built or imported at module import.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is never served by a stale library.
+:func:`build` compiles several sources in parallel, one ``nvcc`` process
+each; nothing is built or imported at module import.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("qvp_reduce", "zr_accum", "grid_map", "grid_update",
-           "flash_attention", "flash_decode", "mamba2_scan")
+           "flash_attention", "flash_decode", "mamba2_scan", "mamba2_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +48,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built: named
+    by a hash of the source, every header of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

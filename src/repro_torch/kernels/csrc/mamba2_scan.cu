@@ -12,6 +12,14 @@
 //   h_t = exp(A dt_t) h_{t-1} + dt_t x_t (x) B_t,   y_t = h_t C_t,
 // the function of the sequential recurrence, from h0.
 //
+// Two kernels live here; the wrapper (kernels/mamba2_scan.py, route) picks
+// one from the dtype and L (a one-token step goes to csrc/mamba2_decode.cu):
+//   * mamba2_scan_launch, the float32 scan on the CUDA cores (below);
+//   * mamba2_scan_tc_launch, the bfloat16 scan on the tensor cores
+//     (chunk_tc: wgmma fed by TMA), after it.
+//
+// --- float32 scan (CUDA cores) ---------------------------------------------
+//
 // Work split.  The TPU kernel walked the chunks as the sequential last axis
 // of a (B, H, L / cs) grid with the (P, N) state in VMEM scratch, zeroed at
 // the first chunk.  Here one block per (head, batch) loops over the chunks
@@ -32,19 +40,18 @@
 // registers.  No atomics and a fixed order everywhere: the result is the
 // same bits from run to run.
 //
-// Bound on Hopper.  At the serve path's prefill shape in bf16 the function
-// is bounded by bytes (x and y dominate); in float32 by the operations of
-// the chunked form.  This first version does its products as float32 FMAs
-// on the CUDA cores from shared memory (no tensor cores), recomputes C.B^T
-// for every head of a batch row, and gives a decode step a whole block per
-// (batch, head) for one token.  mma.sync / wgmma on bf16 x, B and C, TMA
-// loads, C.B^T once per (batch, chunk), and a decode variant are later
-// work.
+// Bound on Hopper.  In float32 the function is bounded by the operations
+// of the chunked form; they are float32 FMAs on the CUDA cores from shared
+// memory (TF32 tensor cores would miss the float32 tolerance of 2e-4).
+// The wrapper sends only float32 with L > 1 here.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -305,7 +312,8 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `strides` holds 10 element strides: x's batch, sequence and head, dt's
 // batch, sequence and head, then Bm's and Cm's batch and sequence.  h0 may
-// be null (a zero start).  dtype 0 = float32, 1 = bfloat16 (x, Bm, Cm, y).
+// be null (a zero start).  dtype must be 0 (float32 x, Bm, Cm and y):
+// bfloat16 goes to mamba2_scan_tc_launch.
 extern "C" int mamba2_scan_launch(const void* x, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* h0, void* y,
@@ -319,11 +327,435 @@ extern "C" int mamba2_scan_launch(const void* x, const void* dt,
   const float* af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
-  if (dtype == 0)
-    return launch<float>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
+                       strides, s);
+}
+
+// --- bfloat16 chunk scan on the tensor cores (chunk_tc) --------------------
+//
+// The same function for bfloat16 x, Bm and Cm and L >= 2, redesigned for
+// Hopper.  Bound: bytes (x and y dominate; 155 MB at zamba2's prefill,
+// B = 8, L = 1024, H = 64, P = N = 64, from a state: 0.046 ms at
+// 3.35 TB/s), above the operations of the chunked form even when each
+// float32 operand goes as two bf16 halves.  What the design does about it:
+//   * one block per (64-column slice of P, head, batch) walks its chunks
+//     of kT = 64 tokens in order: 512 chains at zamba2's prefill, two
+//     blocks an SM (93 KB of shared memory, 160 threads, at most 204
+//     registers a thread);
+//   * a producer warp keeps a ring of kStages chunks in flight: TMA copies
+//     of the chunk's x columns (64 x 64) and its B and C (64 x N, in
+//     64-wide sub-tiles) over tensor maps built on the caller's strides,
+//     with rows past L arriving as zeros, and dt by plain loads (zero past
+//     L), all completing on the stage's "full" mbarrier; the consumer
+//     warpgroup frees the stage on its "empty" mbarrier;
+//   * the state lives in the consumer warpgroup's registers for the whole
+//     sequence, transposed (h^T, N x 64: the accumulator of wgmma m64n64,
+//     one m64 tile per 64 rows of N), started from h0 or zeros;
+//   * each chunk: the cumulative log-decay L_t by a warp scan (shuffles,
+//     each warp its own copy), then on the tensor cores, float32
+//     accumulators, bf16 operands:
+//       S   = C B^T                      (C, B from the ring, as loaded)
+//       Z   = C (h_hi + h_lo)^T          (h^T copied to shared memory as a
+//                                         bf16 pair hi + lo, MN-major)
+//       y   = exp(L_t) Z + ((M o S)_hi + (M o S)_lo) x
+//       h^T <- exp(L_last) h^T + ((w o B)^T_hi + (w o B)^T_lo) x
+//     with M[t, s] = exp(L_t - L_s) dt_s for s <= t, else 0 (above the
+//     diagonal the exponent is clamped to 0 before the mask, since there
+//     it would overflow), w_s = exp(L_last - L_s) dt_s, each exponential
+//     one ex2 of L in log2 units.  x, B and C are exact in bf16 and go to
+//     the tensor cores as
+//     they are; every operand computed in float32 (h, M o S, w o B) goes as
+//     two bf16 products, hi = bf16(v), lo = bf16(v - hi), an error near
+//     float32's (one bf16 rounding of h or M would miss the tolerances;
+//     TF32 would miss the state's).  M o S and (w o B)^T are A operands in
+//     registers (the S accumulator's fragments for M o S); x is the
+//     MN-major B operand of both products.  y is rounded once to bf16 and
+//     the final state stored once in float32;
+//   * ragged: dt = 0 past L, so those rows neither decay nor update the
+//     state; y is stored only for t < L and p < P, the state for n < N and
+//     p < P (the padded rows and columns hold zeros throughout).
+// No atomics and a fixed order: the same bits from run to run.
+
+namespace tc {
+
+constexpr int kT = 64;                      // tokens a chunk, wgmma's M
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // and the producer warp
+constexpr int kStages = 3;
+constexpr int kTile = kT * 64 * 2;          // a 64 x 64 bf16 tile (bytes)
+constexpr uint32_t kSBO = 8 * 128;          // 8 rows of 128 bytes
+
+using namespace hopper;
+
+template <int NT>
+struct Layout {
+  static constexpr int kNS = NT / 64;                    // n sub-tiles
+  static constexpr int kStage = kTile * (1 + 2 * kNS);   // x, B, C
+  static constexpr int kH = NT * 64 * 2;                 // h^T hi or lo
+  static constexpr int kTiles = kStages * kStage + 2 * kH;
+  // dt of each stage, then each consumer warp's L
+  static constexpr int kFloats = kStages * kT + 4 * kT;
+  // 1024 B of slack to align the swizzled tiles, then the mbarriers
+  static constexpr int kSmem = 1024 + kTiles + 4 * kFloats + 16 * kStages;
+};
+
+// byte offset of element (r, c) of a 128-byte-swizzled tile of 64-wide
+// bf16 rows (the layout TMA writes and wgmma reads)
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// 2^x in one MUFU.EX2 (relative error below 2^-22; results under 2^-126,
+// far below what a sum here can notice, flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - f.x, v1 - f.y);
+}
+
+// two blocks an SM at NT = 64 (at most 204 registers a thread)
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT == 64 ? 2 : 1)
+chunk_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap bmap,
+                const __grid_constant__ CUtensorMap cmap,
+                const float* __restrict__ dt, const float* __restrict__ A,
+                const float* __restrict__ h0, __nv_bfloat16* __restrict__ y,
+                float* __restrict__ hout, int64_t dsb, int64_t dsl,
+                int64_t dsh, int L, int H, int P, int N, int PY) {
+  using Ly = Layout<NT>;
+  constexpr int kM = NT / 64;                // m64 tiles of h^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t hh_s = base + kStages * Ly::kStage;   // h^T hi, N x 64
+  const uint32_t hl_s = hh_s + Ly::kH;                 // h^T lo
+  float* dts = reinterpret_cast<float*>(gbase + Ly::kTiles);
+  float* lws = dts + kStages * kT;
+  const uint32_t full = base + Ly::kTiles + 4 * Ly::kFloats;
+  const uint32_t empty = full + 8 * kStages;
+
+  // the warp index through a shuffle, so the compiler sees it uniform
+  // across the warp (a divergent role branch would serialize the wgmmas)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int p0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (L + kT - 1) / kT;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 32);
+      mbar_init(empty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // the producer warp: dt by its 32 lanes, the tiles by lane 0's TMA
+    const float* db = dt + b * dsb + h * dsh;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % kStages, t0 = c * kT;
+      if (c >= kStages) mbar_wait(empty + 8 * st, (c / kStages - 1) & 1);
+      float* d = dts + st * kT;
+      for (int i = lane; i < kT; i += 32)
+        d[i] = t0 + i < L ? db[(t0 + i) * dsl] : 0.f;
+      const uint32_t bar = full + 8 * st;
+      if (lane == 0) {
+        const uint32_t xs = base + st * Ly::kStage;
+        mbar_expect_tx(bar, Ly::kStage);
+        tma_load(xs, &xmap, bar, p0, h, t0, b);
+#pragma unroll
+        for (int j = 0; j < Ly::kNS; ++j) {
+          tma_load_3d(xs + (1 + j) * kTile, &bmap, bar, 64 * j, t0, b);
+          tma_load_3d(xs + (1 + Ly::kNS + j) * kTile, &cmap, bar, 64 * j,
+                      t0, b);
+        }
+      } else {
+        mbar_arrive(bar);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup.  Accumulator fragments: warp w holds rows
+  // 16 w + lane / 4 (+ 8); in each 8-column block j, columns 8 j +
+  // 2 (lane % 4) (+ 1): element 4 j + e is row r0 + 8 (e >> 1), column
+  // 8 j + c0 + (e & 1).  An A fragment of k-step kk holds the same rows
+  // and columns 16 kk + c0 (+ 1) in a[0] (row r0), a[1] (r0 + 8), and
+  // 16 kk + 8 + c0 (+ 1) in a[2], a[3].
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  // L in log2 units: exp(L_t - L_s) = exp2(L2_t - L2_s), one MUFU.EX2
+  const float a = A[h] * 1.4426950408889634f;
+  float* lw = lws + warp * kT;
+  uint32_t bo[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bo[i][e] = swz(c0 + e, r0 % 64 + 8 * i);
+  const int64_t hoff = (static_cast<int64_t>(b) * H + h) * P * N;
+
+  // h^T: row n = 64 m + r0 + 8 (e >> 1), column p = p0 + 8 j + c0 + (e & 1)
+  float hs[kM][32];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int n = 64 * m + r0 + 8 * ((i & 3) >> 1);
+      const int p = p0 + 8 * (i >> 2) + c0 + (i & 1);
+      hs[m][i] = h0 != nullptr && n < N && p < P
+                     ? h0[hoff + static_cast<int64_t>(p) * N + n]
+                     : 0.f;
+    }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c % kStages;
+    const uint32_t xs = base + st * Ly::kStage;
+    const uint32_t bs = xs + kTile, cs = xs + (1 + Ly::kNS) * kTile;
+    const unsigned char* bg = gbase + (bs - base);
+    const float* d = dts + st * kT;
+
+    // h^T as a bf16 pair in shared memory (rows n, 64 p each): every warp
+    // is past the last chunk's reads of the copy first
+    bar_sync(1, kConsumers);
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v0 = hs[m][4 * j + 2 * i], v1 = hs[m][4 * j + 2 * i + 1];
+          uint32_t hi, lo;
+          split(v0, v1, hi, lo);
+          const uint32_t off = (64 * m) * 128 + swz(r0 + 8 * i, 8 * j + c0);
+          *reinterpret_cast<uint32_t*>(gbase + (hh_s - base) + off) = hi;
+          *reinterpret_cast<uint32_t*>(gbase + (hl_s - base) + off) = lo;
+        }
+    fence_proxy_async();
+    bar_sync(1, kConsumers);
+    mbar_wait(full + 8 * st, (c / kStages) & 1);
+
+    // L_t = sum_{u <= t} A dt_u: a scan over each half, then joined
+    float v0 = a * d[lane], v1 = a * d[lane + 32];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
+      const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
+      if (lane >= off) {
+        v0 += u0;
+        v1 += u1;
+      }
+    }
+    v1 += __shfl_sync(0xffffffffu, v0, 31);
+    const float l_last = __shfl_sync(0xffffffffu, v1, 31);
+    lw[lane] = v0;
+    lw[lane + 32] = v1;
+    __syncwarp();
+
+    // S = C B^T and Z = C h^T (C and B K-major, h^T MN-major)
+    float sacc[32], yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = yacc[i] = 0.f;
+    fence_regs(sacc);
+    fence_regs(yacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
+      const uint64_t dc = make_desc(cs + off, 16, kSBO, 1);
+      wgmma_ss_n64(sacc, dc, make_desc(bs + off, 16, kSBO, 1), kk > 0);
+      wgmma_ss_n64<1>(yacc, dc, make_desc(hh_s + kk * 2048, kTile, kSBO, 1),
+                      kk > 0);
+      wgmma_ss_n64<1>(yacc, dc, make_desc(hl_s + kk * 2048, kTile, kSBO, 1),
+                      1);
+    }
+    wg_commit();
+
+    // meanwhile: w_s at this thread's columns s = 16 kk + 8 q + c0 (+ 1)
+    float w[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = 16 * kk + 8 * (q >> 1) + c0 + (q & 1);
+        w[kk][q] = ex2(l_last - lw[s]) * d[s];
+      }
+    const float dl = ex2(l_last);
+
+    // h^T <- exp(L_last) h^T + (w o B)^T x, one m64 tile at a time.
+    // B[s, n] of the A fragment: s = 16 kk + 8 (i >> 1) + c0 + e, n =
+    // 64 m + r0 + 8 (i & 1), at swz(s, n % 64) = bo[i & 1][e] + (16 kk +
+    // 8 (i >> 1)) 128 (s & 7 = c0 + e and (n % 64) >> 3 = (r0 >> 3) +
+    // (i & 1) do not depend on kk)
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      uint32_t ahi[16], alo[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const unsigned char* row =
+              bg + m * kTile + (16 * kk + 8 * (i >> 1)) * 128;
+          const float b0 = __bfloat162float(
+              *reinterpret_cast<const __nv_bfloat16*>(row + bo[i & 1][0]));
+          const float b1 = __bfloat162float(
+              *reinterpret_cast<const __nv_bfloat16*>(row + bo[i & 1][1]));
+          split(w[kk][2 * (i >> 1)] * b0, w[kk][2 * (i >> 1) + 1] * b1,
+                ahi[4 * kk + i], alo[4 * kk + i]);
+        }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hs[m][i] *= dl;
+      fence_regs(hs[m]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = make_desc(xs + kk * 2048, kTile, kSBO, 1);
+        wgmma_rs_n64(hs[m], &ahi[4 * kk], dx);
+        wgmma_rs_n64(hs[m], &alo[4 * kk], dx);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(hs[m]);
+    }
+    wg_wait_all();
+    fence_regs(sacc);
+    fence_regs(yacc);
+
+    // y = exp(L_t) Z + (M o S) x: rows t = r0 (+ 8)
+    const float lt[2] = {lw[r0], lw[r0 + 8]};
+    const float el[2] = {ex2(lt[0]), ex2(lt[1])};
+    uint32_t mhi[16], mlo[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = r0 + 8 * i;
+        float mv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // branch-free: above the diagonal the exponent is clamped to 0
+          // and the product masked
+          const int s = 8 * j + c0 + e;
+          const float m = ex2(fminf(lt[i] - lw[s], 0.f)) * d[s];
+          mv[e] = s <= t ? m * sacc[4 * j + 2 * i + e] : 0.f;
+          yacc[4 * j + 2 * i + e] *= el[i];
+        }
+        split(mv[0], mv[1], mhi[2 * j + i], mlo[2 * j + i]);
+      }
+    fence_regs(yacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dx = make_desc(xs + kk * 2048, kTile, kSBO, 1);
+      wgmma_rs_n64(yacc, &mhi[4 * kk], dx);
+      wgmma_rs_n64(yacc, &mlo[4 * kk], dx);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(yacc);
+    // x, B, C and dt of this stage are read: hand it back to the producer
+    mbar_arrive(empty + 8 * st);
+
+    // y rows of PY (P rounded up to even) values: every column pair
+    // p, p + 1 with p < P lies inside a row
+    const int t0 = c * kT;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = t0 + r0 + 8 * i;
+      __nv_bfloat16* yr =
+          y + (static_cast<int64_t>(b) * L + t) * H * PY +
+          static_cast<int64_t>(h) * PY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = p0 + 8 * j + c0;
+        if (t < L && p < P)
+          *reinterpret_cast<__nv_bfloat162*>(yr + p) = __floats2bfloat162_rn(
+              yacc[4 * j + 2 * i], yacc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int n = 64 * m + r0 + 8 * ((i & 3) >> 1);
+      const int p = p0 + 8 * (i >> 2) + c0 + (i & 1);
+      if (n < N && p < P)
+        hout[hoff + static_cast<int64_t>(p) * N + n] = hs[m][i];
+    }
+}
+
+template <int NT>
+int launch(const void* x, const float* dt, const float* A, const void* Bm,
+           const void* Cm, const float* h0, void* y, float* hout, int B,
+           int L, int H, int P, int N, const int64_t* st,
+           cudaStream_t stream) {
+  using Ly = Layout<NT>;
+  CUtensorMap xm, bm, cm;
+  // x as (P, H, L, B) in boxes of 64 x 1 x 64 x 1; Bm and Cm as (N, L, B)
+  // in boxes of 64 x 64 x 1
+  const cuuint64_t xd[4] = {static_cast<cuuint64_t>(P),
+                            static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B)};
+  const int64_t xst[3] = {st[2], st[1], st[0]};
+  const cuuint32_t xbox[4] = {64, 1, kT, 1};
+  const cuuint64_t nd[3] = {static_cast<cuuint64_t>(N),
+                            static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B)};
+  const int64_t bst[2] = {st[7], st[6]}, cst[2] = {st[9], st[8]};
+  const cuuint32_t nbox[3] = {64, kT, 1};
+  if (!encode_bf16(&xm, x, 4, xd, xst, xbox) ||
+      !encode_bf16(&bm, Bm, 3, nd, bst, nbox) ||
+      !encode_bf16(&cm, Cm, 3, nd, cst, nbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = chunk_tc_kernel<NT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + 63) / 64, H, B);
+  kernel<<<grid, kThreads, Ly::kSmem, stream>>>(
+      xm, bm, cm, dt, A, h0, static_cast<__nv_bfloat16*>(y), hout, st[3],
+      st[4], st[5], L, H, P, N, P + (P & 1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// The bfloat16 scan on the tensor cores.  Same arguments as
+// mamba2_scan_launch with dtype 1 (bfloat16); P and N at most 128; x, Bm
+// and Cm must be 16-byte aligned with strides of whole 16-byte units (the
+// wrapper sees to it); for an odd P, y is (B, L, H, P + 1), its last
+// column left as it was.  Returns cudaGetLastError() (0 on success).
+extern "C" int mamba2_scan_tc_launch(const void* x, const void* dt,
+                                     const void* A, const void* Bm,
+                                     const void* Cm, const void* h0, void* y,
+                                     void* hout, int B, int L, int H, int P,
+                                     int N, const int64_t* strides, int dtype,
+                                     void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || B > 65535 ||
+      H > 65535 || P > 128 || N > 128 || dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(A);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hf = static_cast<float*>(hout);
+  if (N <= 64)
+    return tc::launch<64>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
+                          strides, s);
+  return tc::launch<128>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
                          strides, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P,
-                                 N, strides, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -260,3 +260,73 @@ def mamba2_scan(
          else torch.zeros((Bsz, 0, H, P), dtype=torch.float32,
                           device=x.device))
     return y.to(x.dtype), h
+
+
+def _bf16_pair(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``v`` (float32) as the two bf16 halves the tensor cores take, back
+    in float32: ``hi = bf16(v)``, ``lo = bf16(v - hi)``."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def mamba2_scan_chunks(
+    x: torch.Tensor,            # (B, L, H, P) bfloat16
+    dt: torch.Tensor,           # (B, L, H)
+    A: torch.Tensor,            # (H,)
+    Bmat: torch.Tensor,         # (B, L, N) bfloat16
+    Cmat: torch.Tensor,         # (B, L, N) bfloat16
+    *,
+    h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked form with the operand roundings of the tensor-core
+    kernel (``csrc/mamba2_scan.cu``, ``chunk_tc``), its plain version.
+    Per chunk of ``chunk`` tokens, L_t the cumulative sum of A dt_u:
+
+        S   = C B^T
+        y   = exp(L_t) C h^T + (M o S) x,   M[t, s] = exp(L_t - L_s) dt_s, s <= t
+        h  <- exp(L_last) h + ((w o B)^T x)^T,  w_s = exp(L_last - L_s) dt_s
+
+    x, B and C enter as they are (exact in bf16); each operand computed in
+    float32 (h, M o S, w o B) enters as two bf16 halves (``_bf16_pair``),
+    the two products summed in float32.  Returns (y in x's dtype, the
+    final state float32), the function of :func:`mamba2_scan`.
+    """
+    Bsz, L, H, P = x.shape
+    N = Bmat.shape[-1]
+    dev = x.device
+    xf, Bf, Cf = (t.to(torch.float32) for t in (x, Bmat, Cmat))
+    dtf, Af = dt.to(torch.float32), A.to(torch.float32)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
+         if h0 is None else h0.to(torch.float32))
+    ys = []
+    for t0 in range(0, L, chunk):
+        xc, bc, cc = xf[:, t0:t0 + chunk], Bf[:, t0:t0 + chunk], \
+            Cf[:, t0:t0 + chunk]
+        lc = torch.cumsum(Af[None, None, :] * dtf[:, t0:t0 + chunk], dim=1)
+        dc = dtf[:, t0:t0 + chunk]                          # (B, c, H)
+        c = xc.shape[1]
+        s_cb = torch.einsum("btn,bsn->bts", cc, bc)          # (B, c, c)
+        seg = lc[:, :, None, :] - lc[:, None, :, :]          # (B, t, s, H)
+        tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
+        m = torch.where(tril[None, :, :, None],
+                        torch.exp(torch.where(tril[None, :, :, None], seg,
+                                              0.0)) * dc[:, None, :, :],
+                        0.0)
+        ms_hi, ms_lo = _bf16_pair(m * s_cb[..., None])       # (B, t, s, H)
+        h_hi, h_lo = _bf16_pair(h)
+        z = (torch.einsum("btn,bhpn->bthp", cc, h_hi)
+             + torch.einsum("btn,bhpn->bthp", cc, h_lo))
+        y = (torch.exp(lc)[..., None] * z
+             + torch.einsum("btsh,bshp->bthp", ms_hi, xc)
+             + torch.einsum("btsh,bshp->bthp", ms_lo, xc))
+        ys.append(y)
+        l_last = lc[:, -1]                                   # (B, H)
+        w = torch.exp(l_last[:, None, :] - lc) * dc          # (B, s, H)
+        wb_hi, wb_lo = _bf16_pair(w[..., None] * bc[:, :, None, :])
+        h = (torch.exp(l_last)[..., None, None] * h
+             + torch.einsum("bshn,bshp->bhpn", wb_hi, xc)
+             + torch.einsum("bshn,bshp->bhpn", wb_lo, xc))
+    y = (torch.cat(ys, dim=1) if ys
+         else torch.zeros((Bsz, 0, H, P), dtype=torch.float32, device=dev))
+    return y.to(x.dtype), h

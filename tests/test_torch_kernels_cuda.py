@@ -339,3 +339,101 @@ def test_mamba2_scan_kernel_matches_plain_on_card(b, l, h, p, n, with_h0,
                   for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 256))]
     with pytest.raises(ValueError, match="shared memory"):
         ops.mamba2_scan(*wide_state, wide_state[-1])
+
+
+def _scan_inputs(rng, b, l, h, p, n, dt_, with_h0, offset=0):
+    # x, B and C as views of one wider last axis (the conv output split),
+    # starting `offset` elements into their buffer
+    wide = _t(rng.normal(size=(b * l * (h * p + 2 * n) + offset,)).astype(
+        np.float32)).cuda().to(dt_)[offset:].view(b, l, h * p + 2 * n)
+    x = wide[..., :h * p].reshape(b, l, h, p)
+    Bm, Cm = wide[..., h * p:h * p + n], wide[..., h * p + n:]
+    dt = _t(rng.uniform(0.001, 0.1, size=(b, l, h)).astype(np.float32)).cuda()
+    A = _t(-rng.uniform(0.5, 4.0, size=(h,)).astype(np.float32)).cuda()
+    h0 = (_t(rng.normal(size=(b, h, p, n)).astype(np.float32)).cuda()
+          if with_h0 else None)
+    return x, dt, A, Bm, Cm, h0
+
+
+def _scan_route_call(x, dt, A, Bm, Cm, h0):
+    which = mamba2_scan.route(x)
+    before = dict(mamba2_scan.route_launches)
+    y, hN = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    before[which] += 1
+    assert mamba2_scan.route_launches == before
+    return y, hN, which
+
+
+def _assert_scan_close(y, hN, want_y, want_h):
+    # y: 2e-4 in float32 (tests/test_kernels.py:330-331), 1e-2 in bf16 (one
+    # bf16 rounding of y in each version); the float32 state at 2e-4
+    tol = 2e-4 if y.dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want_y.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(hN.cpu().numpy(), want_h.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, l, p, n, with_h0, expect", [
+    ("float32", 130, 16, 16, True, "f32"),
+    ("bfloat16", 1024, 64, 64, True, "chunk_tc"),
+    ("bfloat16", 1024, 64, 64, False, "chunk_tc"),
+    ("bfloat16", 63, 16, 16, True, "chunk_tc"),
+    ("bfloat16", 65, 8, 16, True, "chunk_tc"),
+    ("bfloat16", 300, 16, 8, False, "chunk_tc"),
+    ("bfloat16", 2, 72, 80, True, "chunk_tc"),
+    ("bfloat16", 129, 128, 128, True, "chunk_tc"),
+    ("bfloat16", 70, 9, 12, True, "chunk_tc"),
+    ("float32", 1, 64, 64, True, "decode"),
+    ("bfloat16", 1, 64, 64, True, "decode"),
+    ("bfloat16", 1, 72, 80, False, "decode"),
+    ("float32", 1, 8, 6, True, "decode")])
+def test_mamba2_scan_routes_on_card(dtype, l, p, n, with_h0, expect):
+    _need_cuda()
+    rng = np.random.default_rng(l + p + n)
+    args = _scan_inputs(rng, 2, l, 3, p, n, getattr(torch, dtype), with_h0)
+    y, hN, which = _scan_route_call(*args)
+    assert which == expect
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape
+    x, dt, A, Bm, Cm, h0 = args
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    if which == "chunk_tc":
+        _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(x, dt, A, Bm, Cm,
+                                                          h0=h0))
+    again = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_mamba2_chunk_tc_takes_strided_and_misaligned_views(offset):
+    # x, B and C are views with a row stride of H P + 2 N; with offset 1
+    # they start one element into their buffer, off the 16-byte units TMA
+    # needs, so the wrapper copies them
+    _need_cuda()
+    rng = np.random.default_rng(40 + offset)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, 200, 4, 64, 64,
+                                        torch.bfloat16, True, offset)
+    assert not x.is_contiguous()
+    y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
+    assert which == "chunk_tc"
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    # dt read through its strides too: a transposed view
+    dt_t = dt.transpose(0, 1).contiguous().transpose(0, 1)
+    y2, h2, _ = _scan_route_call(x, dt_t, A, Bm, Cm, h0)
+    assert torch.equal(y, y2) and torch.equal(hN, h2)
+
+
+@pytest.mark.cuda
+def test_mamba2_scan_routes_name_their_width_limits():
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    args = _scan_inputs(rng, 1, 3, 1, 136, 16, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="tensor-core route takes P and N "
+                                         "up to 128"):
+        ops.mamba2_scan(*args[:5])
+    args = _scan_inputs(rng, 1, 1, 1, 4, 300, torch.float32, False)
+    with pytest.raises(ValueError, match="decode route takes N up to 256"):
+        ops.mamba2_scan(*args[:5])

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""``flash_attention`` against another checkout's, in one process on one card.
+"""One kernel's wrapper against another checkout's, in one process on one card.
 
-    python3 tools/flash_ab.py --against OTHER/src [--arch radar-lm-100m]
+    python3 tools/kernel_ab.py --kernel flash_attention --against OTHER/src
+    python3 tools/kernel_ab.py --kernel mamba2_scan --against OTHER/src
 
 Loads ``OTHER/src/repro_torch/kernels`` as a package of its own beside
 this checkout's (that package imports nothing else of ``repro_torch``) and
-runs the two ``flash_attention`` wrappers in turns (this, other, other,
-this; ``ROUNDS`` times) with ``chip_smoke.py``'s helpers:
+runs the two wrappers of ``--kernel`` in turns (this, other, other, this;
+``ROUNDS`` times) with ``chip_smoke.py``'s helpers:
 
 * the wrapper's host time per call (``chip_smoke.host_us_per_call``: 1000
-  calls enqueued on a synchronised card) at radar-lm-100m's bf16 decode
-  call (one query on a 1056-key prefix of a 2048-long cache) and bf16
-  prefill (Sq = Skv = 1024);
-* ``--arch`` at full width, bf16, random weights from seed 0, 8 prompts of
-  1024 random tokens (``chip_smoke.serve_split``): prefill ms and decode
-  step ms, the model's attention layers calling one wrapper or the other.
+  calls enqueued on a synchronised card) at the kernel's bf16 decode call
+  and bf16 prefill call on its model's shapes: ``flash_attention`` at
+  radar-lm-100m's (one query on a 1056-key prefix of a 2048-long cache;
+  Sq = Skv = 1024), ``mamba2_scan`` at zamba2-1.2b's (one token from a
+  state; 1024 tokens from a state, B = 8, H = 64, P = N = 64);
+* ``--arch`` (by default the kernel's model) at full width, bf16, random
+  weights from seed 0, 8 prompts of 1024 random tokens
+  (``chip_smoke.serve_split``): prefill ms and decode step ms, the model's
+  attention or Mamba-2 layers calling one wrapper or the other.
 
 Prints one JSON line of medians, with the card's name and power limit as
 ``nvidia-smi`` gives them; needs a CUDA device.
@@ -33,6 +37,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 ROUNDS = 4            # turns of (this, other, other, this)
 STEPS = 8             # decode steps timed per turn
+# kernel -> (the model module whose ``kops`` calls it, its default arch)
+KERNELS = {"flash_attention": ("attention", "radar-lm-100m"),
+           "mamba2_scan": ("ssm", "zamba2-1.2b")}
 
 
 def load_ops(src, name: str):
@@ -47,16 +54,47 @@ def load_ops(src, name: str):
     return importlib.import_module(f"{name}.ops")
 
 
+def kernel_calls(kernel: str, cs, randn):
+    """{call: a function of an ``ops`` module} for the host-time calls."""
+    import torch
+
+    B, S = cs.LM_PROMPTS, cs.LM_PROMPT_LEN
+    if kernel == "flash_attention":
+        Hq, Hkv, D = 12, 4, 64
+        kv_len = S + cs.LM_NEW_TOKENS
+        cache_k, cache_v = (randn(B, Hkv, cs.LM_MAX_LEN, D),
+                            randn(B, Hkv, cs.LM_MAX_LEN, D))
+        qkv = {"decode": (randn(B, Hq, 1, D), cache_k[:, :, :kv_len],
+                          cache_v[:, :, :kv_len]),
+               "prefill": (randn(B, Hq, S, D), randn(B, Hkv, S, D),
+                           randn(B, Hkv, S, D))}
+        return {call: (lambda ops, a=a: ops.flash_attention(*a))
+                for call, a in qkv.items()}
+    H, P, N = 64, 64, 64
+    h0 = randn(B, H, P, N).float()
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    out = {}
+    for call, length in (("decode", 1), ("prefill", S)):
+        dt = torch.full((B, length, H), 0.01, device="cuda")
+        args = (randn(B, length, H, P), dt, A, randn(B, length, N),
+                randn(B, length, N))
+        out[call] = (lambda ops, a=args: ops.mamba2_scan(*a, h0=h0))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS),
+                    default="flash_attention")
     ap.add_argument("--against", required=True,
                     help="the src directory of another checkout")
-    ap.add_argument("--arch", default="radar-lm-100m")
+    ap.add_argument("--arch", default=None,
+                    help="the model served (default: the kernel's model)")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
-        print("flash_ab: no CUDA device", file=sys.stderr)
+        print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import numpy as np
@@ -64,10 +102,12 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
-    from repro_torch.models import attention
     from repro_torch.models import model as M
 
-    wrappers = {"this": attention.kops,
+    module, default_arch = KERNELS[args.kernel]
+    arch = args.arch or default_arch
+    model = importlib.import_module(f"repro_torch.models.{module}")
+    wrappers = {"this": model.kops,
                 "other": load_ops(args.against, "other_kernels")}
     order = ("this", "other", "other", "this")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -76,38 +116,31 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    B, Hq, Hkv, D, S = cs.LM_PROMPTS, 12, 4, 64, cs.LM_PROMPT_LEN
-    kv_len = S + cs.LM_NEW_TOKENS
-    cache_k, cache_v = (randn(B, Hkv, cs.LM_MAX_LEN, D),
-                        randn(B, Hkv, cs.LM_MAX_LEN, D))
-    calls = {"decode": (randn(B, Hq, 1, D), cache_k[:, :, :kv_len],
-                        cache_v[:, :, :kv_len]),
-             "prefill": (randn(B, Hq, S, D), randn(B, Hkv, S, D),
-                         randn(B, Hkv, S, D))}
-
-    cfg = get_any_config(args.arch)
+    calls = kernel_calls(args.kernel, cs, randn)
+    cfg = get_any_config(arch)
     pcfg = ParallelConfig(compute_dtype="bfloat16",
                           kv_cache_dtype="bfloat16", remat="none")
     params = M.compute_params(M.init_params(cfg, 0, device="cuda"),
                               pcfg.compute_dtype)
+    B, S = cs.LM_PROMPTS, cs.LM_PROMPT_LEN
     prompt = torch.from_numpy(np.random.default_rng(cs.SEED).integers(
         2, min(cfg.vocab_size, 256), size=(B, S)).astype(np.int32)).cuda()
     samples = {}
     for which in wrappers:                      # warm-up, each version
-        attention.kops = wrappers[which]
+        model.kops = wrappers[which]
         cs.serve_split(cfg, pcfg, params, prompt, 1, 2)
     for _ in range(ROUNDS):
         for which in order:
-            ops = attention.kops = wrappers[which]
-            for call, qkv in calls.items():
+            ops = model.kops = wrappers[which]
+            for call, fn in calls.items():
                 samples.setdefault((which, f"{call}_host_us"), []).append(
-                    cs.host_us_per_call(lambda: ops.flash_attention(*qkv)))
+                    cs.host_us_per_call(lambda: fn(ops)))
             pre, dec, _, _ = cs.serve_split(cfg, pcfg, params, prompt, 1,
                                             STEPS)
             samples.setdefault((which, "prefill_ms"), []).extend(pre)
             samples.setdefault((which, "decode_step_ms"), []).extend(dec)
-    attention.kops = wrappers["this"]
-    out = {"card": cs.card_line(), "arch": args.arch,
+    model.kops = wrappers["this"]
+    out = {"card": cs.card_line(), "kernel": args.kernel, "arch": arch,
            "against": args.against, "rounds": ROUNDS}
     for (which, metric), xs in samples.items():
         out.setdefault(which, {})[metric] = {
