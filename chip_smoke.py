@@ -14,6 +14,18 @@ Phases, each printing its own lines:
    ``zr_accum``, ``flash_attention`` and ``mamba2_scan`` with the
    tolerances of the reference package's kernel tests, ``grid_map`` and
    ``grid_update`` bitwise), and twice for bitwise stability;
+   ``zr_accum`` also over every 1e-4 dBZ of [-30, 80] with NaN and +-inf
+   from an aligned and a misaligned base, its one-exponential rate
+   against float64 arithmetic, and a planted fault (the last scan
+   dropped) that must fail; ``grid_update`` (in place at an ascending
+   cell list) bitwise against its plain version and against the
+   reference's pos-mapped function with the equivalent map, untouched
+   cells bitwise, at the QPE fold (89% wet as on the archive), the CAPPI
+   canvas, ragged shapes and M = 0 and 1, with a planted fault (cells
+   shifted by one) that must fail; ``grid_update`` and ``zr_accum``
+   timed also by ``torch.profiler`` with the wrapper's host time per
+   call, and ``grid_map``'s bound counted in distinct 32-byte sectors of
+   the gates its map reads;
    ``flash_attention`` on each of its three routes (``tc_prefill``, the
    bf16 prefill on the tensor cores; ``decode``, one query against a
    strided prefix of a 2048-long cache, split over the keys; ``f32``, the
@@ -49,8 +61,10 @@ Phases, each printing its own lines:
    decode, host-to-device copy, kernel, and device-to-host copy;
 6. the incremental path (it appends to the archive): incremental CAPPI,
    column-max and QPE states built at the archive's head, then 3 scans
-   appended one commit each; after each append every state catches up and
-   is held bitwise against the from-scratch product at that head;
+   appended one commit each; after each append every state catches up
+   and is held bitwise against the from-scratch product at that head,
+   with ``grid_update``'s launches counted (one per wet scan for QPE, one
+   per update for the grids);
 7. the LM serve path: radar-lm-100m at full width from
    ``init_params(seed=0)`` serves 8 radar scans of 1024 tokens drawn from
    the archive (``RadarTokenDataset``) through ``Engine.generate``, 32 new
@@ -266,6 +280,42 @@ def check_kernels(peak_bw: float, peak_flops: float):
         say(f"check zr_accum {shape}: max_abs_err {err:.3e}, bitwise stable")
         if shape == main_shape:
             rows["zr_accum"] = dict(dbz=dbz, dt_s=dt_s, max_abs_err=err)
+            # planted fault: the last scan dropped from the sum
+            try:
+                compare("zr_accum planted fault", got,
+                        ref.zr_accum(dbz[:-1], dt_s[:-1]), **QPE_TOL)
+            except AssertionError as exc:
+                say(f"check zr_accum: planted fault (last scan dropped) "
+                    f"rejected ({exc})")
+            else:
+                raise AssertionError("zr_accum: the planted fault (last "
+                                     "scan dropped) passed the check")
+    # every 1e-4 dBZ over [-30, 80] with NaN and +-inf, one gate each, and
+    # a misaligned base (the kernel's scalar path); against the plain
+    # version, and the one-exponential rate against float64 arithmetic
+    sweep = torch.arange(-300000, 800001, device=DEV, dtype=torch.float64)
+    sweep = torch.cat([(sweep * 1e-4).float(), torch.tensor(
+        [float("nan"), float("inf"), float("-inf")], device=DEV)])
+    dt1 = torch.tensor([3600.0], device=DEV)
+    for offset in (0, 1):
+        buf = torch.empty(sweep.numel() + offset, device=DEV)
+        buf[offset:] = sweep
+        dbz = buf[offset:].view(1, 1, -1)
+        got = ops.zr_accum(dbz, dt1, mode="kernel")
+        err = compare(f"zr_accum dBZ sweep (base +{offset * 4} B)", got,
+                      ref.zr_accum(dbz, dt1), **QPE_TOL)
+        say(f"check zr_accum dBZ sweep [-30, 80] with NaN and +-inf, "
+            f"{sweep.numel()} gates, base +{offset * 4} B: max_abs_err "
+            f"{err:.3e}")
+    d64 = sweep.double()
+    exact = (10.0 ** (d64.clamp(5.0, 53.0) / 10.0) / 200.0) ** (1 / 1.6)
+    wet = torch.isfinite(d64) & (d64 >= 5.0)
+    rel = float(((got.double().flatten() - exact).abs() / exact)[wet].max())
+    if not rel < 1e-5 or (got.flatten()[~wet] != 0).any():
+        raise AssertionError(f"zr_accum: exp2 rate off by {rel:.3e} relative "
+                             "or a dry gate not 0")
+    say(f"check zr_accum: the exp2f rate within {rel:.3e} relative of float64 "
+        "arithmetic at 1 h over the sweep; non-finite and < 5 dBZ give 0")
     known = ops.zr_accum(torch.full((1, 1, 1), 40.0, device=DEV),
                          torch.tensor([3600.0], device=DEV), mode="kernel")
     expected = (1e4 / 200.0) ** (1 / 1.6)
@@ -294,11 +344,16 @@ def check_kernels(peak_bw: float, peak_flops: float):
     z["ms"] = time_cuda(lambda: ops.zr_accum(z["dbz"], z["dt_s"],
                                              mode="kernel"))
     z["plain_ms"] = time_cuda(lambda: ref.zr_accum(z["dbz"], z["dt_s"]))
-    # bytes: dbz and dt read once, accumulation written once; operations:
-    # per gate clip (2), 2 divisions, 2 powers (one each), mask (2),
-    # weight division, multiply, add
+    z["device_ms"] = profiled_device_ms(
+        lambda: ops.zr_accum(z["dbz"], z["dt_s"], mode="kernel"),
+        "zr_accum_kernel")
+    z["host_us"] = host_us_per_call(
+        lambda: ops.zr_accum(z["dbz"], z["dt_s"], mode="kernel"), n=200)
+    # bytes: dbz and dt read once, accumulation written once; operations
+    # the kernel executes per gate: clip (2), fmaf, exp2, mask (2 compares
+    # and a select), multiply, add (the weight division is per scan)
     z["bytes"] = n * 4 + T * 4 + A * R * 4
-    z["ops"] = 11 * n
+    z["ops"] = 9 * n
     for name, row in rows.items():
         t_bytes = row["bytes"] / peak_bw * 1e3
         t_ops = row["ops"] / peak_flops * 1e3
@@ -308,7 +363,10 @@ def check_kernels(peak_bw: float, peak_flops: float):
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}: {row['bytes'] / 1e9:.3f} GB, "
             f"{row['ops'] / 1e9:.3f} Gop), "
-            f"{row['bytes'] / row['ms'] / 1e6:.1f} GB/s achieved")
+            f"{row['bytes'] / row['ms'] / 1e6:.1f} GB/s achieved"
+            + (f"; device {row['device_ms']:.4f} ms (torch.profiler), "
+               f"wrapper host {row['host_us']:.2f} us per call (enqueue of "
+               "200)" if row.get("device_ms") else ""))
         for key in ("field", "quality", "dbz", "dt_s"):
             row.pop(key, None)
     return rows
@@ -360,13 +418,52 @@ def grid_maps():
     return maps
 
 
+# the share of a QPE scan's gates that are wet on the archive: about
+# 764 k of 858 240 (the incremental path's appends: `cells` of each QPE
+# update), the dry gates in blobs
+QPE_WET = 0.89
+# grid_update's kernel, by the name the profiler shows
+GRID_UPDATE_KERNEL = "grid_scatter_kernel"
+
+
+def storm_mask(shape, frac: float, gen):
+    """A flat (A * R,) mask of the gates wet in storm cells, ``frac`` of
+    them: a coarse uniform field (one value per 16 x 16 gates) upsampled
+    bilinearly and cut at its (1 - frac) quantile, so wet gates come in
+    blobs as rain does."""
+    import torch
+    import torch.nn.functional as F
+
+    A, R = shape
+    coarse = torch.rand((1, 1, A // 16 + 1, R // 16 + 1), generator=gen,
+                        device=DEV)
+    field = F.interpolate(coarse, size=(A, R), mode="bilinear",
+                          align_corners=False).flatten()
+    return field > torch.quantile(field, 1.0 - frac)
+
+
+def live_sectors(gate_idx, weights, n_rows: int, n_gates: int) -> int:
+    """The distinct 32-byte sectors that a gather map's live slots (weight
+    > 0, gate in range) read, summed over ``n_rows`` rows of a (n_rows,
+    n_gates) float32 field: row t starts at float t * n_gates, so its
+    sectors depend on that offset modulo 8."""
+    idx = np.asarray(gate_idx, np.int64)[np.asarray(weights) > 0]
+    idx = np.where(idx < 0, idx + n_gates, idx)
+    idx = idx[(idx >= 0) & (idx < n_gates)]
+    offsets = np.arange(n_rows, dtype=np.int64) * n_gates % 8
+    return sum(int((offsets == off).sum()) * np.unique((idx + off) // 8).size
+               for off in np.unique(offsets))
+
+
 def check_grid_kernels(peak_bw: float, peak_flops: float):
-    """grid_map and grid_update against their plain versions, bitwise, at
-    the grid and incremental paths' shapes and at ragged ones; then timed
-    at the main shapes."""
+    """grid_map and grid_update against their plain versions, bitwise
+    (grid_update also against the reference's pos-mapped function), at the
+    grid and incremental paths' shapes and at ragged ones; then timed at
+    the main shapes, grid_update also by the profiler and the wrapper's
+    host time per call."""
     import torch
     from repro_torch.core import fm301
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import grid_update, ops, ref
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     A, R = fm301.VCPS[VCP_NAME].n_azimuth, fm301.VCPS[VCP_NAME].n_gates
@@ -427,40 +524,100 @@ def check_grid_kernels(peak_bw: float, peak_flops: float):
         raise AssertionError("grid_map: k=0 must give NaN everywhere")
     say("check grid_map: T=0 gives (0, C), k=0 gives NaN")
 
-    # grid_update -----------------------------------------------------------
+    # grid_update: the in-place scatter, against its plain version and
+    # against the reference's pos-mapped function with the equivalent map
+    def cells_of(mask):
+        return torch.nonzero(mask).flatten().to(torch.int32)
+
+    def max_abs_diff(got, want):
+        """max |got - want|, NaN against NaN counting 0 and NaN against a
+        number inf."""
+        d = torch.where(torch.isnan(got) & torch.isnan(want), 0.0,
+                        (got - want).abs())
+        return float(torch.nan_to_num(d, nan=float("inf")).max()) \
+            if d.numel() else 0.0
+
     cappi = maps["cappi 240x240 nearest"]
     reach = torch.from_numpy(cappi.in_reach()).to(DEV)
-    wet = torch.rand(A * R, generator=gen, device=DEV) < 0.3
-    cases = {
-        # the incremental grid rows: an all-NaN canvas, set where in reach
-        "set": (torch.full((1, reach.numel()), float("nan"), device=DEV),
-                reach),
-        # the QPE fold: a non-negative accumulation, add where it rained
-        "add": (torch.rand((1, A * R), generator=gen, device=DEV) * 50.0,
-                wet),
-        "max": (radar_field((3, 2999), gen, nan_frac=0.2),
-                torch.rand(2999, generator=gen, device=DEV) < 0.5),
+    main = {
+        # the QPE fold: a scan's wet gates, in blobs, at the archive's
+        # share, added to a non-negative accumulation
+        "qpe fold": ("add",
+                     torch.rand((1, A * R), generator=gen, device=DEV) * 50.0,
+                     cells_of(~storm_mask((A, R), 1.0 - QPE_WET, gen))),
+        # the grid rows: the all-NaN canvas, set where in reach
+        "cappi canvas": ("set", torch.full((1, reach.numel()), float("nan"),
+                                           device=DEV), cells_of(reach)),
     }
-    for op, (state, touched) in cases.items():
-        pos = torch.full(touched.shape, -1, dtype=torch.int32, device=DEV)
-        m = int(touched.sum())
-        pos[touched] = torch.arange(m, dtype=torch.int32, device=DEV)
-        upd = radar_field((state.shape[0], m), gen, nan_frac=0.0).abs()
-        if op == "max":
-            pos[torch.nonzero(touched)[0]] = m + 2      # reads NaN
-        got, err = check_twice(
-            f"grid_update {op} T={state.shape[0]} C={state.shape[1]} M={m}",
-            lambda: ops.grid_update(state, upd, pos, op=op, mode="kernel"),
-            lambda: ref.grid_update(state, upd, pos, op=op))
-        keep = pos < 0
+    ragged = {
+        f"ragged T={t} C={c}": (op, radar_field((t, c), gen, nan_frac=0.2),
+                              cells_of(torch.rand(c, generator=gen,
+                                                  device=DEV) < frac))
+        for op, t, c, frac in (("set", 3, 1777, 0.5), ("add", 3, 5003, 0.1),
+                               ("max", 3, 2999, 0.5), ("max", 1, 4093, 0.9),
+                               ("add", 1, 777, 1.0))}
+    edge = {"M=1 T=3": ("add", radar_field((3, 4001), gen),
+                            torch.tensor([4000], dtype=torch.int32,
+                                         device=DEV)),
+            "M=1 T=1": ("max", radar_field((1, 9), gen),
+                            torch.tensor([0], dtype=torch.int32, device=DEV)),
+            "M=0 T=3": ("set", radar_field((3, 513), gen),
+                            torch.zeros(0, dtype=torch.int32, device=DEV))}
+    for label, (op, state, cells) in {**main, **ragged, **edge}.items():
+        T, C, m = state.shape[0], state.shape[1], cells.numel()
+        upd = radar_field((T, m), gen, nan_frac=0.1 if op == "max" else 0.0)
+        if op != "max":
+            upd = upd.abs()
+        pos = torch.full((C,), -1, dtype=torch.int32, device=DEV)
+        pos[cells.long()] = torch.arange(m, dtype=torch.int32, device=DEV)
+        launched = grid_update.launches
+        got = ops.grid_scatter_(state.clone(), upd, cells, op=op,
+                                mode="kernel")
+        again = ops.grid_scatter_(state.clone(), upd, cells, op=op,
+                                  mode="kernel")
+        launched = grid_update.launches - launched
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        want = ref.grid_scatter_(state.clone(), upd, cells, op=op)
+        oracle = ref.grid_update(state, upd, pos, op=op)
+        keep = torch.ones(C, dtype=torch.bool, device=DEV)
+        keep[cells.long()] = False
+        if launched != (2 if m else 0):
+            raise AssertionError(f"grid_update {label}: {launched} launches "
+                                 f"counted for 2 calls with M={m}")
+        if not bitwise_equal(got, again):
+            raise AssertionError(f"grid_update {label}: not bitwise stable")
+        if not (bits_equal(got, want) and bits_equal(got, oracle)):
+            raise AssertionError(f"grid_update {label}: differs from the "
+                                 "plain version or the pos-mapped function")
         if not torch.equal(got[:, keep].view(torch.int32),
                            state[:, keep].view(torch.int32)):
-            raise AssertionError(f"grid_update {op}: untouched cells changed")
-        if op != "max":
-            rows[f"grid_update {op}"] = dict(state=state, upd=upd, pos=pos,
-                                             max_abs_err=err)
+            raise AssertionError(f"grid_update {label}: untouched cells "
+                                 "changed")
+        err = max(max_abs_diff(got, want), max_abs_diff(got, oracle))
+        say(f"check grid_update {op}, {label} (T={T} C={C} M={m}): "
+            + (f"bitwise equal to plain and to the pos-mapped function (max "
+               f"|diff| {err}), untouched cells bitwise (NaN included), "
+               "bitwise stable, 2 launches counted"
+               if m else "no launch, the state returned bitwise"))
+        if label == "qpe fold":
+            # planted fault: every cell shifted by one
+            bad = cells + 1
+            bad = bad[bad < C]
+            fault = ops.grid_scatter_(state.clone(), upd[:, :bad.numel()],
+                                      bad, op=op, mode="kernel")
+            if bits_equal(fault, want):
+                raise AssertionError("grid_update: the planted fault (cells "
+                                     "shifted by one) passed")
+            say("check grid_update: planted fault (cells shifted by one) "
+                "rejected")
+        if label in main:
+            main[label] = dict(op=op, state=state, upd=upd, cells=cells,
+                               max_abs_err=err)
     try:
-        ops.grid_update(state, upd, pos, op="mul", mode="kernel")
+        u = main["cappi canvas"]
+        ops.grid_scatter_(u["state"].clone(), u["upd"], u["cells"],
+                          op="mul", mode="kernel")
     except ValueError as exc:
         say(f"check grid_update: unknown op raises ({exc})")
     else:
@@ -474,39 +631,63 @@ def check_grid_kernels(peak_bw: float, peak_flops: float):
     r["plain_ms"] = time_cuda(lambda: ref.grid_map(r["field"], r["idx"],
                                                    r["w"]), reps=3, inner=2)
     live = int((r["w"] > 0).sum())
-    # bytes: the map read once, the gathered values of live slots (a gate
-    # is read only where its weight is > 0), the output written once;
+    sectors = live_sectors(cappi.gate_idx, cappi.weights, T, G)
+    # bytes: the map read once, the distinct 32-byte sectors of the live
+    # slots' gates in each row (a gather moves a whole sector; cells that
+    # share a gate or a sector need it once), the output written once;
     # operations: per slot test, two selects, multiply, two adds; per
     # output a compare, a max and a division
-    r["bytes"] = C * k * 8 + T * live * 4 + T * C * 4
+    r["bytes"] = C * k * 8 + sectors * 32 + T * C * 4
     r["ops"] = T * C * (6 * k + 3)
-    r["shape"] = f"T={T} G={G} C={C} k={k}, {live} live slots"
-    for op in ("set", "add"):
-        u = rows[f"grid_update {op}"]
+    r["shape"] = (f"T={T} G={G} C={C} k={k}, {live} live slots, "
+                  f"{sectors // T} distinct sectors a row")
+    for label, u in main.items():
         Tu, Cu = u["state"].shape
-        m = u["upd"].shape[1]
-        u["ms"] = time_cuda(lambda: ops.grid_update(u["state"], u["upd"],
-                                                    u["pos"], op=op,
-                                                    mode="kernel"))
-        u["plain_ms"] = time_cuda(lambda: ref.grid_update(
-            u["state"], u["upd"], u["pos"], op=op))
-        # bytes: state and pos read once, the touched update values
-        # gathered once, the output written once; operations: a select
-        # per element and, for add, an add per touched one
-        u["bytes"] = Tu * Cu * 4 + Cu * 4 + Tu * m * 4 + Tu * Cu * 4
-        u["ops"] = Tu * Cu + (Tu * m if op == "add" else 0)
-        u["shape"] = f"T={Tu} C={Cu} M={m}"
+        m = u["cells"].numel()
+
+        def kern(u=u):
+            # patches u["state"] in place: timing only
+            return ops.grid_scatter_(u["state"], u["upd"], u["cells"],
+                                     op=u["op"], mode="kernel")
+
+        row = dict(max_abs_err=u["max_abs_err"])
+        row["ms"] = time_cuda(kern)
+        row["plain_ms"] = time_cuda(lambda: ref.grid_scatter_(
+            u["state"], u["upd"], u["cells"], op=u["op"]))
+        row["device_ms"] = profiled_device_ms(kern, GRID_UPDATE_KERNEL)
+        row["host_us"] = host_us_per_call(kern)
+        # one PyTorch call of the same function (unique cells: no two adds
+        # meet); the port never calls it
+        lib = (u["state"].index_add_ if u["op"] == "add"
+               else u["state"].index_copy_)
+        cells_l = u["cells"].long()
+        row["library_ms"] = time_cuda(lambda: lib(1, cells_l, u["upd"]))
+        # the cell list and the update read once, each touched state value
+        # read (not for set) and written once; one combine per touched
+        # element
+        row["bytes"] = m * 4 + Tu * m * (8 if u["op"] == "set" else 12)
+        row["ops"] = Tu * m
+        row["shape"] = f"{u['op']} T={Tu} C={Cu} M={m}"
+        rows[f"grid_update {label}"] = row
     for name, row in rows.items():
         t_bytes = row["bytes"] / peak_bw * 1e3
         t_ops = row["ops"] / peak_flops * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        say(f"time {name} ({row['shape']}): kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}: {row['bytes'] / 1e6:.3f} MB, "
+        dev_ms = row.get("device_ms")
+        say(f"time {name} ({row['shape']}): kernel {row['ms']:.4f} ms (CUDA "
+            "events), "
+            + (f"device {dev_ms:.4f} ms (torch.profiler), wrapper host "
+               f"{row['host_us']:.2f} us per call (enqueue of 1000), "
+               if dev_ms is not None else "")
+            + f"plain {row['plain_ms']:.4f} ms, "
+            + (f"library {row['library_ms']:.4f} ms, "
+               if row.get("library_ms") is not None else "")
+            + f"bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}: {row['bytes'] / 1e6:.3f} MB, "
             f"{row['ops'] / 1e9:.4f} Gop), "
-            f"{row['bytes'] / row['ms'] / 1e6:.1f} GB/s achieved")
-        for key in ("field", "idx", "w", "state", "upd", "pos"):
+            f"{row['bytes'] / (dev_ms or row['ms']) / 1e6:.1f} GB/s achieved")
+        for key in ("field", "idx", "w"):
             row.pop(key, None)
     # the 600 x 600 IDW map: the heaviest gather the grid path can ask for
     idw = maps["cappi 600x600 idw"]
@@ -514,14 +695,17 @@ def check_grid_kernels(peak_bw: float, peak_flops: float):
     w = torch.from_numpy(np.array(idw.weights)).to(DEV)
     ms = time_cuda(lambda: ops.grid_map(field, idx, w, mode="kernel"))
     live = int((w > 0).sum())
+    sectors = live_sectors(idw.gate_idx, idw.weights, N_SCANS, G)
     nbytes = idx.numel() * 8 + N_SCANS * live * 4 + N_SCANS * idx.shape[0] * 4
+    sbytes = idx.numel() * 8 + sectors * 32 + N_SCANS * idx.shape[0] * 4
     say(f"time grid_map cappi 600x600 idw (T={N_SCANS} C={idx.shape[0]} "
-        f"k=4, {live} live slots): kernel {ms:.4f} ms, byte bound "
-        f"{nbytes / peak_bw * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)")
-    # one row per kernel in the JSON line: grid_update at the QPE fold,
-    # the larger of its two main shapes (the set row is printed above)
-    rows["grid_update"] = rows.pop("grid_update add")
-    del rows["grid_update set"]
+        f"k=4, {live} live slots, {sectors // N_SCANS} distinct sectors a "
+        f"row): kernel {ms:.4f} ms, sector bound {sbytes / peak_bw * 1e3:.4f}"
+        f" ms ({sbytes / 1e6:.1f} MB; 4 bytes a live slot would give "
+        f"{nbytes / peak_bw * 1e3:.4f} ms)")
+    # the JSON row: the QPE fold, the incremental path's most frequent call
+    rows["grid_update"] = rows.pop("grid_update qpe fold")
+    del rows["grid_update cappi canvas"]
     return rows
 
 
@@ -1233,7 +1417,7 @@ def kernel_modules():
             "flash_attention": flash_attention, "mamba2_scan": mamba2_scan}
 
 
-# the kernels whose wrapper splits its launches by route
+# the serve paths' kernels whose wrapper splits its launches by route
 ROUTED = ("flash_attention", "mamba2_scan")
 
 
@@ -1241,9 +1425,9 @@ def reset_launches() -> None:
     mods = kernel_modules()
     for mod in mods.values():
         mod.launches = 0
-    for name in ROUTED:
-        for which in mods[name].route_launches:
-            mods[name].route_launches[which] = 0
+    for mod in mods.values():
+        for which in getattr(mod, "route_launches", ()):
+            mod.route_launches[which] = 0
 
 
 def read_launches():
@@ -1590,6 +1774,13 @@ def drive_incremental_path(archive, vcp, sim, site, rows) -> None:
             launched = read_launches()
             t_update = time.perf_counter() - t
             update_launches += launched["grid_update"]
+            # one per wet scan for QPE (every simulated scan rains), one
+            # per update for the grids
+            want = rep.n_new_scans if kind == "qpe" else 1
+            if launched["grid_update"] != want:
+                raise AssertionError(f"incremental {kind}: "
+                                     f"{launched['grid_update']} grid_update "
+                                     f"launches, expected {want}")
             if rep.noop or not 0 < rep.cells_computed <= rep.cells_full:
                 raise AssertionError(f"incremental {kind}: {rep}")
             if step and not rep.cells_computed < rep.cells_full:
@@ -1629,11 +1820,11 @@ def drive_incremental_path(archive, vcp, sim, site, rows) -> None:
                 f": +{rep.n_new_scans} scans, cells {rep.cells_computed} of "
                 f"{rep.cells_full} ({rep.cells_computed / rep.cells_full:.4f})"
                 f", chunk fetches {rep.chunk_fetches} vs {full_fetches} from "
-                f"scratch, launches {launched}, update {t_update * 1e3:.1f} ms"
+                f"scratch, launches {launched}, "
+                f"update {t_update * 1e3:.1f} ms"
                 f" vs from scratch {t_full * 1e3:.1f} ms; bitwise equal to "
                 "from scratch")
-            if launched["grid_update"] < 1 or (
-                    kind != "qpe" and launched["grid_map"] < 1):
+            if kind != "qpe" and launched["grid_map"] < 1:
                 raise AssertionError(f"incremental {kind}: launches "
                                      f"{launched}")
         if step:
@@ -1643,8 +1834,8 @@ def drive_incremental_path(archive, vcp, sim, site, rows) -> None:
                                      "a no-op")
     rows["grid_update"]["launches"] = update_launches
     say(f"incremental path: {update_launches} grid_update launches, every "
-        "state bitwise equal to from scratch at every head, second updates "
-        "no-ops")
+        "state bitwise equal to from scratch at every head, "
+        "second updates no-ops")
 
 
 # -- phase 7: the LM serve path ------------------------------------------------
@@ -2137,20 +2328,23 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    say("library_ms: F.scaled_dot_product_attention for flash_attention "
-        "(timed beside it, never called by the port); null for the others: "
-        "no single PyTorch call computes a quality-masked azimuthal mean, a "
-        "Z-R integral, a masked weighted mean over a gather map, a "
-        "pos-mapped set/add/max combine or an SSD (Mamba-2) scan")
+    say("library_ms: F.scaled_dot_product_attention for flash_attention, "
+        "Tensor.index_add_ for grid_update at the QPE fold (timed beside "
+        "them, never called by the port); null for the others: no single "
+        "PyTorch call computes a quality-masked azimuthal mean, a Z-R "
+        "integral, a masked weighted mean over a gather map or an SSD "
+        "(Mamba-2) scan")
     say("launches: summed over the counted runs of every path that "
         "launches the kernel (the serve paths: their bfloat16 generate, of "
         "radar-lm and of zamba2); flash_attention and mamba2_scan are the "
         "wrappers, their calls split by route in 'routes', with the numbers "
-        "of their bf16 prefill route (tc_prefill at radar-lm's shape, "
+        "of the route their path takes (tc_prefill at radar-lm's shape, "
         "chunk_tc at zamba2's); <wrapper>:<route> is each of their kernels "
         "(flash_attention's at radar-lm's shapes), the f32 routes' launches "
         "from the float32 kernel-route generate (the bf16 path never takes "
-        "them)")
+        "them); grid_update's numbers are at the QPE fold, 89% wet; "
+        "device_ms is a torch.profiler time and host_us the wrapper's host "
+        "time per call, where measured")
     idle = [k for k, row in rows.items() if not row.get("launches")]
     if idle:
         raise AssertionError(f"no path launched {idle}")
@@ -2166,8 +2360,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
-        if "routes" in row:
-            out[-1]["routes"] = row["routes"]
+        for key in ("routes", "device_ms", "host_us"):
+            if row.get(key) is not None:
+                out[-1][key] = row[key]
     return out
 
 

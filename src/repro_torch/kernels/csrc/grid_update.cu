@@ -1,26 +1,27 @@
-// grid_update: patch the touched cells of a gridded product state.
+// grid_update: patch the touched cells of a gridded product state in place.
 //
 // Replaces the TPU kernel src/repro/kernels/grid_update.py:59
-// (grid_update_pallas, body _grid_update_kernel).  state is (T, C)
-// float32, upd (T, M) float32 and pos (C,) int32, all contiguous; out is
-// a fresh (T, C) float32:
-//   pos[c] < 0:  out[t, c] = state[t, c]  (bitwise, NaN included)
-//   pos[c] >= 0: out[t, c] = state[t, c] (op) u,  u = upd[t, pos[c]],
-//                read as NaN when pos[c] >= M (the oracle's jnp.take fill)
-// with op 0 = set (u), 1 = add (one IEEE float32 add), 2 = NaN-aware max
-// (fmaxf, like jnp.fmax / torch.fmax).
+// (grid_update_pallas, body _grid_update_kernel).  The TPU kernel phrased
+// the patch as an inverse gather, a fresh (T, C) state read through a
+// (C,) pos map, because the TPU has no fast scatter.  The card scatters:
+// state is (T, C) float32 owned by the caller, upd (T, M) float32 and
+// cells (M,) int32, strictly increasing and in [0, C), all contiguous:
+//   state[t, cells[j]] = state[t, cells[j]] (op) upd[t, j]   for j < M
+// with op 0 = set (u), 1 = add (one IEEE float32 add, __fadd_rn, which
+// nvcc cannot fuse with anything) or 2 = NaN-aware max (fmaxf, like
+// jnp.fmax / torch.fmax).  This is bitwise the reference's function with
+// pos[cells[j]] = j (-1 elsewhere), written into the state it was given.
 //
-// Bound on Hopper: memory.  Per element one select and at most one add;
-// the least traffic is state and pos read once, T*M update values
-// gathered once and T*C written.  Design: one thread per cell c reads
-// pos[c] once and walks the time rows of its strip, so state reads and
-// out writes are coalesced across neighbouring cells; the update column
-// is a gather, contiguous wherever touched cells are (pos is increasing
-// in c for the incremental products).  The TPU kernel phrased this patch
-// as an inverse gather because the TPU has no fast scatter; the gather
-// form is kept here because it writes every output once, with no
-// atomics, so the result is deterministic.  The add is __fadd_rn, which
-// nvcc cannot fuse with anything.
+// Bound: memory.  No (C,) map is read and no untouched cell is read or
+// written, so the least traffic is M*4 + T*M*12 bytes (T*M*8 for set,
+// which reads no state).  One thread per update column j walks the time
+// rows of its strip: its reads of upd and cells are coalesced, and its
+// state accesses are scattered but ascending within a warp (touched cells
+// cluster, as rain and beam reach do).  Every cell is written by exactly
+// one thread, so no write races and the result is bitwise deterministic.
+// The caller keeps the list's precondition (the wrapper documents it, the
+// plain version checks it); a cell outside [0, C) is skipped, never
+// written out of bounds.
 
 #include <cmath>
 #include <cstdint>
@@ -33,39 +34,37 @@ constexpr int kThreads = 256;
 constexpr int kMaxStrips = 16;   // time strips: gridDim.y
 
 __global__ void __launch_bounds__(kThreads)
-grid_update_kernel(const float* __restrict__ state,
-                   const float* __restrict__ upd,
-                   const int32_t* __restrict__ pos, float* __restrict__ out,
-                   int64_t T, int64_t C, int64_t M, int op) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int64_t p = __ldg(pos + c);
+grid_scatter_kernel(float* __restrict__ state,
+                    const float* __restrict__ upd,
+                    const int32_t* __restrict__ cells, int64_t T, int64_t C,
+                    int64_t M, int op) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= M) return;
+  const int64_t c = __ldg(cells + j);
+  if (c < 0 || c >= C) return;
   for (int64_t t = blockIdx.y; t < T; t += gridDim.y) {
-    const float s = __ldg(state + t * C + c);
-    float r = s;
-    if (p >= 0) {
-      const float u = p < M ? __ldg(upd + t * M + p)
-                            : __int_as_float(0x7fc00000);
-      r = op == 0 ? u : (op == 1 ? __fadd_rn(s, u) : fmaxf(s, u));
-    }
-    out[t * C + c] = r;
+    float* s = state + t * C + c;
+    const float u = __ldg(upd + t * M + j);
+    *s = op == 0 ? u : (op == 1 ? __fadd_rn(*s, u) : fmaxf(*s, u));
   }
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int grid_update_launch(const float* state, const float* upd,
-                                  const int32_t* pos, float* out, int64_t T,
-                                  int64_t C, int64_t M, int op,
-                                  void* stream) {
-  const int64_t blocks = (C + kThreads - 1) / kThreads;
-  if (blocks <= 0 || T <= 0) return 0;
+// Patches `state` in place on `stream`; returns cudaGetLastError() (0 on
+// success).
+extern "C" int grid_scatter_launch(float* state, const float* upd,
+                                   const int32_t* cells, int64_t T,
+                                   int64_t C, int64_t M, int op,
+                                   void* stream) {
+  const int64_t blocks = (M + kThreads - 1) / kThreads;
+  if (blocks <= 0 || T <= 0 || C <= 0) return 0;
   if (blocks > INT_MAX || op < 0 || op > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(T < kMaxStrips ? T : kMaxStrips));
-  grid_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      state, upd, pos, out, T, C, M, op);
+  grid_scatter_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      state, upd, cells, T, C, M, op);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,7 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_cuda
 from .grid_map import grid_map_cuda
-from .grid_update import grid_update_cuda
+from .grid_update import grid_scatter_cuda
 from .mamba2_scan import mamba2_scan_cuda
 from .qvp_reduce import qvp_reduce_cuda
 from .zr_accum import zr_accum_cuda
@@ -75,20 +75,28 @@ def grid_map(
                          weights.to(torch.float32).contiguous())
 
 
-def grid_update(
-    state: torch.Tensor,       # (time, cells) current product state
+def grid_scatter_(
+    state: torch.Tensor,       # (time, cells) float32 state, patched in place
     upd: torch.Tensor,         # (time, touched) compact update block
-    pos: torch.Tensor,         # (cells,) integer, < 0 = untouched
+    cells: torch.Tensor,       # (touched,) integer, strictly increasing
     *,
     op: str = "set",
     mode: str = "auto",
 ) -> torch.Tensor:
-    """Incremental patch of a gridded product (kernel or plain version)."""
+    """In-place incremental patch of a gridded product at an ascending
+    cell list (kernel or plain version); returns ``state``.
+
+    The reference's ``grid_update`` with ``pos[cells[j]] = j``, without
+    the (C,) map: only the touched cells are read and written.  ``state``
+    must be a contiguous float32 tensor (it is not copied).  ``cells``
+    **must** be strictly increasing and in ``[0, C)``: the kernel writes
+    each cell from one thread and does not check the list (a repeated
+    cell would race), so a caller that cannot promise it must not call
+    this; the plain version raises ``ValueError`` on a bad list."""
     if not _use_kernel(state, mode):
-        return ref.grid_update(state, upd, pos, op=op)
-    return grid_update_cuda(state.to(torch.float32).contiguous(),
-                            upd.to(torch.float32).contiguous(),
-                            pos.to(torch.int32).contiguous(), op=op)
+        return ref.grid_scatter_(state, upd, cells, op=op)
+    return grid_scatter_cuda(state, upd.to(torch.float32).contiguous(),
+                             cells.to(torch.int32).contiguous(), op=op)
 
 
 def zr_accum(

@@ -9,6 +9,7 @@ tensors).  Both take and return tensors on any device.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -123,6 +124,52 @@ def grid_update(
     return torch.where(touched[None, :], new, s)
 
 
+def grid_scatter_(
+    state: torch.Tensor,            # (time, cells) float32, patched in place
+    upd: torch.Tensor,              # (time, M) values of the touched cells
+    cells: torch.Tensor,            # (M,) integer, strictly increasing
+    *,
+    op: str = "set",
+) -> torch.Tensor:
+    """Patch the touched cells of ``state`` in place and return it:
+    ``state[:, cells[j]] = state[:, cells[j]] (op) upd[:, j]``.
+
+    The plain version of the CUDA kernel (``csrc/grid_update.cu``,
+    ``grid_scatter_launch``), bitwise what
+    :func:`grid_update` gives with ``pos[cells[j]] = j`` (-1 elsewhere).
+    ``cells`` must be strictly increasing and in ``[0, C)``: raises
+    ``ValueError`` otherwise (the kernel does not check; every cell is
+    written once there, so no two updates may share one).
+    """
+    if op not in GRID_UPDATE_OPS:
+        raise ValueError(f"unknown grid_update op {op!r} (set|add|max)")
+    if state.dtype != torch.float32 or state.dim() != 2:
+        raise TypeError("grid_scatter_: state must be a (T, C) float32 "
+                        f"tensor, got {state.dtype} {tuple(state.shape)}")
+    T, C = state.shape
+    if upd.dim() != 2 or cells.dim() != 1 or upd.shape[0] != T \
+            or upd.shape[1] != cells.shape[0]:
+        raise ValueError("grid_scatter_: need upd (T, M) and cells (M,), "
+                         f"got {tuple(upd.shape)} and {tuple(cells.shape)} "
+                         f"for state {tuple(state.shape)}")
+    if cells.numel() == 0:
+        return state
+    c = cells.to(torch.int64)
+    if int(c[0]) < 0 or int(c[-1]) >= C or bool((c[1:] <= c[:-1]).any()):
+        raise ValueError("grid_scatter_: cells must be strictly increasing "
+                         f"and in [0, {C})")
+    if T == 0:
+        return state
+    u = upd.to(torch.float32)
+    if op == "set":
+        state[:, c] = u
+    elif op == "add":
+        state[:, c] = state[:, c] + u
+    else:
+        state[:, c] = torch.fmax(state[:, c], u)
+    return state
+
+
 def zr_accum(
     dbz: torch.Tensor,              # (time, azimuth, range)
     dt_s: torch.Tensor,             # (time,) integration weight per scan, s
@@ -142,6 +189,52 @@ def zr_accum(
     rate = torch.where(torch.isfinite(dbz) & (dbz >= dbz_min), rate, 0.0)
     w = (dt_s / 3600.0).to(torch.float32)[:, None, None]
     return torch.sum(rate * w, dim=0).to(torch.float32)
+
+
+def zr_exp2_constants(a: float, b: float) -> Tuple[float, float]:
+    """The float32 constants of the one-exponential rate,
+    ``R = 2 ** (dc * k1 - k0)``: ``k1 = (1/b) log2(10) / 10`` and
+    ``k0 = (1/b) log2(a)``, formed in float64 from ``1/b`` and ``a`` as
+    float32 (the reference's weakly typed scalars are) and each rounded
+    once to float32."""
+    if not a > 0:
+        raise ValueError(f"zr_accum: need a > 0, got {a}")
+    inv_b = float(np.float32(1.0 / b))
+    k1 = float(np.float32(inv_b * math.log2(10.0) / 10.0))
+    k0 = float(np.float32(inv_b * math.log2(float(np.float32(a)))))
+    return k1, k0
+
+
+def zr_accum_exp2(
+    dbz: torch.Tensor,              # (time, azimuth, range)
+    dt_s: torch.Tensor,             # (time,) integration weight per scan, s
+    *,
+    a: float = 200.0,
+    b: float = 1.6,
+    dbz_min: float = 5.0,
+    dbz_max: float = 53.0,
+) -> torch.Tensor:
+    """The CUDA kernel's formula in torch float32 -> (azimuth, range) mm.
+
+    :func:`zr_accum`'s function with the rate as one exponential,
+    ``R = 2 ** (dc * k1 - k0)`` (:func:`zr_exp2_constants`), the weights
+    ``dt / 3600`` and the sum a left fold over time with each product and
+    each sum rounded on its own, as ``csrc/zr_accum.cu`` computes it.  The
+    kernel's ``fmaf`` is emulated by one rounding of the exact float64
+    product-difference, and its ``exp2f`` (2 ulp) by ``torch.exp2``, so
+    the two agree to a few float32 ulps, not bit for bit.
+    """
+    k1, k0 = zr_exp2_constants(a, b)
+    d = dbz.to(torch.float32)
+    dc = torch.clamp(d, dbz_min, dbz_max)
+    arg = (dc.to(torch.float64) * k1 - k0).to(torch.float32)
+    rate = torch.where(torch.isfinite(d) & (d >= dbz_min), torch.exp2(arg),
+                       0.0)
+    w = dt_s.to(torch.float32) / 3600.0
+    acc = torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device)
+    for t in range(d.shape[0]):
+        acc = acc + rate[t] * w[t]
+    return acc
 
 
 def flash_attention(

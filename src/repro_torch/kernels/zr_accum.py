@@ -2,17 +2,20 @@
 
 Wrapper around ``csrc/zr_accum.cu``, the Hopper counterpart of the TPU
 kernel ``repro/kernels/zr_accum.py:zr_accum_pallas``.  The plain version
-is :func:`repro_torch.kernels.ref.zr_accum`.
+is :func:`repro_torch.kernels.ref.zr_accum`; the kernel takes the rate as
+one exponential, ``2 ** (dc * k1 - k0)``, whose float32 constants come
+from :func:`repro_torch.kernels.ref.zr_exp2_constants`, and
+:func:`repro_torch.kernels.ref.zr_accum_exp2` is that formula in torch.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import _cuda
+from .ref import zr_exp2_constants
 
 #: kernel launches since import (or since a caller reset it to 0)
 launches = 0
@@ -50,12 +53,11 @@ def zr_accum_cuda(
     if out.numel() == 0:
         return out
     fn = _cuda.launcher("zr_accum", _ARGTYPES)
+    k1, k0 = zr_exp2_constants(a, b)
     with torch.cuda.device(dbz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # 1/b rounded once to float32, as the reference's weak scalar is
         err = fn(dbz.data_ptr(), dt_s.data_ptr(), out.data_ptr(), T, A * R,
-                 float(a), float(np.float32(1.0 / b)), float(dbz_min),
-                 float(dbz_max), stream)
+                 k1, k0, float(dbz_min), float(dbz_max), stream)
     _cuda.check("zr_accum", err)
     launches += 1
     return out

@@ -20,8 +20,9 @@ Each product is maintained as a **versioned DataTree node** under
 2. computes fresh values for exactly the touched cells of the new rows
    as a compact ``(new scans, touched)`` block on the device
    (``grid_map`` restricted to the cells in reach),
-3. patches the block into place with the ``grid_update`` CUDA kernel
-   (untouched cells pass through bitwise), and
+3. patches the block into place with the ``grid_update`` CUDA kernel,
+   an in-place scatter at the ascending list of touched cells
+   (untouched cells are neither read nor written), and
 4. appends/overwrites only the touched state chunks.
 
 **Bitwise contract.**  At any head, the incremental state equals the
@@ -138,15 +139,6 @@ def _grid_doc(grid: CartesianGrid) -> Dict[str, float]:
 def _grid_from_doc(g: Dict[str, Any]) -> CartesianGrid:
     return CartesianGrid(g["lat_min"], g["lat_max"], g["lon_min"],
                          g["lon_max"], int(g["ny"]), int(g["nx"]))
-
-
-def _touched_pos(touched: np.ndarray) -> np.ndarray:
-    """(C,) int32: column of each touched cell in the compact block, -1
-    for the rest."""
-    pos = np.full(touched.size, -1, np.int32)
-    idx = np.flatnonzero(touched)
-    pos[idx] = np.arange(idx.size, dtype=np.int32)
-    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -270,9 +262,9 @@ class IncrementalGridProduct:
                     elevs: Sequence[float], method: str
                     ) -> Tuple[np.ndarray, int]:
         """The new rows, (t_new, ny, nx), and the cells computed per row:
-        a compact regrid of the cells in reach on the device, patched into
-        an all-NaN canvas (exactly what the full regrid yields for
-        out-of-reach cells) by ``grid_update``."""
+        a compact regrid of the cells in reach on the device, patched in
+        place into an all-NaN canvas (exactly what the full regrid yields
+        for out-of-reach cells) by ``grid_scatter_``."""
         req, dev = self.request, self.device
         if req.kind == "cappi":
             mapping = _cappi_mapping(site_lat, site_lon, site_alt, az, rng,
@@ -296,9 +288,10 @@ class IncrementalGridProduct:
         canvas = torch.full((t_new, grid.n_cells), float("nan"),
                             dtype=torch.float32, device=dev)
         if m:
-            pos = torch.from_numpy(_touched_pos(reach)).to(dev)
-            canvas = ops.grid_update(canvas, compact, pos, op="set",
-                                     mode=req.mode)
+            cells = torch.from_numpy(
+                np.flatnonzero(reach).astype(np.int32)).to(dev)
+            ops.grid_scatter_(canvas, compact, cells, op="set",
+                              mode=req.mode)
         return canvas.cpu().numpy().reshape(t_new, grid.ny, grid.nx), m
 
     def _commit_rows(self, rows: np.ndarray, times_new: np.ndarray,
@@ -400,11 +393,14 @@ def _fold_terms(accum: np.ndarray, rates: np.ndarray, dt_s: np.ndarray,
     ``accum`` is the flattened (A*R,) float32 state.  Each scan's term is
     built on the host in numpy float32.  Without ``sparse`` the dense
     comparator adds the full term on the host.  With ``sparse`` the adds
-    go through the ``grid_update`` kernel on ``device`` and touch only
-    gates where it rained: the accumulation and every scan's compact term
-    and ``pos`` map go up in one copy each, the folded state comes down
-    in one.  The two are bitwise identical (adding +0.0 to a non-negative
-    float32 is the identity).  Returns (state, cells touched).
+    go through the ``grid_update`` kernel's in-place scatter on
+    ``device`` and touch only gates where it rained: each wet scan keeps
+    its ascending wet gates and their terms, the accumulation and all the
+    scans' values and gates go up in one copy each, one launch per wet
+    scan patches the state in scan order, and the folded state comes down
+    in one copy.  The two are bitwise identical (adding +0.0 to a
+    non-negative float32 is the identity).  Returns (state, cells
+    touched).
     """
     touched = 0
     if not sparse:
@@ -414,26 +410,27 @@ def _fold_terms(accum: np.ndarray, rates: np.ndarray, dt_s: np.ndarray,
             accum = (accum + term).astype(np.float32)
             touched += term.size
         return accum, touched
-    wet_vals, wet_pos = [], []
+    wet_vals, wet_cells = [], []
     for i in range(rates.shape[0]):
         term = (rates[i].reshape(-1)
                 * (dt_s[i] / np.float32(3600.0))).astype(np.float32)
-        wet = term > 0.0
-        if wet.any():
+        wet = np.flatnonzero(term > 0.0)
+        if wet.size:
             wet_vals.append(term[wet])
-            wet_pos.append(_touched_pos(wet))
-            touched += int(wet_vals[-1].size)
+            wet_cells.append(wet.astype(np.int32))
+            touched += int(wet.size)
     if not wet_vals:
         return accum, touched
     dev = resolve_device(device)
     vals_d = torch.from_numpy(np.concatenate(wet_vals)).to(dev)
-    pos_d = torch.from_numpy(np.stack(wet_pos)).to(dev)
+    cells_d = torch.from_numpy(np.concatenate(wet_cells)).to(dev)
     acc_d = torch.from_numpy(np.array(accum, np.float32)).to(dev)[None, :]
     start = 0
-    for i, v in enumerate(wet_vals):
-        acc_d = ops.grid_update(acc_d, vals_d[start:start + v.size][None, :],
-                                pos_d[i], op="add", mode=mode)
-        start += v.size
+    for v in wet_vals:
+        stop = start + v.size
+        ops.grid_scatter_(acc_d, vals_d[None, start:stop],
+                          cells_d[start:stop], op="add", mode=mode)
+        start = stop
     return acc_d.reshape(-1).cpu().numpy(), touched
 
 

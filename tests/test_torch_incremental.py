@@ -132,10 +132,11 @@ def test_grid_update_rejects_unknown_op_and_cpu_kernel_mode():
     pos = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown grid_update op"):
         ref.grid_update(state, state, pos, op="mul")
+    cells = torch.tensor([1], dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown grid_update op"):
-        ops.grid_update(state, state, pos, op="mul")
+        ops.grid_scatter_(state, state[:, :1], cells, op="mul")
     with pytest.raises(RuntimeError, match="CUDA tensor"):
-        ops.grid_update(state, state, pos, mode="kernel")
+        ops.grid_scatter_(state, state[:, :1], cells, mode="kernel")
 
 
 # ---------------------------------------------------------------------------

@@ -105,32 +105,100 @@ def test_grid_map_kernel_matches_plain_on_card_bitwise(t, g, c, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["set", "add", "max"])
-@pytest.mark.parametrize("t, c, frac", [(1, 1, 1.0), (1, 57600, 0.3),
-                                        (9, 1777, 0.5), (3, 2999, 0.0)])
+@pytest.mark.parametrize("t, c, frac", [(1, 1, 1.0), (1, 57600, 0.79),
+                                        (1, 858240, 0.89), (1, 858240, 0.013),
+                                        (9, 1777, 0.5), (3, 2999, 0.0),
+                                        (1, 4001, 1e-4)])
 def test_grid_update_kernel_matches_plain_on_card_bitwise(t, c, frac, op):
+    """The in-place scatter kernel against its plain version and against
+    the reference's pos-mapped function with the equivalent map."""
     _need_cuda()
-    rng = np.random.default_rng(c)
+    rng = np.random.default_rng(c + 1)
     state = rng.normal(20.0, 12.0, size=(t, c)).astype(np.float32)
     state[rng.random((t, c)) < 0.2] = np.nan
-    touched = rng.random(c) < frac
-    m = int(touched.sum())
+    cells = np.flatnonzero(rng.random(c) < frac).astype(np.int32)
+    m = cells.size
     pos = np.full(c, -1, np.int32)
-    pos[touched] = rng.permutation(m).astype(np.int32)
-    if m:
-        pos[np.flatnonzero(touched)[0]] = m + 1     # reads NaN
-    upd = rng.normal(20.0, 12.0, size=(t, max(m, 1))).astype(np.float32)
-    state, upd, pos = _t(state).cuda(), _t(upd).cuda(), _t(pos).cuda()
+    pos[cells] = np.arange(m, dtype=np.int32)
+    upd = rng.normal(20.0, 12.0, size=(t, m)).astype(np.float32)
+    upd[rng.random((t, m)) < 0.1] = np.nan
+    state, upd = _t(state).cuda(), _t(upd).cuda()
+    cells, pos = _t(cells).cuda(), _t(pos).cuda()
     before = grid_update.launches
-    got = ops.grid_update(state, upd, pos, op=op)
-    assert grid_update.launches == before + 1
+    got = ops.grid_scatter_(state.clone(), upd, cells, op=op)
+    assert grid_update.launches == before + (m > 0)
+    assert _bits_equal(got, ref.grid_scatter_(state.clone(), upd, cells,
+                                              op=op))
     assert _bits_equal(got, ref.grid_update(state, upd, pos, op=op))
-    untouched = (pos < 0).cpu()
-    assert torch.equal(got.cpu()[:, untouched].view(torch.int32),
-                       state.cpu()[:, untouched].view(torch.int32))
-    again = ops.grid_update(state, upd, pos, op=op)
+    keep = (pos < 0).cpu()
+    assert torch.equal(got.cpu()[:, keep].view(torch.int32),
+                       state.cpu()[:, keep].view(torch.int32))
+    again = ops.grid_scatter_(state.clone(), upd, cells, op=op)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_grid_scatter_kernel_patches_in_place_and_checks_its_inputs():
+    _need_cuda()
+    state = torch.zeros(2, 10, device="cuda")
+    upd = torch.ones(2, 3, device="cuda")
+    cells = torch.tensor([1, 4, 9], dtype=torch.int32, device="cuda")
+    out = ops.grid_scatter_(state, upd, cells, op="add")
+    assert out is state
+    assert state.sum().item() == 6.0 and state[:, [1, 4, 9]].eq(1).all()
+    with pytest.raises(TypeError, match="float32"):
+        ops.grid_scatter_(state.double(), upd, cells)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.grid_scatter_(state.t(), upd, cells)
     with pytest.raises(ValueError, match="unknown grid_update op"):
-        ops.grid_update(state, upd, pos, op="mul")
+        ops.grid_scatter_(state, upd, cells, op="mul")
+
+
+@pytest.mark.cuda
+def test_incremental_qpe_fold_on_card_equals_cpu_fold_bitwise():
+    _need_cuda()
+    from repro_torch.radar import incremental
+
+    rng = np.random.default_rng(12)
+    dbz = rng.normal(8.0, 15.0, size=(9, 180, 301)).astype(np.float32)
+    dbz[4] = -10.0                     # a dry scan
+    dbz[rng.random(dbz.shape) < 0.1] = np.nan
+    rates = incremental._zr_rate_rows(dbz, a=200.0, b=1.6)
+    dt = incremental._rect_dt(1305849600.0 + 270.0 * np.arange(9), None)
+    start = np.abs(rng.normal(size=180 * 301)).astype(np.float32)
+    before = grid_update.launches
+    card, n_card = incremental._fold_terms(start, rates, dt, sparse=True,
+                                           device="cuda")
+    assert grid_update.launches == before + 8        # one per wet scan
+    host, n_host = incremental._fold_terms(start, rates, dt, sparse=True,
+                                           device="cpu")
+    dense, _ = incremental._fold_terms(start, rates, dt)
+    assert card.tobytes() == host.tobytes() == dense.tobytes()
+    assert n_card == n_host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(64, 720, 1192), (5, 7, 11), (3, 1, 5),
+                                   (9, 33, 257), (1, 2, 2)])
+def test_zr_accum_kernel_on_misaligned_and_tail_shapes(shape, offset):
+    _need_cuda()
+    rng = np.random.default_rng(sum(shape) + offset)
+    host = _radar_field(rng, *shape)
+    host.reshape(-1)[:3] = [np.inf, -np.inf, 53.0]
+    n = host.size
+    buf = torch.empty(n + offset, device="cuda")
+    buf[offset:] = _t(host.reshape(-1)).cuda()
+    dbz = buf[offset:].view(shape)        # base off 16 bytes unless 0
+    dt_s = _t(rng.uniform(200.0, 400.0, size=shape[:1]).astype(
+        np.float32)).cuda()
+    got = ops.zr_accum(dbz, dt_s)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.zr_accum(dbz, dt_s).cpu(), **QPE_TOL)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.zr_accum_exp2(dbz, dt_s).cpu(), **QPE_TOL)
+    again = ops.zr_accum(dbz, dt_s)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -3,6 +3,8 @@
 
     python3 tools/kernel_ab.py --kernel flash_attention --against OTHER/src
     python3 tools/kernel_ab.py --kernel mamba2_scan --against OTHER/src
+    python3 tools/kernel_ab.py --kernel zr_accum --against OTHER/src
+    python3 tools/kernel_ab.py --kernel grid_update --against OTHER/src
 
 Loads ``OTHER/src/repro_torch/kernels`` as a package of its own beside
 this checkout's (that package imports nothing else of ``repro_torch``) and
@@ -19,6 +21,17 @@ runs the two wrappers of ``--kernel`` in turns (this, other, other, this;
   weights from seed 0, 8 prompts of 1024 random tokens
   (``chip_smoke.serve_split``): prefill ms and decode step ms, the model's
   attention or Mamba-2 layers calling one wrapper or the other.
+
+``zr_accum`` and ``grid_update`` serve no model; for them each turn takes,
+per call, the kernel's device time (``chip_smoke.profiled_device_ms``),
+its CUDA-event time of back-to-back calls and the wrapper's host time:
+``zr_accum`` at the QPE shape (64 scans of 720 x 1192), ``grid_update``
+as each checkout patches one QPE scan (89% of the gates wet, the
+archive's share, added into a (1, 858 240) accumulation) and one CAPPI
+row (the 240 x 240 canvas set where in reach): in place at the cell list
+where the checkout has ``ops.grid_scatter_``, else into a fresh state
+through the equivalent pos map (``ops.grid_update``, before the kernel
+became a scatter).
 
 Prints one JSON line of medians, with the card's name and power limit as
 ``nvidia-smi`` gives them; needs a CUDA device.
@@ -40,6 +53,8 @@ STEPS = 8             # decode steps timed per turn
 # kernel -> (the model module whose ``kops`` calls it, its default arch)
 KERNELS = {"flash_attention": ("attention", "radar-lm-100m"),
            "mamba2_scan": ("ssm", "zamba2-1.2b")}
+# kernels timed alone -> the profiler's name filter for their kernels
+ALONE = {"zr_accum": "zr_accum_kernel", "grid_update": "grid_"}
 
 
 def load_ops(src, name: str):
@@ -82,9 +97,82 @@ def kernel_calls(kernel: str, cs, randn):
     return out
 
 
+def alone_calls(kernel: str, cs):
+    """{call: a function of an ``ops`` module} for a kernel timed alone."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    if kernel == "zr_accum":
+        dbz = cs.radar_field((cs.N_SCANS, 720, 1192), gen)
+        dt_s = torch.rand(cs.N_SCANS, generator=gen, device="cuda") * 200 + 200
+        return {"qpe": lambda ops: ops.zr_accum(dbz, dt_s)}
+    A, R = 720, 1192
+    reach = torch.from_numpy(
+        cs.grid_maps()["cappi 240x240 nearest"].in_reach()).cuda()
+    masks = {"qpe_fold": ("add", ~cs.storm_mask((A, R), 1.0 - cs.QPE_WET,
+                                                gen)),
+             "cappi_canvas": ("set", reach)}
+    out = {}
+    for call, (op, mask) in masks.items():
+        cells = torch.nonzero(mask).flatten().to(torch.int32)
+        m = cells.numel()
+        pos = torch.full(mask.shape, -1, dtype=torch.int32, device="cuda")
+        pos[mask] = torch.arange(m, dtype=torch.int32, device="cuda")
+        state = (torch.rand((1, mask.numel()), generator=gen, device="cuda")
+                 * 50.0 if op == "add" else
+                 torch.full((1, mask.numel()), float("nan"), device="cuda"))
+        upd = torch.rand((1, m), generator=gen, device="cuda") * 5.0
+
+        def patch(ops, op=op, state=state, upd=upd, cells=cells, pos=pos):
+            if hasattr(ops, "grid_scatter_"):
+                return ops.grid_scatter_(state, upd, cells, op=op)
+            return ops.grid_update(state, upd, pos, op=op)
+        out[call] = patch
+    return out
+
+
+def main_alone(args, cs) -> int:
+    """The A/B of a kernel that serves no model: device, event and host
+    time per call, in turns."""
+    import torch
+
+    wrappers = {"this": importlib.import_module("repro_torch.kernels.ops"),
+                "other": load_ops(args.against, "other_kernels")}
+    calls = alone_calls(args.kernel, cs)
+    name = ALONE[args.kernel]
+    for ops in wrappers.values():               # build and warm up
+        for fn in calls.values():
+            fn(ops)
+    torch.cuda.synchronize()
+    samples = {}
+    for _ in range(ROUNDS):
+        for which in ("this", "other", "other", "this"):
+            ops = wrappers[which]
+            for call, fn in calls.items():
+                for metric, value in (
+                        ("device_ms", cs.profiled_device_ms(
+                            lambda: fn(ops), name)),
+                        ("event_ms", cs.time_cuda(lambda: fn(ops))),
+                        ("host_us", cs.host_us_per_call(lambda: fn(ops),
+                                                        n=200))):
+                    samples.setdefault((which, f"{call}_{metric}"),
+                                       []).append(value)
+    out = {"card": cs.card_line(), "kernel": args.kernel,
+           "against": args.against, "rounds": ROUNDS}
+    for (which, metric), xs in samples.items():
+        # a profiler window that kept none of the kernel's events gives
+        # None: such samples are dropped and the count says how many stay
+        xs = [x for x in xs if x is not None]
+        out.setdefault(which, {})[metric] = {
+            "median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs)} if xs else None
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS),
+    ap.add_argument("--kernel", choices=sorted([*KERNELS, *ALONE]),
                     default="flash_attention")
     ap.add_argument("--against", required=True,
                     help="the src directory of another checkout")
@@ -100,6 +188,9 @@ def main() -> int:
     import numpy as np
 
     import chip_smoke as cs
+
+    if args.kernel in ALONE:
+        return main_alone(args, cs)
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import model as M
