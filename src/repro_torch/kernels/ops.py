@@ -17,7 +17,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_cuda
-from .grid_map import grid_map_cuda
+from .grid_map import CellOrder, grid_map_cuda
 from .grid_update import grid_scatter_cuda
 from .mamba2_scan import mamba2_scan_cuda
 from .qvp_reduce import qvp_reduce_cuda
@@ -61,18 +61,35 @@ def qvp_reduce(
 
 
 def grid_map(
-    field: torch.Tensor,       # (time, gates) flattened polar block
-    gate_idx: torch.Tensor,    # (cells, k) integer
-    weights: torch.Tensor,     # (cells, k) float32
+    field,                     # (time, gates) tensor, or a sequence of S
+    gate_idx: torch.Tensor,    # (cells, k) or (cells, S, k) integer
+    weights: torch.Tensor,     # the same shape, float32
     *,
+    order: Optional[CellOrder] = None,
     mode: str = "auto",
 ) -> torch.Tensor:
-    """Polar-to-grid gather-accumulate (kernel or plain version)."""
-    if not _use_kernel(field, mode):
-        return ref.grid_map(field, gate_idx, weights)
-    return grid_map_cuda(field.to(torch.float32).contiguous(),
-                         gate_idx.to(torch.int32).contiguous(),
-                         weights.to(torch.float32).contiguous())
+    """Polar-to-grid gather-accumulate over S sweeps, folded by a NaN-aware
+    max, in one launch (kernel or plain version).
+
+    ``field`` is one (time, gates) block with a (cells, k) map, or the S
+    sweeps' blocks with a (cells, S, k) map.  With ``order`` (a checked
+    permutation, from :func:`repro_torch.kernels.grid_map.cell_order`),
+    map row i writes column ``order.cells[i]``, and rows from
+    ``order.n_live`` on must have no live slot: the kernel trusts that
+    promise, the plain version raises on a broken one."""
+    fields = [field] if isinstance(field, torch.Tensor) else list(field)
+    if not fields:
+        raise ValueError("grid_map needs at least one field")
+    if not _use_kernel(fields[0], mode):
+        return ref.grid_map(fields, gate_idx, weights, order=order)
+    if gate_idx.dim() == 2:
+        gate_idx, weights = gate_idx[:, None, :], weights[:, None, :]
+    return grid_map_cuda(
+        [f.to(torch.float32).contiguous() for f in fields],
+        gate_idx.to(torch.int32).contiguous(),
+        weights.to(torch.float32).contiguous(),
+        None if order is None else order.cells,
+        None if order is None else order.n_live)
 
 
 def grid_scatter_(

@@ -60,20 +60,23 @@ def _take_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, vals, float("nan"))
 
 
-def grid_map(
+def live_slots(
+    gate_idx: torch.Tensor,         # (..., k) integer flat gate indices
+    weights: torch.Tensor,          # same shape, float32
+    n_gates: int,
+) -> torch.Tensor:
+    """The slots that can add to a mean, whatever the field holds: weight
+    > 0 and, after ``jnp.take``'s index rule, a gate in ``[0, n_gates)``."""
+    idx = gate_idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n_gates, idx)
+    return (weights > 0.0) & (idx >= 0) & (idx < n_gates)
+
+
+def _grid_map_sweep(
     field: torch.Tensor,            # (time, gates): flattened (az, range)
     gate_idx: torch.Tensor,         # (cells, k) integer flat gate indices
     weights: torch.Tensor,          # (cells, k) float32, <= 0 means "no gate"
 ) -> torch.Tensor:
-    """Masked weighted gather: polar gates -> Cartesian cells, (time, cells).
-
-    Each output cell is the weight-normalized mean of its (at most) k
-    contributing gates, skipping non-finite gate values and non-positive
-    weights; a cell with no valid contribution is NaN.  The sums are a
-    left fold over j = 0 .. k-1 from +0.0, each product and each sum
-    rounded on its own: the order (and the rounding) the CUDA kernel uses,
-    and bitwise what the reference oracle gives.
-    """
     f = field.to(torch.float32)
     w = weights.to(torch.float32)
     T, C, k = f.shape[0], gate_idx.shape[0], gate_idx.shape[1]
@@ -88,6 +91,57 @@ def grid_map(
         den = den + wv[:, :, j]
     return torch.where(den > 0.0, num / torch.clamp(den, min=1e-12),
                        float("nan"))
+
+
+def grid_map(
+    field,                          # (time, gates) tensor, or S of them
+    gate_idx: torch.Tensor,         # (cells, k) or (cells, S, k) integer
+    weights: torch.Tensor,          # the same shape, float32
+    *,
+    order=None,                     # a kernels.grid_map.CellOrder
+) -> torch.Tensor:
+    """Masked weighted gather: polar gates -> Cartesian cells, (time, cells),
+    over S sweeps folded by a NaN-aware max.
+
+    For each sweep, a map row's value is the weight-normalized mean of its
+    (at most) k contributing gates, skipping non-finite gate values and
+    non-positive weights, NaN with no valid contribution.  The sums are a
+    left fold over j = 0 .. k-1 from +0.0, each product and each sum
+    rounded on its own: the order (and the rounding) the CUDA kernel uses,
+    and bitwise what the reference oracle gives.  With a (cells, S, k) map
+    and S fields, the sweeps' values fold left by ``torch.fmax`` (NaN only
+    where every sweep is NaN), as the reference's column-max does with
+    ``np.fmax.reduce``.  With ``order``, row i lands in column
+    ``order.cells[i]`` (a permutation, checked when the order was made),
+    and ``order.n_live`` promises that rows from it on have no live slot
+    (:func:`live_slots`): the kernel writes them NaN without loading them.
+    Raises ``ValueError`` on an order of another length or a broken
+    promise, which the kernel would trust.
+    """
+    fields = [field] if isinstance(field, torch.Tensor) else list(field)
+    idx, w = gate_idx, weights
+    if idx.dim() == 2:
+        idx, w = idx[:, None, :], w[:, None, :]
+    C, S = idx.shape[0], idx.shape[1]
+    if len(fields) != S or S == 0:
+        raise ValueError(f"grid_map: {len(fields)} fields for a map of "
+                         f"{S} sweeps")
+    out = None
+    for s, f in enumerate(fields):
+        mean = _grid_map_sweep(f, idx[:, s], w[:, s])
+        out = mean if out is None else torch.fmax(out, mean)
+    if order is None:
+        return out
+    if order.cells.numel() != C:
+        raise ValueError(f"grid_map: an order of {order.cells.numel()} "
+                         f"cells for {C} map rows")
+    live = live_slots(idx, w, fields[0].shape[1]).reshape(C, -1)
+    if bool(live[order.n_live:].any()):
+        raise ValueError(f"grid_map: rows from n_live={order.n_live} on "
+                         "must have no live slot")
+    placed = torch.empty_like(out)
+    placed[:, order.cells.to(device=out.device, dtype=torch.int64)] = out
+    return placed
 
 
 def grid_update(

@@ -9,10 +9,13 @@ from the DataTree store on the GPU:
    numpy, pure functions of geometry, content-keyed and cached
    process-wide; the code is the reference package's, so the maps are
    bitwise equal to its maps.
-2. **Gather**: one host->device copy of the (time, az, range) block, the
-   ``grid_map`` CUDA kernel (:func:`repro_torch.kernels.ops.grid_map`),
-   for column-max a NaN-aware ``torch.fmax`` over sweeps on the device,
-   and one device->host copy of the (time, ny, nx) result.
+2. **Gather**: one host->device copy of each (time, az, range) block,
+   one launch of the ``grid_map`` CUDA kernel
+   (:func:`repro_torch.kernels.ops.grid_map`; for column-max it folds
+   every sweep with a NaN-aware max), and one device->host copy of the
+   (time, ny, nx) result.  The kernel reads its map from the device in
+   its traversal order (:func:`device_map`), built once per mapping and
+   device.
 3. **Write back**: gridded products land in the *same* repository as
    ordinary DataTree nodes under ``products/`` via a normal transaction,
    in the reference package's layout, so either package reads the
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.grid_map import CellOrder, cell_order
 from ..store import Session
 from . import geometry
 from ._device import DeviceLike, resolve_device
@@ -159,6 +163,7 @@ class GridMapping:
     n_gates: int
     method: str
     elev_deg: float
+    key: str = ""               # the content key it is cached under
 
     @property
     def n_cells(self) -> int:
@@ -186,6 +191,7 @@ def clear_mapping_cache() -> None:
     with _MAPPING_LOCK:
         _MAPPING_CACHE.clear()
         _MAPPING_STATS.update(hits=0, misses=0)
+        _DEVICE_MAPS.clear()
 
 
 def _cache_get(key: str) -> Optional[GridMapping]:
@@ -202,6 +208,7 @@ def _cache_put(key: str, mapping: GridMapping) -> GridMapping:
     # in-place edit by one caller cannot poison every later regrid
     mapping.gate_idx.flags.writeable = False
     mapping.weights.flags.writeable = False
+    mapping.key = key
     with _MAPPING_LOCK:
         _MAPPING_STATS["misses"] += 1
         _MAPPING_CACHE[key] = mapping
@@ -367,33 +374,77 @@ def _flat_gates(block: np.ndarray) -> np.ndarray:
     return block.reshape(block.shape[0], int(np.prod(block.shape[1:])))
 
 
-def _map_tensors(gate_idx: np.ndarray, weights: np.ndarray,
-                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A gate map on ``device``.  Cached maps are frozen numpy arrays, so
-    they are copied (``torch.from_numpy`` would alias read-only memory)."""
-    return (torch.from_numpy(np.array(gate_idx, np.int32)).to(device),
-            torch.from_numpy(np.array(weights, np.float32)).to(device))
+@dataclass(frozen=True)
+class DeviceMap:
+    """S gate maps of one grid on a device, stacked to (C, S, k) and in the
+    ``grid_map`` kernel's traversal (``kernels.grid_map.cell_order``):
+    8 x 8 tiles of the grid one after another, the cells out of every
+    sweep's reach last.  What ``ops.grid_map`` takes, with ``order``."""
+
+    gate_idx: torch.Tensor      # (C, S, k) int32, rows in traversal order
+    weights: torch.Tensor       # (C, S, k) float32
+    order: CellOrder            # the grid cell of each row; the live rows
 
 
-def _regrid(block: np.ndarray, gate_idx: np.ndarray, weights: np.ndarray,
-            mode: str, device: torch.device) -> torch.Tensor:
-    """One host->device copy of the flattened block, then ``grid_map`` on
-    the device; the (T, C) result stays there."""
-    field_d = torch.from_numpy(
+_DEVICE_MAPS: "OrderedDict[Tuple[Any, ...], DeviceMap]" = OrderedDict()
+_DEVICE_MAPS_MAX = 16
+
+
+def _build_device_map(mappings: Sequence[GridMapping], n_gates: int,
+                      device: torch.device) -> DeviceMap:
+    gate_idx = np.stack([m.gate_idx for m in mappings], axis=1)  # (C, S, k)
+    weights = np.stack([m.weights for m in mappings], axis=1)
+    g = mappings[0].grid
+    order, n_live = cell_order(gate_idx, weights, n_gates, (g.ny, g.nx))
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return DeviceMap(put(gate_idx[order], np.int32),
+                     put(weights[order], np.float32),
+                     CellOrder(put(order, np.int32), n_live))
+
+
+def device_map(mappings: Sequence[GridMapping], n_gates: int,
+               device: DeviceLike) -> DeviceMap:
+    """The ``grid_map`` kernel's device copy of ``mappings`` (one per
+    sweep folded, all on one grid) over a gate axis ``n_gates`` wide,
+    cached per (mapping keys, width, device), so a product copies no map
+    to the device after its first call.  Mappings built by hand (no cache
+    key) are not cached."""
+    device = torch.device(device)
+    keys = tuple(m.key for m in mappings)
+    if not all(keys):
+        return _build_device_map(mappings, n_gates, device)
+    ck = (keys, int(n_gates), str(device))
+    with _MAPPING_LOCK:
+        hit = _DEVICE_MAPS.get(ck)
+        if hit is not None:
+            _DEVICE_MAPS.move_to_end(ck)
+            return hit
+    built = _build_device_map(mappings, n_gates, device)
+    with _MAPPING_LOCK:
+        hit = _DEVICE_MAPS.setdefault(ck, built)
+        _DEVICE_MAPS.move_to_end(ck)
+        while len(_DEVICE_MAPS) > _DEVICE_MAPS_MAX:
+            _DEVICE_MAPS.popitem(last=False)
+    return hit
+
+
+def _to_device(block: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host->device copy of a block flattened to (T, gates)."""
+    return torch.from_numpy(
         np.ascontiguousarray(_flat_gates(block), np.float32)).to(device)
-    idx_d, w_d = _map_tensors(gate_idx, weights, device)
-    return ops.grid_map(field_d, idx_d, w_d, mode=mode)
 
 
-def _fmax_sweeps(per_sweep: Sequence[torch.Tensor]) -> torch.Tensor:
-    """NaN only where *every* sweep is NaN (out of everyone's reach): a
-    left fold of ``torch.fmax`` on the device, as ``np.fmax.reduce``."""
-    if not per_sweep:
-        raise ValueError("column-max needs at least one sweep")
-    out = per_sweep[0]
-    for x in per_sweep[1:]:
-        out = torch.fmax(out, x)
-    return out
+def _regrid(fields: Sequence[torch.Tensor],
+            mappings: Sequence[GridMapping], mode: str) -> torch.Tensor:
+    """One ``grid_map`` launch over the sweeps' (T, gates) fields on the
+    device (field s through ``mappings[s]``, folded by fmax); the (T, C)
+    result stays there."""
+    dm = device_map(mappings, fields[0].shape[1], fields[0].device)
+    return ops.grid_map(fields, dm.gate_idx, dm.weights, order=dm.order,
+                        mode=mode)
 
 
 def _site_from_root(session: Session) -> Tuple[float, float, float]:
@@ -535,7 +586,7 @@ def grid_sweep_from_session(
                       (f"{vcp}/sweep_{sweep}/{moment}", (tsl,))], wait=False)
     times = session.array(f"{vcp}/time")[tsl]
     block = session.array(f"{vcp}/sweep_{sweep}/{moment}")[tsl]
-    out = _regrid(block, mapping.gate_idx, mapping.weights, mode, device)
+    out = _regrid([_to_device(block, device)], [mapping], mode)
     return GridProduct(
         out.cpu().numpy().reshape(-1, grid.ny, grid.nx), np.asarray(times),
         grid, moment, "ppi",
@@ -590,7 +641,7 @@ def _cappi_from_session(
     # the one host copy of the sweep stack, then one device copy of it
     stacked = np.stack(blocks, axis=1)                      # (T, S, A, R)
     del blocks
-    out = _regrid(stacked, mapping.gate_idx, mapping.weights, mode, device)
+    out = _regrid([_to_device(stacked, device)], [mapping], mode)
     return GridProduct(
         out.cpu().numpy().reshape(-1, grid.ny, grid.nx), np.asarray(times),
         grid, moment, "cappi",
@@ -616,8 +667,8 @@ def _column_max_from_session(
 ) -> GridProduct:
     # the column-max implementation (dispatched via
     # repro_torch.radar.products): per cell, the max over all sweeps'
-    # regrids (the classic composite-reflectivity product), one grid_map
-    # launch per sweep and the max on the device.
+    # regrids (the classic composite-reflectivity product), in one
+    # grid_map launch over every sweep's block, the max folded in it.
     device = resolve_device(device)
     site_lat, site_lon, _ = _site_from_root(session)
     sweeps = list(sweeps) if sweeps is not None else \
@@ -628,21 +679,19 @@ def _column_max_from_session(
 
     tsl = as_time_slice(time_slice)
     fetches0 = session.cache_stats()["chunk_fetches"]
-    # the regrid loop is serial per sweep: readahead for all sweeps at
-    # once overlaps sweep i's gather with sweep i+1's fetches
+    # readahead for all sweeps at once: sweep i's copy to the device
+    # overlaps sweep i+1's fetches
     session.prefetch(
         [(f"{vcp}/time", (tsl,))]
         + [(f"{vcp}/sweep_{si}/{moment}", (tsl,)) for si in sweeps],
         wait=False)
     times = session.array(f"{vcp}/time")[tsl]
-    per_sweep = []
-    for si, e in zip(sweeps, elevs):
-        mapping = build_mapping(site_lat, site_lon, az, rng, e, grid,
-                                method=method)
-        block = session.array(f"{vcp}/sweep_{si}/{moment}")[tsl]
-        per_sweep.append(_regrid(block, mapping.gate_idx, mapping.weights,
-                                 mode, device))
-    out = _fmax_sweeps(per_sweep).cpu().numpy()
+    maps = [build_mapping(site_lat, site_lon, az, rng, e, grid,
+                          method=method) for e in elevs]
+    # each block goes to the device as it is read: no host stack
+    fields = [_to_device(session.array(f"{vcp}/sweep_{si}/{moment}")[tsl],
+                         device) for si in sweeps]
+    out = _regrid(fields, maps, mode).cpu().numpy()
     return GridProduct(
         out.reshape(-1, grid.ny, grid.nx), np.asarray(times), grid, moment,
         "column_max",
@@ -742,10 +791,12 @@ def read_grid_product(session: Session, name: str) -> GridProduct:
 __all__ = [
     "PRODUCTS_GROUP",
     "CartesianGrid",
+    "DeviceMap",
     "GridMapping",
     "GridProduct",
     "build_mapping",
     "clear_mapping_cache",
+    "device_map",
     "grid_sweep_from_session",
     "mapping_cache_stats",
     "product_path",

@@ -18,12 +18,13 @@ Each product is maintained as a **versioned DataTree node** under
 1. diffs the head against the state (``n_times`` attr vs the live
    ``time`` axis),
 2. computes fresh values for exactly the touched cells of the new rows
-   as a compact ``(new scans, touched)`` block on the device
-   (``grid_map`` restricted to the cells in reach),
-3. patches the block into place with the ``grid_update`` CUDA kernel,
-   an in-place scatter at the ascending list of touched cells
-   (untouched cells are neither read nor written), and
-4. appends/overwrites only the touched state chunks.
+   on the device: for the grids, the new rows in one ``grid_map`` launch
+   over the cached device map, which computes the cells in reach (for
+   column-max of every sweep, the max folded in) and writes NaN to the
+   rest without a load; for QPE, each wet scan's term added in place by
+   the ``grid_update`` CUDA kernel, a scatter at the ascending list of
+   wet gates (dry gates are neither read nor written), and
+3. appends/overwrites only the touched state chunks.
 
 **Bitwise contract.**  At any head, the incremental state equals the
 from-scratch product at that head bit for bit: row-append products
@@ -58,11 +59,11 @@ from .grid import (
     _cappi_mapping,
     _default_grid,
     _discover_sweeps,
-    _fmax_sweeps,
-    _regrid,
     _site_from_root,
     _sweep_geometry,
+    _to_device,
     build_mapping,
+    device_map,
     read_grid_product,
 )
 from .products import ProductRequest
@@ -151,7 +152,7 @@ class IncrementalGridProduct:
 
     The request's parameters are **pinned at first update** (recorded in
     the state node's attrs); later updates always reuse the stored grid,
-    sweep list and method.  ``device`` is where the regrid and patch run:
+    sweep list and method.  ``device`` is where the regrid runs:
     ``None`` means ``"cuda"``, and a missing GPU raises unless the caller
     passes ``device="cpu"``.
     """
@@ -262,43 +263,30 @@ class IncrementalGridProduct:
                     elevs: Sequence[float], method: str
                     ) -> Tuple[np.ndarray, int]:
         """The new rows, (t_new, ny, nx), and the cells computed per row:
-        a compact regrid of the cells in reach on the device, patched in
-        place into an all-NaN canvas (exactly what the full regrid yields
-        for out-of-reach cells) by ``grid_scatter_``."""
+        one regrid on the device, which computes the cells in reach and
+        writes NaN to the rest (exactly what the full regrid yields)."""
         req, dev = self.request, self.device
         if req.kind == "cappi":
-            mapping = _cappi_mapping(site_lat, site_lon, site_alt, az, rng,
-                                     elevs, grid, method, req.altitude_m)
-            reach = mapping.in_reach()
-            m = int(reach.sum())
-            if m:
-                compact = _regrid(np.stack(blocks, axis=1),
-                                  mapping.gate_idx[reach],
-                                  mapping.weights[reach], req.mode, dev)
+            maps = [_cappi_mapping(site_lat, site_lon, site_alt, az, rng,
+                                   elevs, grid, method, req.altitude_m)]
+            fields = [_to_device(np.stack(blocks, axis=1), dev)]
         else:  # column_max
             maps = [build_mapping(site_lat, site_lon, az, rng, e, grid,
                                   method=method) for e in elevs]
-            reach = np.logical_or.reduce([mp.in_reach() for mp in maps])
-            m = int(reach.sum())
-            if m:
-                compact = _fmax_sweeps([
-                    _regrid(block, mp.gate_idx[reach], mp.weights[reach],
-                            req.mode, dev)
-                    for mp, block in zip(maps, blocks)])
-        canvas = torch.full((t_new, grid.n_cells), float("nan"),
-                            dtype=torch.float32, device=dev)
-        if m:
-            cells = torch.from_numpy(
-                np.flatnonzero(reach).astype(np.int32)).to(dev)
-            ops.grid_scatter_(canvas, compact, cells, op="set",
-                              mode=req.mode)
-        return canvas.cpu().numpy().reshape(t_new, grid.ny, grid.nx), m
+            fields = [_to_device(block, dev) for block in blocks]
+        dm = device_map(maps, fields[0].shape[1], fields[0].device)
+        rows = ops.grid_map(fields, dm.gate_idx, dm.weights, order=dm.order,
+                            mode=req.mode)
+        # the live rows are the cells in reach (a built map's gates are
+        # all in range)
+        return (rows.cpu().numpy().reshape(t_new, grid.ny, grid.nx),
+                dm.order.n_live)
 
     def _commit_rows(self, rows: np.ndarray, times_new: np.ndarray,
                      grid: CartesianGrid, vcp: str, sweeps: Sequence[int],
                      method: str, t_prev: int, t_now: int,
                      head: str) -> str:
-        """Append the patched rows; one-scan chunks, so no RMW reads."""
+        """Append the new rows; one-scan chunks, so no RMW reads."""
         req = self.request
         tx = self.repo.writable_session(self.branch)
         ny, nx = grid.ny, grid.nx

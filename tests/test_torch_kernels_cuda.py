@@ -103,6 +103,110 @@ def test_grid_map_kernel_matches_plain_on_card_bitwise(t, g, c, k):
     assert tuple(empty.shape) == (0, c) and grid_map.launches == before + 2
 
 
+def _sweeps_case(rng, t, g, c, s, k):
+    fields = rng.normal(20.0, 12.0, size=(s, t, g)).astype(np.float32)
+    fields[rng.random((s, t, g)) < 0.2] = np.nan
+    idx = rng.integers(-g - 5, g + 5, size=(c, s, k)).astype(np.int32)
+    w = rng.uniform(0.0, 2.0, size=(c, s, k)).astype(np.float32)
+    w[rng.random((c, s, k)) < 0.3] = 0.0
+    w[rng.random(c) < 0.2] = 0.0                 # out of every sweep's reach
+    return fields, idx, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, g, ny, nx, s, k", [(5, 3001, 21, 37, 5, 1),
+                                               (3, 4000, 51, 59, 3, 4),
+                                               (1, 1000, 19, 27, 5, 1),
+                                               (2, 1000, 27, 19, 2, 11),
+                                               (9, 640, 25, 40, 5, 4),
+                                               (5, 700, 13, 17, 2, 4),
+                                               (64, 2000, 28, 25, 1, 1)])
+def test_grid_map_kernel_several_sweeps_in_tile_order_bitwise(t, g, ny, nx,
+                                                              s, k):
+    """One launch over S sweeps, rows in the kernel's order (8 x 8 tiles,
+    the dead rows a tail): bitwise the plain version over the map in grid
+    order; the cases take 1, 2, 4 and 8 rows a thread."""
+    _need_cuda()
+    rng = np.random.default_rng(t * 1000 + s * 10 + k)
+    fields, idx, w = _sweeps_case(rng, t, g, ny * nx, s, k)
+    order, n_live = grid_map.cell_order(idx, w, g, (ny, nx))
+    f = [_t(x).cuda() for x in fields]
+    want = ref.grid_map(f, _t(idx).cuda(), _t(w).cuda())
+    io, wo = _t(idx[order]).cuda(), _t(w[order]).cuda()
+    cells = _t(order.astype(np.int32)).cuda()
+    before = grid_map.launches
+    got = grid_map.grid_map_cuda(f, io, wo, cells, n_live)
+    assert grid_map.launches == before + 1
+    assert _bits_equal(got, want)
+    again = grid_map.grid_map_cuda(f, io, wo, cells, n_live)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert _bits_equal(ops.grid_map(f, io, wo, order=grid_map.CellOrder(
+        cells, n_live)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [777, 2**31 - 1, -1, -2**31])
+def test_grid_map_kernel_skips_cells_out_of_range(bad):
+    """A row whose output column falls outside [0, C) (C = 777 here)
+    writes nothing: the launch neither faults nor changes another column.
+    ``CellOrder`` refuses such a list before ``ops.grid_map`` sees it."""
+    _need_cuda()
+    rng = np.random.default_rng(23)
+    t, g, c, s, k = 5, 3001, 777, 2, 4
+    fields, idx, w = _sweeps_case(rng, t, g, c, s, k)
+    f = [_t(x).cuda() for x in fields]
+    io, wo = _t(idx).cuda(), _t(w).cuda()
+    want = ref.grid_map(f, io, wo)
+    cells = torch.arange(c, dtype=torch.int32)
+    bad_rows = [3, 400, c - 1]
+    cells[bad_rows] = bad
+    got = grid_map.grid_map_cuda(f, io, wo, cells.cuda(), c)
+    torch.cuda.synchronize()
+    keep = torch.ones(c, dtype=torch.bool)
+    keep[bad_rows] = False
+    keep = keep.cuda()
+    assert _bits_equal(got[:, keep], want[:, keep])
+    with pytest.raises(ValueError, match="permutation"):
+        grid_map.CellOrder(cells.cuda(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "idw"])
+def test_grid_map_fused_column_max_matches_five_launches_bitwise(method):
+    """Column-max's five VCP-212 sweeps (the archive's geometry) in one
+    launch from the cached device map, against the plain version and
+    against five one-sweep launches folded by torch.fmax."""
+    _need_cuda()
+    from repro_torch.radar import grid
+
+    a, r = 720, 1192
+    az = (np.arange(a) + 0.5) * (360.0 / a)
+    rng_m = (np.arange(r) + 0.5) * 250.0
+    elevs = (0.5, 0.9, 1.3, 1.8, 19.5)
+    g = grid._default_grid(36.74, -98.13, rng_m, elevs, 240, 240)
+    maps = [grid.build_mapping(36.74, -98.13, az, rng_m, e, g, method=method)
+            for e in elevs]
+    rng = np.random.default_rng(19)
+    f = [_t(_radar_field(rng, 4, a, r).reshape(4, a * r)).cuda()
+         for _ in elevs]
+    dm = grid.device_map(maps, a * r, f[0].device)
+    before = grid_map.launches
+    got = ops.grid_map(f, dm.gate_idx, dm.weights, order=dm.order)
+    assert grid_map.launches == before + 1
+    idx = _t(np.stack([m.gate_idx for m in maps], 1)).cuda()
+    w = _t(np.stack([m.weights for m in maps], 1)).cuda()
+    assert _bits_equal(got, ref.grid_map(f, idx, w))
+    split = None
+    for s in range(len(elevs)):
+        y = ops.grid_map(f[s], idx[:, s].contiguous(), w[:, s].contiguous())
+        split = y if split is None else torch.fmax(split, y)
+    assert _bits_equal(got, split)
+    # the incremental paths' call: one new row through the whole map
+    one = [x[:1].contiguous() for x in f]
+    row = ops.grid_map(one, dm.gate_idx, dm.weights, order=dm.order)
+    assert _bits_equal(row, got[:1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["set", "add", "max"])
 @pytest.mark.parametrize("t, c, frac", [(1, 1, 1.0), (1, 57600, 0.79),

@@ -5,6 +5,7 @@
     python3 tools/kernel_ab.py --kernel mamba2_scan --against OTHER/src
     python3 tools/kernel_ab.py --kernel zr_accum --against OTHER/src
     python3 tools/kernel_ab.py --kernel grid_update --against OTHER/src
+    python3 tools/kernel_ab.py --kernel grid_map --against OTHER/src
 
 Loads ``OTHER/src/repro_torch/kernels`` as a package of its own beside
 this checkout's (that package imports nothing else of ``repro_torch``) and
@@ -33,6 +34,18 @@ where the checkout has ``ops.grid_scatter_``, else into a fresh state
 through the equivalent pos map (``ops.grid_update``, before the kernel
 became a scatter).
 
+``grid_map`` is timed per call with the card's L2 flushed before each
+(1 GiB written: ``chip_smoke.time_cuda_cold``) and back to back behind
+a spin of the card (``chip_smoke.time_cuda_warm``), by CUDA events, on
+``chip_smoke.py``'s 64 random scans of
+VCP-212's five sweeps: the nearest CAPPI map (240 x 240), the 600 x 600
+IDW one, and column-max's five sweeps.  A checkout whose
+``ops.grid_map`` takes ``order`` gets its map in the kernel's order
+(``radar.grid.device_map``) and column-max in one call; an older one
+gets the maps in grid order and column-max as five calls and the
+``torch.fmax`` fold.  Beside them, as a yardstick of a plain gather (not
+the same function), ``torch.index_select`` of the nearest map's gates.
+
 Prints one JSON line of medians, with the card's name and power limit as
 ``nvidia-smi`` gives them; needs a CUDA device.
 """
@@ -42,6 +55,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import statistics
 import sys
@@ -170,9 +184,91 @@ def main_alone(args, cs) -> int:
     return 0
 
 
+def grid_map_calls(ops, cs, sweeps, stacked):
+    """{case: a call} of ``ops.grid_map`` for the three grid_map cases,
+    in the form the checkout's ``ops`` takes."""
+    import numpy as np
+    import torch
+    from repro_torch.radar import grid
+
+    maps = cs.grid_maps()
+    cases = {"cappi_nearest": ([stacked], [maps["cappi 240x240 nearest"]]),
+             "idw_600": ([stacked], [maps["cappi 600x600 idw"]]),
+             "column_max": (sweeps, cs.column_max_maps())}
+    fused = "order" in inspect.signature(ops.grid_map).parameters
+    calls = {}
+    for case, (fields, mps) in cases.items():
+        if fused:
+            dm = grid.device_map(mps, fields[0].shape[1], "cuda")
+            calls[case] = (lambda fields=fields, dm=dm: ops.grid_map(
+                fields, dm.gate_idx, dm.weights, order=dm.order))
+            continue
+        per = [(f, torch.from_numpy(np.array(m.gate_idx)).cuda(),
+                torch.from_numpy(np.array(m.weights)).cuda())
+               for f, m in zip(fields, mps)]
+
+        def split(per=per):
+            out = None
+            for f, i, w in per:
+                y = ops.grid_map(f, i, w)
+                out = y if out is None else torch.fmax(out, y)
+            return out
+        calls[case] = split
+    return calls
+
+
+def main_grid_map(args, cs) -> int:
+    """The A/B of grid_map: L2-cold and L2-warm ms per call, in turns."""
+    import numpy as np
+    import torch
+
+    wrappers = {"this": importlib.import_module("repro_torch.kernels.ops"),
+                "other": load_ops(args.against, "other_kernels")}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    A, R = 720, 1192
+    S = len(cs.ELEVATIONS)
+    sweeps = [cs.radar_field((cs.N_SCANS, A * R), gen) for _ in range(S)]
+    stacked = torch.stack(sweeps, dim=1).reshape(cs.N_SCANS, S * A * R)
+    calls = {which: grid_map_calls(ops, cs, sweeps, stacked)
+             for which, ops in wrappers.items()}
+    for case in calls["this"]:                  # build, warm up, compare
+        got, want = calls["this"][case](), calls["other"][case]()
+        if not cs.bits_equal(got, want):
+            raise AssertionError(f"grid_map {case}: the checkouts differ")
+    flush = cs.flush_l2()
+    gates = torch.from_numpy(np.array(
+        cs.grid_maps()["cappi 240x240 nearest"].gate_idx[:, 0])).cuda().long()
+
+    def gather():
+        return torch.index_select(stacked, 1, gates)
+
+    samples = {}
+    for _ in range(ROUNDS):
+        for which in ("this", "other", "other", "this"):
+            for case, fn in calls[which].items():
+                for metric, value in (
+                        ("cold_ms", cs.time_cuda_cold(fn, flush)),
+                        ("warm_ms", cs.time_cuda_warm(fn))):
+                    samples.setdefault((which, f"{case}_{metric}"),
+                                       []).append(value)
+        for metric, value in (("cold_ms", cs.time_cuda_cold(gather, flush)),
+                              ("warm_ms", cs.time_cuda_warm(gather))):
+            samples.setdefault(("index_select", f"cappi_nearest_{metric}"),
+                               []).append(value)
+    out = {"card": cs.card_line(), "kernel": args.kernel,
+           "against": args.against, "rounds": ROUNDS}
+    for (which, metric), xs in samples.items():
+        out.setdefault(which, {})[metric] = {
+            "median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs)}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted([*KERNELS, *ALONE]),
+    ap.add_argument("--kernel",
+                    choices=sorted([*KERNELS, *ALONE, "grid_map"]),
                     default="flash_attention")
     ap.add_argument("--against", required=True,
                     help="the src directory of another checkout")
@@ -191,6 +287,8 @@ def main() -> int:
 
     if args.kernel in ALONE:
         return main_alone(args, cs)
+    if args.kernel == "grid_map":
+        return main_grid_map(args, cs)
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import model as M
