@@ -1094,6 +1094,50 @@ def profiled_device_ms(fn, name: str, n: int = 20):
     return sum(times) / 1e3 / n if times else None
 
 
+def profiled_kernel_names(fn, tries: int = 3) -> str:
+    """The device kernels one call of ``fn`` ran, by ``torch.profiler``
+    (the yardstick's own kernels), most device time first; a window that
+    kept no kernel (seen before, PERF.md) is tried again, ``tries`` times
+    in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEV != "cuda":
+        return "not measured (no card)"
+    fn()
+    sync()
+    times = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                times[e.name] = times.get(e.name, 0.0) + e.device_time
+        if times:
+            break
+    if not times:
+        return (f"not measured (the profiler saw no kernel in {tries} "
+                "windows)")
+    return "; ".join(f"{name} {t / 1e3:.4f} ms"
+                     for name, t in sorted(times.items(),
+                                           key=lambda kv: -kv[1]))
+
+
+def rejected(label: str, what: str, bad, want, tol) -> None:
+    """``bad`` (what a faulty kernel would give) must fail the elementwise
+    check ``tol`` against ``want``."""
+    import torch
+
+    err = float((bad.float() - want.float()).abs().max())
+    if torch.allclose(bad.float(), want.float(), **tol):
+        raise AssertionError(f"{label}: {what} passes the check "
+                             f"(max_abs_err {err:.3e}, tolerance "
+                             f"{tol['atol']})")
+    say(f"check {label}, {what}: max_abs_err {err:.3e}, rejected by the "
+        f"elementwise check (rtol = atol = {tol['atol']})")
+
+
 def traced_kernels(run, profile_it: bool = True):
     """``(run(), (fmax_calls, names))``: the calls of ``torch.fmax`` and
     ``Tensor.fmax`` that ``run()`` made, counted by a shim around both,
@@ -1246,6 +1290,13 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             err = max(err, compare(f"flash_attention {label} vs flash_decode",
                                    got, ref.flash_decode(q, k, v, n), **tol))
             note = f", {n} split(s) also against ref.flash_decode"
+        if which == "f32":
+            pair = compare(f"flash_attention {label} vs flash_attention_pairs",
+                           got, ref.flash_attention_pairs(q, k, v,
+                                                          causal=causal),
+                           **tol)
+            note = (f", against ref.flash_attention_pairs (its roundings) "
+                    f"{pair:.3e}")
         if q.dtype == torch.bfloat16:
             row = row_rel_err(got, want)
             if row > FA_BF16_ROW_RTOL:
@@ -1291,6 +1342,17 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             want = check(label, q, k, v, True)
             if dtype == torch.bfloat16:
                 check_fault(label, q, k, v, want)
+            else:
+                # the float32 check must reject a dropped key tile and
+                # the one-term form (hi.hi alone) of the pair products
+                rejected(f"flash_attention {label}", f"planted fault (the "
+                         f"last {FA_FAULT_KEYS} keys dropped from the rows "
+                         "that see them)", planted_fault(q, k, v), want,
+                         FA_F32_TOL)
+                rejected(f"flash_attention {label}", "one-term form "
+                         "(flash_attention_pairs terms=1)",
+                         ref.flash_attention_pairs(q, k, v, terms=1), want,
+                         FA_F32_TOL)
             cases[(tag, "prefill", dt)] = (q, k, v)
             ck, cv = cache_k.to(dtype), cache_v.to(dtype)
             for kv_len in (S + 1, S + LM_NEW_TOKENS):
@@ -1361,8 +1423,23 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 row["device_ms"] = profiled_device_ms(call, "flash_decode")
             nbytes, nops = attention_cost(B, Hq, Hkv, q.shape[2], skv, D,
                                           True, q.element_size())
-            peak = peak_tc if q.dtype == torch.bfloat16 else peak_flops
-            t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
+            t_bytes = nbytes / peak_bw * 1e3
+            if which == "f32":
+                # three bf16 products for each float32 one on the tensor
+                # cores; the CUDA cores' float32 bound beside it
+                peak, t_ops = peak_tc, 3 * nops / peak_tc * 1e3
+                row["cuda_core_bound_ms"] = max(t_bytes,
+                                                nops / peak_flops * 1e3)
+                row["library_kernel"] = profiled_kernel_names(library)
+                say(f"bound flash_attention [f32] {tag}: on the CUDA cores "
+                    f"{row['cuda_core_bound_ms']:.4f} ms ({nops / 1e9:.2f} "
+                    f"GFLOP at {peak_flops / 1e12:.0f} TFLOP/s float32, "
+                    f"{nbytes / 1e6:.2f} MB); as bf16 pairs {3 * nops / 1e9:.2f}"
+                    f" GFLOP at {peak_tc / 1e12:.0f} TFLOP/s; SDPA float32 ran "
+                    f"{row['library_kernel']}")
+            else:
+                peak = peak_tc if q.dtype == torch.bfloat16 else peak_flops
+                t_ops = nops / peak * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             dev_ms = row.get("device_ms")
@@ -1370,7 +1447,8 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"Hkv={Hkv} Sq={q.shape[2]} Skv={skv} D={D} {dt}"
                 + (f", {len(pairs)} caches in turn" if len(pairs) > 1
                    else "") + "): "
-                f"kernel {row['ms']:.4f} ms (CUDA events), "
+                f"kernel {row['ms']:.4f} ms (CUDA events, calls back to "
+                "back), "
                 + (f"device {dev_ms:.4f} ms (torch.profiler), "
                    if dev_ms is not None else
                    ("device not measured (the profiler saw no kernel), "
@@ -1379,14 +1457,16 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"{row['library_ms']:.4f} ms (kernel / SDPA "
                 f"{row['ms'] / row['library_ms']:.2f}), bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
-                f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
+                f"{nbytes / 1e6:.2f} MB, "
+                f"{(3 if which == 'f32' else 1) * nops / 1e9:.2f} GFLOP at "
                 f"{peak / 1e12:.0f} TFLOP/s), "
                 f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
                 f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved; wrapper "
                 f"host {row['host_us']:.2f} us per call (enqueue of 1000)")
             rows[(which, tag)] = row
     if DEV == "cuda":
-        say("sass flash_attention library (tc_prefill and f32 kernels): "
+        say("sass flash_attention library (tc_prefill and f32 kernels, both "
+            "wgmma): "
             + sass_counts(_cuda.library_path("flash_attention")))
     say("check flash_attention: worst bf16 row errors "
         + ", ".join(f"{r} {row_errs[r]:.3e}" for r in FA_ROUTES
@@ -1398,8 +1478,14 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                                    max_abs_err=max(errs.values()))}
     for which in FA_ROUTES:
         row = dict(rows[(which, "lm")], max_abs_err=errs[which])
-        row["zamba2_ms"] = rows[(which, "zamba2")]["ms"]
-        row["zamba2_device_ms"] = rows[(which, "zamba2")].get("device_ms")
+        zrow = rows[(which, "zamba2")]
+        row["zamba2_ms"] = zrow["ms"]
+        row["zamba2_device_ms"] = zrow.get("device_ms")
+        if which == "f32":
+            row.update(zamba2_library_ms=zrow["library_ms"],
+                       zamba2_bound_ms=zrow["bound_ms"],
+                       zamba2_cuda_core_bound_ms=zrow["cuda_core_bound_ms"],
+                       zamba2_library_kernel=zrow["library_kernel"])
         out[f"flash_attention:{which}"] = row
     return out
 
@@ -1546,10 +1632,10 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
                 compare(f"mamba2_scan {label} state", got[1], want[1],
                         **SSM_TOL))
 
-    errs = {r: 0.0 for r in SSM_ROUTES}
+    errs = {r: 0.0 for r in mamba2_scan.route_launches}
 
     def check(label, args):
-        which = mamba2_scan.route(args[0])
+        which = mamba2_scan.route(args[0], args[3].shape[-1])
         before = dict(mamba2_scan.route_launches)
         got = run(args)
         again = run(args)
@@ -1565,7 +1651,7 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
         want = ref.mamba2_scan(*args[:5], h0=args[5])
         ey, eh = held(label, got, want, args[0].dtype)
         note = ""
-        if which == "chunk_tc":
+        if which in ("chunk_tc", "f32"):
             cy, ch = held(f"{label} vs mamba2_scan_chunks", got,
                           ref.mamba2_scan_chunks(*args[:5], h0=args[5]),
                           args[0].dtype)
@@ -1590,29 +1676,43 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
         args = inputs(B, 1, H, P, N, dtype, True)
         check(f"decode {tag} L=1 from a state", args)
         cases[f"decode {tag}"] = args
-    # the planted faults, at the bf16 prefill from a state: the checks must
-    # reject both
-    args = cases["prefill bf16 h0"]
-    want = ref.mamba2_scan(*args[:5], h0=args[5])
-    for kind, what in (("update", "the last chunk's state update skipped"),
-                       ("carry", "the carried state dropped from the last "
-                                 "chunk's y")):
-        try:
-            held(f"planted fault ({what})", ssm_fault(*args, kind), want,
-                 torch.bfloat16)
-        except AssertionError as e:
-            say(f"check mamba2_scan planted fault ({what}): rejected: {e}")
-        else:
-            raise AssertionError(f"mamba2_scan: the planted fault ({what}) "
-                                 "passes the checks")
-    del want
+    # the planted faults, at the prefill from a state in both dtypes, and
+    # the one-term form of the float32 route (hi.hi alone): the checks must
+    # reject each
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args = cases[f"prefill {tag} h0"]
+        want = ref.mamba2_scan(*args[:5], h0=args[5])
+        faults = [("the last chunk's state update skipped",
+                   ssm_fault(*args, "update")),
+                  ("the carried state dropped from the last chunk's y",
+                   ssm_fault(*args, "carry"))]
+        if dtype == torch.float32:
+            faults.append(("one-term form (mamba2_scan_chunks terms=1)",
+                           ref.mamba2_scan_chunks(*args[:5], h0=args[5],
+                                                  terms=1)))
+        for what, bad in faults:
+            try:
+                held(f"{tag} planted fault ({what})", bad, want, dtype)
+            except AssertionError as e:
+                say(f"check mamba2_scan {tag} planted fault ({what}): "
+                    f"rejected: {e}")
+            else:
+                raise AssertionError(f"mamba2_scan {tag}: the planted fault "
+                                     f"({what}) passes the checks")
+        del want, faults
     # ragged lengths and widths, each in both dtypes: one token, a
     # non-multiple of the chunk, one above it, several chunks
     for l, p, n in ((1, 16, 16), (2, 72, 80), (63, 8, 16), (65, 16, 8),
-                    (100, 64, 64), (300, 72, 80), (1000, 64, 64)):
+                    (100, 64, 64), (300, 72, 80), (1000, 64, 64),
+                    (129, 128, 128), (70, 9, 12)):
         for dtype in (torch.float32, torch.bfloat16):
             check(f"ragged B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
                   "state", inputs(2, l, 3, p, n, dtype, True))
+    # a float32 state wider than the tensor-core kernel holds: the CUDA-core
+    # kernel, by shape (no configuration of the repo has one)
+    for l in (2, 130):
+        check(f"wide B=2 L={l} H=3 P=16 N=160 float32 from a state",
+              inputs(2, l, 3, 16, 160, torch.float32, True))
     # the state continues: two halves, the second from the first's state
     for dtype in (torch.float32, torch.bfloat16):
         x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, dtype, False)
@@ -1657,29 +1757,42 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
             row["device_ms"] = profiled_device_ms(call, "mamba2_decode")
             row["host_us"] = host_us_per_call(call)
         nbytes, nops = ssd_cost(*x.shape, N, x.element_size(), h0 is not None)
-        peak = peak_tc if x.dtype == torch.bfloat16 else peak_flops
-        t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak * 1e3
+        t_bytes = nbytes / peak_bw * 1e3
+        if which == "f32":
+            # three bf16 products for each float32 one on the tensor cores;
+            # the CUDA cores' float32 bound beside it
+            peak, n_ops = peak_tc, 3 * nops
+            row["cuda_core_bound_ms"] = max(t_bytes, nops / peak_flops * 1e3)
+            say(f"bound mamba2_scan [f32] {label}: on the CUDA cores "
+                f"{row['cuda_core_bound_ms']:.4f} ms ({nops / 1e9:.2f} GFLOP "
+                f"at {peak_flops / 1e12:.0f} TFLOP/s float32, "
+                f"{nbytes / 1e6:.2f} MB)")
+        else:
+            peak = peak_tc if x.dtype == torch.bfloat16 else peak_flops
+            n_ops = nops
+        t_ops = n_ops / peak * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         dev_ms = row.get("device_ms")
         say(f"time mamba2_scan [{which}] {label} (B={x.shape[0]} "
             f"L={x.shape[1]} H={x.shape[2]} P={x.shape[3]} N={N}"
             + (f", {len(states)} states in turn" if len(states) > 1 else "")
-            + f"): kernel {row['ms']:.4f} ms (CUDA events), "
+            + f"): kernel {row['ms']:.4f} ms (CUDA events, calls back to "
+            "back), "
             + (f"device {dev_ms:.4f} ms (torch.profiler), "
                if dev_ms is not None else
                ("device not measured (the profiler saw no kernel), "
                 if which == "decode" else ""))
             + f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
             f" ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
-            f"{nops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
+            f"{n_ops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
             f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
             f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved"
             + (f"; wrapper host {row['host_us']:.2f} us per call (enqueue "
                "of 1000)" if "host_us" in row else ""))
         timed[which] = row
     if DEV == "cuda":
-        say("sass mamba2_scan library (chunk_tc and f32 kernels): "
+        say("sass mamba2_scan library (chunk_tc, f32 and f32_wide kernels): "
             + sass_counts(_cuda.library_path("mamba2_scan")))
     # the JSON rows: each route at the path's shapes, and the wrapper under
     # its own name with the main path's prefill route's numbers
@@ -2729,7 +2842,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
-        for key in ("routes", "device_ms", "host_us", "warm_ms"):
+        for key in ("routes", "device_ms", "host_us", "warm_ms",
+                    "cuda_core_bound_ms", "library_kernel"):
             if row.get(key) is not None:
                 out[-1][key] = row[key]
     return out

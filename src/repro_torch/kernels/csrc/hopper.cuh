@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels of this
-// directory (flash_attention.cu's tc_prefill, mamba2_scan.cu's chunk_tc):
-// tensor maps for TMA, mbarriers, bulk tensor copies, wgmma descriptors and
-// the wgmma instructions themselves (bf16 operands, float32 accumulators).
+// directory (flash_attention.cu, mamba2_scan.cu): tensor maps for TMA,
+// mbarriers, bulk tensor copies, the swizzled tile layout, the split of
+// float32 values into bf16 hi + lo pairs, wgmma descriptors and the wgmma
+// instructions themselves (bf16 operands, float32 accumulators).
 // Every library is hashed with the headers of this directory
 // (kernels/_cuda.py, library_path).
 
@@ -41,28 +42,54 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) over `ptr` with
-// element strides `st` for dims 1.., cut into boxes `box`, 128-byte
-// swizzle; rows past an extent read as zeros.  A dim of extent 1 is never
-// stepped over: any legal stride (whole 16-byte units) does.
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                        const cuuint64_t* dims, const int64_t* st,
-                        const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first) of `size`-byte values over
+// `ptr` with element strides `st` for dims 1.., cut into boxes `box`;
+// rows past an extent read as zeros.  A dim of extent 1 is never stepped
+// over: any legal stride (whole 16-byte units) does.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                         int size, const void* ptr, int rank,
+                         const cuuint64_t* dims, const int64_t* st,
+                         const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  const int64_t unit = 16 / size;
   cuuint64_t strides[4];
   int64_t inner = static_cast<int64_t>(dims[0]);
   for (int i = 1; i < rank; ++i) {
-    const int64_t s = dims[i] == 1 ? (inner + 7) / 8 * 8 : st[i - 1];
-    strides[i - 1] = static_cast<cuuint64_t>(s) * 2;
+    const int64_t s = dims[i] == 1 ? (inner + unit - 1) / unit * unit
+                                   : st[i - 1];
+    strides[i - 1] = static_cast<cuuint64_t>(s) * size;
     inner = s * static_cast<int64_t>(dims[i]);
   }
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 tensor map, boxes of 64-value rows, 128-byte swizzle
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                        const cuuint64_t* dims, const int64_t* st,
+                        const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rank,
+                      dims, st, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the swizzle of rows of `bytes` bytes (128, 64 or 32)
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// a float32 tensor map, boxes of box[0] values a row (32 or 16: rows of
+// 128 or 64 bytes) swizzled to their width
+inline bool encode_f32(CUtensorMap* map, const void* ptr, int rank,
+                       const cuuint64_t* dims, const int64_t* st,
+                       const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rank,
+                      dims, st, box, swizzle_of(4 * box[0]));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -169,6 +196,53 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// v0, v1 as bf16 pairs: hi = bf16_rn(v), lo = bf16_rn(v - hi) (v - hi is
+// exact in float32), each packed two to a register
+__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - f.x, v1 - f.y);
+}
+
+// Byte offset of element (r, c) of a tile of ROWS rows of E-byte values,
+// kept as sub-tiles of RB-byte rows (RB = 128, 64 or 32) one after the
+// other, each swizzled as TMA writes and wgmma reads it: bits 4.. of the
+// offset XOR its bits 7.. (3 bits at 128 B, 2 at 64, 1 at 32).  The tile
+// starts on 1024 bytes.
+template <int ROWS, int RB, int E>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  const uint32_t b = static_cast<uint32_t>(c) * E;
+  const uint32_t off = (b / RB) * (ROWS * RB) + r * RB + b % RB;
+  return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
+}
+
+// A float32 tile (ROWS x COLS, sub-tiles of FB-byte rows, as TMA brings
+// it) split into bf16 hi and lo tiles of the same shape (sub-tiles of
+// HB-byte rows, the layout wgmma reads), by NT threads, this one `tid`:
+// each takes runs of 4 values, neighbouring threads neighbouring runs, so
+// a warp reads and writes whole swizzled rows.
+template <int ROWS, int COLS, int FB, int HB, int NT>
+__device__ __forceinline__ void split_tile(const unsigned char* src,
+                                           unsigned char* hi,
+                                           unsigned char* lo, int tid) {
+  constexpr int kRuns = ROWS * COLS / 4;
+  static_assert(kRuns % NT == 0, "whole runs a thread");
+#pragma unroll 4
+  for (int i = tid; i < kRuns; i += NT) {
+    const int r = i / (COLS / 4), c = i % (COLS / 4) * 4;
+    const float4 v =
+        *reinterpret_cast<const float4*>(src + tile_off<ROWS, FB, 4>(r, c));
+    uint2 h, l;
+    split(v.x, v.y, h.x, l.x);
+    split(v.z, v.w, h.y, l.y);
+    const uint32_t o = tile_off<ROWS, HB, 2>(r, c);
+    *reinterpret_cast<uint2*>(hi + o) = h;
+    *reinterpret_cast<uint2*>(lo + o) = l;
+  }
+}
+
 // d (64 x 64, float32) {+}= A (64 x 16, shared, K-major) * B (16 x 64,
 // shared): B K-major (stored as 64 rows of 16) unless TransB, then
 // MN-major (16 rows of 64)
@@ -220,7 +294,10 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 64, float32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared, MN-major)
+// d (64 x 64, float32) += A (64 x 16, bf16 in registers) * B (16 x 64,
+// shared): B MN-major (16 rows of 64) unless TransB is 0, then K-major
+// (stored as 64 rows of 16)
+template <int TransB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -229,7 +306,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -238,7 +315,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
 }
 
 // d (64 x 128, float32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared, MN-major)

@@ -13,7 +13,10 @@ Sq alone (:func:`route`):
 * ``"tc_prefill"`` (Sq > 1, bfloat16): ``csrc/flash_attention.cu``'s
   ``flash_attention_tc_launch``, wgmma on the tensor cores fed by TMA;
 * ``"f32"`` (Sq > 1, float32): ``csrc/flash_attention.cu``'s
-  ``flash_attention_launch``, float32 FMAs on the CUDA cores.
+  ``flash_attention_launch``, the same tensor cores with every float32
+  operand as a bf16 pair, ``hi = bf16(v)``, ``lo = bf16(v - hi)``, and
+  every product as three bf16 products; its plain version with the same
+  roundings is :func:`repro_torch.kernels.ref.flash_attention_pairs`.
 """
 
 from __future__ import annotations
@@ -155,17 +158,16 @@ def flash_attention_cuda(
     if B == 0 or Hq == 0 or Sq == 0:
         return out
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
-    if which != "f32":
-        # the vector and TMA loads want 16-byte units: copy what is not
-        if not _aligned(q, qs):
-            q = q.clone(memory_format=torch.contiguous_format)
-            qs = q.stride()
-        if not _aligned(k, ks):
-            k = k.clone(memory_format=torch.contiguous_format)
-            ks = k.stride()
-        if not _aligned(v, vs):
-            v = v.clone(memory_format=torch.contiguous_format)
-            vs = v.stride()
+    # the vector and TMA loads want 16-byte units: copy what is not
+    if not _aligned(q, qs):
+        q = q.clone(memory_format=torch.contiguous_format)
+        qs = q.stride()
+    if not _aligned(k, ks):
+        k = k.clone(memory_format=torch.contiguous_format)
+        ks = k.stride()
+    if not _aligned(v, vs):
+        v = v.clone(memory_format=torch.contiguous_format)
+        vs = v.stride()
     # element strides: batch, head and sequence of q, k, v and out
     strides = array.array("q", (*qs[:3], *ks[:3], *vs[:3],
                                 Hq * Sq * D, Sq * D, D))

@@ -4,9 +4,9 @@ The Hopper counterpart of the TPU kernel
 ``repro/kernels/mamba2_scan.py:mamba2_scan_pallas``.  Unlike the TPU
 kernel it starts from an optional state ``h0``, so a serving step with a
 state goes through it too.  The plain version is
-:func:`repro_torch.kernels.ref.mamba2_scan`.  Three kernels stand behind
-the one wrapper, and the route is chosen from the dtype and L alone
-(:func:`route`):
+:func:`repro_torch.kernels.ref.mamba2_scan`.  Four kernels stand behind
+the one wrapper, and the route is chosen from the dtype, L and the state
+width N alone (:func:`route`):
 
 * ``"decode"`` (L == 1, float32 or bfloat16): ``csrc/mamba2_decode.cu``,
   the state streamed row by row in 16-byte vectors;
@@ -15,8 +15,15 @@ the one wrapper, and the route is chosen from the dtype and L alone
   (wgmma fed by TMA), every float32 operand as a bf16 pair; its plain
   version with the same roundings is
   :func:`repro_torch.kernels.ref.mamba2_scan_chunks`;
-* ``"f32"`` (L > 1, float32): ``csrc/mamba2_scan.cu``'s
-  ``mamba2_scan_launch``, float32 FMAs on the CUDA cores.
+* ``"f32"`` (L > 1, float32, N up to 128): ``csrc/mamba2_scan.cu``'s
+  ``mamba2_scan_launch``, chunk_tc's design with x, B and C split into
+  bf16 pairs too, every product three bf16 products; its plain version
+  with the same roundings is
+  :func:`repro_torch.kernels.ref.mamba2_scan_chunks` on float32 inputs;
+* ``"f32_wide"`` (L > 1, float32, N above 128, which no configuration of
+  the repo has): ``csrc/mamba2_scan.cu``'s ``mamba2_scan_wide_launch``,
+  float32 FMAs on the CUDA cores, for the widths the tensor-core kernel's
+  registers do not hold.
 """
 
 from __future__ import annotations
@@ -33,11 +40,12 @@ from . import _cuda
 #: reset it to 0); one per scan, whatever the route
 launches = 0
 #: the same calls by route; they add up to ``launches``
-route_launches = {"chunk_tc": 0, "decode": 0, "f32": 0}
+route_launches = {"chunk_tc": 0, "decode": 0, "f32": 0, "f32_wide": 0}
 
 #: dynamic shared memory a block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
-#: the widest P and N the tensor-core route takes (its tiles are 64 or 128)
+#: the widest P and N the bf16 tensor-core route takes, and the widest N
+#: of the float32 one (its tiles are 64 or 128)
 TC_MAX_WIDTH = 128
 #: the widest N the decode route takes (16 lanes a row, 16 values a lane)
 DECODE_MAX_N = 256
@@ -51,24 +59,29 @@ _DECODE_ARGS = (_P,) * 8 + (_I,) * 4 + (_P, _I, _P)
 # route -> (library, C symbol, argtypes)
 _SYMBOLS = {
     "f32": ("mamba2_scan", "mamba2_scan_launch", _SCAN_ARGS),
+    "f32_wide": ("mamba2_scan", "mamba2_scan_wide_launch", _SCAN_ARGS),
     "chunk_tc": ("mamba2_scan", "mamba2_scan_tc_launch", _SCAN_ARGS),
     "decode": ("mamba2_decode", "mamba2_decode_launch", _DECODE_ARGS),
 }
 _fns = {}      # route -> its bound C function, once loaded
 
 
-def route(x: torch.Tensor) -> str:
-    """The kernel a scan of this x (B, L, H, P) goes to: ``"decode"`` for
-    one token, else ``"chunk_tc"`` for bfloat16 and ``"f32"`` for
-    float32."""
+def route(x: torch.Tensor, n: int = 0) -> str:
+    """The kernel a scan of this x (B, L, H, P) with a state width ``n``
+    goes to: ``"decode"`` for one token, else ``"chunk_tc"`` for bfloat16,
+    and for float32 ``"f32"``, or ``"f32_wide"`` where ``n`` is above
+    ``TC_MAX_WIDTH``."""
     if x.shape[1] == 1:
         return "decode"
-    return "chunk_tc" if x.dtype == torch.bfloat16 else "f32"
+    if x.dtype == torch.bfloat16:
+        return "chunk_tc"
+    return "f32_wide" if n > TC_MAX_WIDTH else "f32"
 
 
 def smem_bytes(P: int, N: int) -> int:
-    """Shared memory one block of the ``f32`` route needs for state width
-    (P, N), as ``csrc/mamba2_scan.cu``'s ``smem_floats`` counts it."""
+    """Shared memory one block of the ``f32_wide`` route needs for state
+    width (P, N), as ``csrc/mamba2_scan.cu``'s ``smem_floats`` counts
+    it."""
     return 4 * (_CHUNK * P + 2 * _CHUNK * (N + 1) + P * (N + 1)
                 + _CHUNK * (_CHUNK + 1) + 3 * _CHUNK)
 
@@ -156,8 +169,8 @@ def mamba2_scan_cuda(
     if (P > 1 and xs[3] != 1) or (N > 1 and (bs[2] != 1 or cs[2] != 1)):
         raise ValueError("mamba2_scan_cuda: x, Bmat and Cmat need a "
                          "contiguous last dimension")
-    which = route(x)
-    if which == "f32" and smem_bytes(P, N) > SMEM_LIMIT:
+    which = route(x, N)
+    if which == "f32_wide" and smem_bytes(P, N) > SMEM_LIMIT:
         raise ValueError(f"mamba2_scan_cuda: state width P={P}, N={N} needs "
                          f"{smem_bytes(P, N)} bytes of shared memory, above "
                          f"the block's {SMEM_LIMIT}")
@@ -184,12 +197,12 @@ def mamba2_scan_cuda(
         A = A.contiguous()
     ds = dt.stride()
     y_out = y
-    if which == "chunk_tc":
+    if which in ("chunk_tc", "f32"):
         # the TMA copies want 16-byte units: copy what is not
         x, Bmat, Cmat = (_tma_ready(x, xs), _tma_ready(Bmat, bs),
                          _tma_ready(Cmat, cs))
         xs, bs, cs = x.stride(), Bmat.stride(), Cmat.stride()
-        if P % 2:
+        if which == "chunk_tc" and P % 2:
             # the kernel stores y in column pairs: rows of P + 1
             y_out = torch.empty((Bsz, L, H, P + 1), dtype=dtype, device=dev)
     if which == "decode":

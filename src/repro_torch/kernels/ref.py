@@ -416,64 +416,171 @@ def _bf16_pair(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def _pair(v: torch.Tensor, terms: int):
+    """``v`` as the kernels send it to the tensor cores, back in float32:
+    ``(hi, lo)``, with ``lo`` None where the tensor is exact in bf16 (a
+    bf16 input) or ``terms == 1`` (hi alone)."""
+    if v.dtype == torch.bfloat16:
+        return v.to(torch.float32), None
+    hi, lo = _bf16_pair(v.to(torch.float32))
+    return hi, (lo if terms == 3 else None)
+
+
+def _products(eq: str, a, b):
+    """The bf16 products of two pairs in the kernels' order: hi.hi, hi.lo,
+    lo.hi (lo.lo dropped), each an einsum in float32; a missing lo adds
+    no term."""
+    out = [torch.einsum(eq, a[0], b[0])]
+    if b[1] is not None:
+        out.append(torch.einsum(eq, a[0], b[1]))
+    if a[1] is not None:
+        out.append(torch.einsum(eq, a[1], b[0]))
+    return out
+
+
+def _fold(first: torch.Tensor, rest) -> torch.Tensor:
+    """``first + rest[0] + rest[1] + ...``, left to right in float32."""
+    for t in rest:
+        first = first + t
+    return first
+
+
+def _sum(xs) -> torch.Tensor:
+    """``xs[0] + xs[1] + ...``, left to right."""
+    return _fold(xs[0], xs[1:])
+
+
+def _rows(pair, sl: slice, dim: int):
+    """Both halves of a pair sliced along ``dim``."""
+    return tuple(None if t is None else t.narrow(dim, sl.start,
+                                                  sl.stop - sl.start)
+                 for t in pair)
+
+
+def _check_terms(terms: int) -> None:
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 (hi.hi) or 3 (hi.hi + hi.lo + "
+                         f"lo.hi), got {terms}")
+
+
+def flash_attention_pairs(
+    q: torch.Tensor,            # (B, Hq, Sq, D) float32
+    k: torch.Tensor,            # (B, Hkv, Skv, D) float32
+    v: torch.Tensor,            # (B, Hkv, Skv, D) float32
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    terms: int = 3,
+) -> torch.Tensor:
+    """The float32 prefill kernel's arithmetic (``csrc/flash_attention.cu``,
+    route ``f32``), its plain version -> (B, Hq, Sq, D) float32.
+
+    Each float32 operand of the tensor cores goes as a bf16 pair, ``hi =
+    bf16(v)``, ``lo = bf16(v - hi)``, and each product as three bf16
+    products summed in float32, lo.lo dropped: per key tile of 64 keys
+    (the kernel's), ``S = Qh Kh^T + Qh Kl^T + Ql Kh^T``, scaled, masked to -1e30
+    (causal aligned to the end of the keys, keys past Skv), an online
+    softmax in float32 (running max m, sum l of the float32 weights),
+    then ``O = alpha O + Ph Vh + Ph Vl + Pl Vh``; the output
+    ``O / max(l, 1e-30)``.  ``terms=1`` keeps hi.hi alone, the form whose
+    error the 2e-4 float32 tolerance must see.
+    """
+    _check_terms(terms)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    dev = q.device
+    qp = _pair(q.to(torch.float32), terms)
+    kp = _pair(torch.repeat_interleave(k.to(torch.float32), group, 1), terms)
+    vp = _pair(torch.repeat_interleave(v.to(torch.float32), group, 1), terms)
+    rows = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+    m = torch.full((B, Hq, Sq, 1), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hq, Sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=dev)
+    # every tile for every row: a tile a row cannot see gives it p = 0 and
+    # alpha = 1, which leave m, l and O as they were (the kernel stops early)
+    for k0 in range(0, Skv, 64):
+        sl = slice(k0, min(k0 + 64, Skv))
+        s = _sum(_products("bhqd,bhkd->bhqk", qp, _rows(kp, sl, 2))) * scale
+        if causal:
+            cols = torch.arange(sl.start, sl.stop, device=dev)[None, :]
+            s = torch.where(rows >= cols, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = _fold(acc * alpha, _products("bhqk,bhkd->bhqd", _pair(p, terms),
+                                           _rows(vp, sl, 2)))
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
 def mamba2_scan_chunks(
-    x: torch.Tensor,            # (B, L, H, P) bfloat16
+    x: torch.Tensor,            # (B, L, H, P) bfloat16 or float32
     dt: torch.Tensor,           # (B, L, H)
     A: torch.Tensor,            # (H,)
-    Bmat: torch.Tensor,         # (B, L, N) bfloat16
-    Cmat: torch.Tensor,         # (B, L, N) bfloat16
+    Bmat: torch.Tensor,         # (B, L, N) x's dtype
+    Cmat: torch.Tensor,         # (B, L, N) x's dtype
     *,
     h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
     chunk: int = 64,
+    terms: int = 3,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked form with the operand roundings of the tensor-core
-    kernel (``csrc/mamba2_scan.cu``, ``chunk_tc``), its plain version.
-    Per chunk of ``chunk`` tokens, L_t the cumulative sum of A dt_u:
+    kernels (``csrc/mamba2_scan.cu``: ``chunk_tc`` for bf16, the ``f32``
+    route's kernel for float32), their plain version.  Per chunk of
+    ``chunk`` tokens, L_t the cumulative sum of A dt_u:
 
         S   = C B^T
         y   = exp(L_t) C h^T + (M o S) x,   M[t, s] = exp(L_t - L_s) dt_s, s <= t
         h  <- exp(L_last) h + ((w o B)^T x)^T,  w_s = exp(L_last - L_s) dt_s
 
-    x, B and C enter as they are (exact in bf16); each operand computed in
-    float32 (h, M o S, w o B) enters as two bf16 halves (``_bf16_pair``),
-    the two products summed in float32.  Returns (y in x's dtype, the
-    final state float32), the function of :func:`mamba2_scan`.
+    Every operand of the tensor cores goes as a bf16 pair, ``hi =
+    bf16(v)``, ``lo = bf16(v - hi)``, and every product as the bf16
+    products hi.hi, hi.lo and lo.hi summed in float32 in that order (lo.lo
+    dropped).  bf16 x, B and C are exact in bf16 (no lo), so a product
+    with them is two bf16 products; float32 ones are split too, and w o B
+    is formed from B's pair, ``w (Bh + Bl)`` (the kernel keeps only the
+    pair in shared memory).  h, M o S and w o B are computed in float32
+    and split.  ``terms=1`` keeps hi.hi alone, the form whose error the
+    float32 tolerance must see.  Returns (y in x's dtype, the final state
+    float32), the function of :func:`mamba2_scan`.
     """
+    _check_terms(terms)
     Bsz, L, H, P = x.shape
     N = Bmat.shape[-1]
     dev = x.device
-    xf, Bf, Cf = (t.to(torch.float32) for t in (x, Bmat, Cmat))
+    xp, bp, cp = (_pair(t, terms) for t in (x, Bmat, Cmat))
     dtf, Af = dt.to(torch.float32), A.to(torch.float32)
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
          if h0 is None else h0.to(torch.float32))
+
     ys = []
     for t0 in range(0, L, chunk):
-        xc, bc, cc = xf[:, t0:t0 + chunk], Bf[:, t0:t0 + chunk], \
-            Cf[:, t0:t0 + chunk]
+        sl = slice(t0, min(t0 + chunk, L))
+        xc, bc, cc = (_rows(t, sl, 1) for t in (xp, bp, cp))
         lc = torch.cumsum(Af[None, None, :] * dtf[:, t0:t0 + chunk], dim=1)
         dc = dtf[:, t0:t0 + chunk]                          # (B, c, H)
-        c = xc.shape[1]
-        s_cb = torch.einsum("btn,bsn->bts", cc, bc)          # (B, c, c)
+        c = xc[0].shape[1]
+        s_cb = _sum(_products("btn,bsn->bts", cc, bc))
         seg = lc[:, :, None, :] - lc[:, None, :, :]          # (B, t, s, H)
         tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
         m = torch.where(tril[None, :, :, None],
                         torch.exp(torch.where(tril[None, :, :, None], seg,
                                               0.0)) * dc[:, None, :, :],
                         0.0)
-        ms_hi, ms_lo = _bf16_pair(m * s_cb[..., None])       # (B, t, s, H)
-        h_hi, h_lo = _bf16_pair(h)
-        z = (torch.einsum("btn,bhpn->bthp", cc, h_hi)
-             + torch.einsum("btn,bhpn->bthp", cc, h_lo))
-        y = (torch.exp(lc)[..., None] * z
-             + torch.einsum("btsh,bshp->bthp", ms_hi, xc)
-             + torch.einsum("btsh,bshp->bthp", ms_lo, xc))
+        ms = _pair(m * s_cb[..., None], terms)               # (B, t, s, H)
+        z = _sum(_products("btn,bhpn->bthp", cc, _pair(h, terms)))
+        y = _fold(torch.exp(lc)[..., None] * z,
+                  _products("btsh,bshp->bthp", ms, xc))
         ys.append(y)
         l_last = lc[:, -1]                                   # (B, H)
         w = torch.exp(l_last[:, None, :] - lc) * dc          # (B, s, H)
-        wb_hi, wb_lo = _bf16_pair(w[..., None] * bc[:, :, None, :])
-        h = (torch.exp(l_last)[..., None, None] * h
-             + torch.einsum("bshn,bshp->bhpn", wb_hi, xc)
-             + torch.einsum("bshn,bshp->bhpn", wb_lo, xc))
+        b_eff = bc[0] if bc[1] is None else bc[0] + bc[1]
+        wb = _pair(w[..., None] * b_eff[:, :, None, :], terms)
+        h = _fold(torch.exp(l_last)[..., None, None] * h,
+                  _products("bshn,bshp->bhpn", wb, xc))
     y = (torch.cat(ys, dim=1) if ys
          else torch.zeros((Bsz, 0, H, P), dtype=torch.float32, device=dev))
     return y.to(x.dtype), h

@@ -609,3 +609,110 @@ def test_mamba2_scan_routes_name_their_width_limits():
     args = _scan_inputs(rng, 1, 1, 1, 4, 300, torch.float32, False)
     with pytest.raises(ValueError, match="decode route takes N up to 256"):
         ops.mamba2_scan(*args[:5])
+
+
+# ---------------------------------------------------------------------------
+# the float32 routes: tensor cores, every float32 operand as a bf16 pair
+# ---------------------------------------------------------------------------
+
+F32_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py, float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b, hq, hkv, sq, extra, causal", [
+    (2, 4, 2, 100, 0, True), (1, 6, 2, 130, 140, True), (2, 2, 2, 65, 0, False),
+    (1, 8, 8, 3, 61, False), (1, 4, 1, 2, 2, True), (2, 4, 4, 200, 37, True)])
+def test_f32_prefill_kernel_matches_its_plain_versions(b, hq, hkv, sq, extra,
+                                                       causal, d):
+    _need_cuda()
+    rng = np.random.default_rng(sq + extra + d)
+    skv = sq + extra
+    q = _t(rng.normal(size=(b, hq, sq, d)).astype(np.float32)).cuda()
+    # keys and values as the prefix of a longer cache, read in place
+    cache = _t(rng.normal(size=(2, b, hkv, skv + 29, d)).astype(np.float32))
+    k, v = (c[:, :, :skv] for c in cache.cuda())
+    got, which = _route_call(q, k, v, causal)
+    assert which == "f32" and got.dtype == torch.float32
+    assert got.shape == q.shape
+    for want in (ref.flash_attention(q, k, v, causal=causal),
+                 ref.flash_attention_pairs(q, k, v, causal=causal)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **F32_TOL)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset, pad", [(1, 0), (0, 2), (3, 1)])
+def test_f32_prefill_takes_views_off_16_byte_units(offset, pad):
+    # q starts `offset` floats into its buffer and k's and v's rows sit
+    # d + pad values apart: the TMA copies need 16-byte units, so the
+    # wrapper copies such views rather than read them misaligned
+    _need_cuda()
+    rng = np.random.default_rng(offset + 10 * pad)
+    b, hq, hkv, sq, skv, d = 2, 4, 2, 70, 90, 64
+    flat = _t(rng.normal(size=(b * hq * sq * d + offset,)).astype(np.float32))
+    q = flat.cuda()[offset:].view(b, hq, sq, d)
+    wide = _t(rng.normal(size=(2, b, hkv, skv, d + pad)).astype(np.float32))
+    k, v = (x[..., :d] for x in wide.cuda())
+    got, which = _route_call(q, k, v)
+    assert which == "f32"
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ref.flash_attention(q, k, v).cpu().numpy(),
+                               **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, l, h, p, n, with_h0", [
+    (2, 2, 3, 16, 16, True), (2, 63, 3, 8, 16, False), (2, 65, 3, 16, 8, True),
+    (2, 300, 3, 72, 80, True), (2, 129, 2, 128, 128, True),
+    (2, 70, 3, 9, 12, True), (1, 1000, 2, 64, 64, False),
+    (2, 200, 4, 64, 64, True), (1, 130, 2, 136, 33, False)])
+def test_f32_scan_kernel_matches_its_plain_versions(b, l, h, p, n, with_h0):
+    _need_cuda()
+    rng = np.random.default_rng(l + p + n)
+    args = _scan_inputs(rng, b, l, h, p, n, torch.float32, with_h0)
+    y, hN, which = _scan_route_call(*args)
+    assert which == "f32"
+    assert y.dtype == torch.float32 and y.shape == args[0].shape
+    x, dt, A, Bm, Cm, h0 = args
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(x, dt, A, Bm, Cm,
+                                                      h0=h0))
+    again = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_f32_scan_takes_strided_and_misaligned_views(offset):
+    # x, B and C are views with a row stride of H P + 2 N; with offset 1
+    # they start one float into their buffer, off the 16-byte units TMA
+    # needs, so the wrapper copies them
+    _need_cuda()
+    rng = np.random.default_rng(50 + offset)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, 200, 4, 64, 64,
+                                        torch.float32, True, offset)
+    assert not x.is_contiguous()
+    y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
+    assert which == "f32"
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    dt_t = dt.transpose(0, 1).contiguous().transpose(0, 1)
+    y2, h2, _ = _scan_route_call(x, dt_t, A, Bm, Cm, h0)
+    assert torch.equal(y, y2) and torch.equal(hN, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l, with_h0", [(2, True), (130, False)])
+def test_f32_scan_wider_than_the_tensor_cores_takes_the_cuda_cores(l,
+                                                                   with_h0):
+    _need_cuda()
+    rng = np.random.default_rng(60 + l)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, l, 3, 16, 160,
+                                        torch.float32, with_h0)
+    before = dict(mamba2_scan.route_launches)
+    y, hN = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
+    before["f32_wide"] += 1
+    assert mamba2_scan.route_launches == before
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))

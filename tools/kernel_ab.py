@@ -3,6 +3,8 @@
 
     python3 tools/kernel_ab.py --kernel flash_attention --against OTHER/src
     python3 tools/kernel_ab.py --kernel mamba2_scan --against OTHER/src
+    python3 tools/kernel_ab.py --kernel mamba2_scan --dtype float32 \
+        --against OTHER/src
     python3 tools/kernel_ab.py --kernel zr_accum --against OTHER/src
     python3 tools/kernel_ab.py --kernel grid_update --against OTHER/src
     python3 tools/kernel_ab.py --kernel grid_map --against OTHER/src
@@ -13,13 +15,19 @@ runs the two wrappers of ``--kernel`` in turns (this, other, other, this;
 ``ROUNDS`` times) with ``chip_smoke.py``'s helpers:
 
 * the wrapper's host time per call (``chip_smoke.host_us_per_call``: 1000
-  calls enqueued on a synchronised card) at the kernel's bf16 decode call
-  and bf16 prefill call on its model's shapes: ``flash_attention`` at
-  radar-lm-100m's (one query on a 1056-key prefix of a 2048-long cache;
-  Sq = Skv = 1024), ``mamba2_scan`` at zamba2-1.2b's (one token from a
-  state; 1024 tokens from a state, B = 8, H = 64, P = N = 64);
-* ``--arch`` (by default the kernel's model) at full width, bf16, random
-  weights from seed 0, 8 prompts of 1024 random tokens
+  calls enqueued on a synchronised card) and its ms per call by CUDA
+  events (``<call>_call_ms``, ``chip_smoke.time_cuda``: calls back to
+  back, L2 warm) at the
+  kernel's decode call and prefill calls on its models' shapes, in
+  ``--dtype`` (bfloat16 by default, or float32: the ``f32`` routes):
+  ``flash_attention`` at radar-lm-100m's (one query on a 1056-key prefix
+  of a 2048-long cache; Sq = Skv = 1024, 12 query and 4 KV heads) and at
+  zamba2-1.2b's prefill (32 and 32), with SDPA on the same inputs as its
+  yardstick (``chip_smoke.sdpa``), ``mamba2_scan`` at zamba2-1.2b's (one
+  token from a state; 1024 tokens from a state, B = 8, H = 64, P = N =
+  64);
+* ``--arch`` (by default the kernel's model) at full width in ``--dtype``,
+  random weights from seed 0, 8 prompts of 1024 random tokens
   (``chip_smoke.serve_split``): prefill ms and decode step ms, the model's
   attention or Mamba-2 layers calling one wrapper or the other.
 
@@ -84,7 +92,8 @@ def load_ops(src, name: str):
 
 
 def kernel_calls(kernel: str, cs, randn):
-    """{call: a function of an ``ops`` module} for the host-time calls."""
+    """({call: a function of an ``ops`` module}, {call: the yardstick's
+    call}) for the timed calls, in ``randn``'s dtype."""
     import torch
 
     B, S = cs.LM_PROMPTS, cs.LM_PROMPT_LEN
@@ -96,9 +105,12 @@ def kernel_calls(kernel: str, cs, randn):
         qkv = {"decode": (randn(B, Hq, 1, D), cache_k[:, :, :kv_len],
                           cache_v[:, :, :kv_len]),
                "prefill": (randn(B, Hq, S, D), randn(B, Hkv, S, D),
-                           randn(B, Hkv, S, D))}
-        return {call: (lambda ops, a=a: ops.flash_attention(*a))
-                for call, a in qkv.items()}
+                           randn(B, Hkv, S, D)),
+               "zamba2_prefill": tuple(randn(B, 32, S, D) for _ in range(3))}
+        return ({call: (lambda ops, a=a: ops.flash_attention(*a))
+                 for call, a in qkv.items()},
+                {call: (lambda a=a: cs.sdpa(*a, True))
+                 for call, a in qkv.items()})
     H, P, N = 64, 64, 64
     h0 = randn(B, H, P, N).float()
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
@@ -108,7 +120,7 @@ def kernel_calls(kernel: str, cs, randn):
         args = (randn(B, length, H, P), dt, A, randn(B, length, N),
                 randn(B, length, N))
         out[call] = (lambda ops, a=args: ops.mamba2_scan(*a, h0=h0))
-    return out
+    return out, {}
 
 
 def alone_calls(kernel: str, cs):
@@ -274,6 +286,10 @@ def main() -> int:
                     help="the src directory of another checkout")
     ap.add_argument("--arch", default=None,
                     help="the model served (default: the kernel's model)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="the calls' and the served model's dtype (float32: "
+                         "the f32 prefill routes)")
     args = ap.parse_args()
     import torch
 
@@ -301,14 +317,15 @@ def main() -> int:
     order = ("this", "other", "other", "this")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+    dtype = getattr(torch, args.dtype)
 
-    calls = kernel_calls(args.kernel, cs, randn)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    calls, yardsticks = kernel_calls(args.kernel, cs, randn)
     cfg = get_any_config(arch)
-    pcfg = ParallelConfig(compute_dtype="bfloat16",
-                          kv_cache_dtype="bfloat16", remat="none")
+    pcfg = ParallelConfig(compute_dtype=args.dtype,
+                          kv_cache_dtype=args.dtype, remat="none")
     params = M.compute_params(M.init_params(cfg, 0, device="cuda"),
                               pcfg.compute_dtype)
     B, S = cs.LM_PROMPTS, cs.LM_PROMPT_LEN
@@ -324,13 +341,18 @@ def main() -> int:
             for call, fn in calls.items():
                 samples.setdefault((which, f"{call}_host_us"), []).append(
                     cs.host_us_per_call(lambda: fn(ops)))
+                samples.setdefault((which, f"{call}_call_ms"), []).append(
+                    cs.time_cuda(lambda: fn(ops)))
             pre, dec, _, _ = cs.serve_split(cfg, pcfg, params, prompt, 1,
                                             STEPS)
             samples.setdefault((which, "prefill_ms"), []).extend(pre)
             samples.setdefault((which, "decode_step_ms"), []).extend(dec)
+        for call, fn in yardsticks.items():
+            samples.setdefault(("sdpa", f"{call}_call_ms"), []).append(
+                cs.time_cuda(fn))
     model.kops = wrappers["this"]
     out = {"card": cs.card_line(), "kernel": args.kernel, "arch": arch,
-           "against": args.against, "rounds": ROUNDS}
+           "dtype": args.dtype, "against": args.against, "rounds": ROUNDS}
     for (which, metric), xs in samples.items():
         out.setdefault(which, {})[metric] = {
             "median": statistics.median(xs), "min": min(xs), "max": max(xs)}
