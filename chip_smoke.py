@@ -39,9 +39,10 @@ Phases, each printing its own lines:
    ``flash_attention`` on each of its three routes (``tc_prefill``, the
    bf16 prefill on the tensor cores; ``decode``, one query against a
    strided prefix of a 2048-long cache, split over the keys; ``f32``, the
-   float32 prefill) at radar-lm's and zamba2's prefill and decode shapes
-   and at 24 ragged ones, in float32 and bfloat16, each call on the route
-   its dtype and Sq choose; timed beside its plain version and
+   float32 prefill) at radar-lm's, zamba2's and stablelm-3b's (head dim
+   80) prefill and decode shapes and at 32 ragged ones (D 16 to 128 in
+   steps of 16), in float32 and bfloat16, each call on the route its
+   dtype and Sq choose; timed beside its plain version and
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
    tensor-core instructions of the built library (``cuobjdump -sass``);
@@ -54,7 +55,9 @@ Phases, each printing its own lines:
    choose; two planted faults must fail the checks; timed beside its plain
    version (the sequential recurrence), the decode call also by
    ``torch.profiler`` with the wrapper's host time per call, and the
-   tensor-core instructions of the built library counted;
+   tensor-core instructions of the built library counted; the CUDA-core
+   kernel for states wider than the tensor cores hold, in float32 and
+   (``bf16_wide``) bfloat16 at P = 64, N = 192, timed;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -77,6 +80,17 @@ Phases, each printing its own lines:
    with ``grid_update``'s launches counted (one per wet scan for QPE,
    none for the grids) and ``grid_map``'s (one per grid update, none for
    QPE; column-max's ``torch.fmax`` calls counted, none);
+   b. the federated path: KTLX and KICT archives of the same VCP at full
+      width (16 scans each, at KVNX's last 16 scan times) and a
+      ``repro_torch.catalog.Catalog`` over the three; federated QVP, QPE
+      and the column-max and CAPPI mosaics through ``compute_product(
+      catalog, ..., device="cuda")``, each against the same request with
+      ``mode="ref"`` (grids bitwise), exactly one ``qvp_reduce``,
+      ``zr_accum`` or ``grid_map`` launch per repository, timed at
+      ``workers`` 1 and 3 with each repository's session span; a
+      time-windowed mosaic fetching fewer chunks than the blind one; an
+      incremental mosaic updated after one scan appended to each of KTLX
+      and KICT, bitwise against the from-scratch mosaic;
 7. the LM serve path: radar-lm-100m at full width from
    ``init_params(seed=0)`` serves 8 radar scans of 1024 tokens drawn from
    the archive (``RadarTokenDataset``) through ``Engine.generate``, 32 new
@@ -96,7 +110,11 @@ Phases, each printing its own lines:
    6 x (1 + decode steps) ``flash_attention`` launches; the bf16 prefill's
    last-position logits against the same prefill with only the scan on its
    plain version (row by row, a planted fault rejected); then bfloat16
-   timed, with the peak device memory.
+   timed, with the peak device memory;
+   b. the stablelm-3b serve path the same way (32 layers, d_model 2560,
+   32/32 heads of 80): float32 kernel route against the blocked core,
+   exactly 32 x (1 + decode steps) ``flash_attention`` launches, then
+   bfloat16 timed.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -998,6 +1016,10 @@ def check_grid_kernels(peak_bw: float, peak_flops: float):
 # KV heads of 64), 8 archive scans of 1024 tokens as prompts, 32 new tokens
 # each, a 2048-long KV cache
 LM_ARCH = "radar-lm-100m"
+# the stablelm-3b serve path: 32 layers of 32 query and 32 KV heads of
+# 80 (2560 / 32), the head dim off the powers of two the attention
+# kernels take since their sub-tiles follow D
+STABLELM_ARCH = "stablelm-3b"
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS, LM_MAX_LEN = 8, 1024, 32, 2048
 FA_F32_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_kernels.py:281
 FA_BF16_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_kernels.py:291
@@ -1051,11 +1073,12 @@ L2_BYTES = 50e6                            # the H100's L2 cache
 
 
 def fa_shapes():
-    """{tag: (B, Hq, Hkv, D)} of the two serve paths' attention calls."""
+    """{tag: (B, Hq, Hkv, D)} of the three serve paths' attention calls."""
     from repro_torch.configs import get_any_config
 
     out = {}
-    for tag, arch in (("lm", LM_ARCH), ("zamba2", ZAMBA_ARCH)):
+    for tag, arch in (("lm", LM_ARCH), ("zamba2", ZAMBA_ARCH),
+                      ("stablelm", STABLELM_ARCH)):
         cfg = get_any_config(arch)
         out[tag] = (LM_PROMPTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     return out
@@ -1367,10 +1390,11 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             del want
         del cache_k, cache_v
     # ragged shapes: Sq 1-130, Skv - Sq 0-140, D 16/32/64/128, both masks;
-    # each in both dtypes and as a one-query decode of its keys
+    # each in both dtypes and as a one-query decode of its keys; then 8 more
+    # at the head dims off the powers of two (48, 80, 96, 112)
     rng = np.random.default_rng(SEED)
-    for i in range(24):
-        d = (16, 32, 64, 128)[i % 4]
+    for i in range(32):
+        d = (16, 32, 64, 128)[i % 4] if i < 24 else (48, 80, 96, 112)[i % 4]
         hkv = int(rng.choice([1, 2, 4]))
         hq = hkv * int(rng.choice([1, 2, 4]))
         sq, extra = int(rng.integers(1, 131)), int(rng.integers(0, 141))
@@ -1471,9 +1495,10 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
     say("check flash_attention: worst bf16 row errors "
         + ", ".join(f"{r} {row_errs[r]:.3e}" for r in FA_ROUTES
                     if r != "f32") + f" (tolerance {FA_BF16_ROW_RTOL})")
-    # the JSON rows: each route at radar-lm's shape (the zamba2 shape's
-    # time rides along for that path's kernel shares), and the wrapper
-    # under its own name with the main path's prefill route's numbers
+    # the JSON rows: each route at radar-lm's shape (the zamba2 and
+    # stablelm shapes' times ride along for those paths' kernel shares),
+    # and the wrapper under its own name with the main path's prefill
+    # route's numbers
     out = {"flash_attention": dict(rows[("tc_prefill", "lm")],
                                    max_abs_err=max(errs.values()))}
     for which in FA_ROUTES:
@@ -1481,6 +1506,11 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
         zrow = rows[(which, "zamba2")]
         row["zamba2_ms"] = zrow["ms"]
         row["zamba2_device_ms"] = zrow.get("device_ms")
+        srow = rows[(which, "stablelm")]
+        row.update(stablelm_ms=srow["ms"],
+                   stablelm_device_ms=srow.get("device_ms"),
+                   stablelm_bound_ms=srow["bound_ms"],
+                   stablelm_library_ms=srow["library_ms"])
         if which == "f32":
             row.update(zamba2_library_ms=zrow["library_ms"],
                        zamba2_bound_ms=zrow["bound_ms"],
@@ -1713,6 +1743,28 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
     for l in (2, 130):
         check(f"wide B=2 L={l} H=3 P=16 N=160 float32 from a state",
               inputs(2, l, 3, 16, 160, torch.float32, True))
+    # a bf16 state wider than chunk_tc holds (P or N above 128) takes the
+    # same CUDA-core kernel (bf16_wide), as does a one-token step wider
+    # than the decode kernel's N = 256: at zamba2's B, L and H with P = 64,
+    # N = 192, timed beside its plain version, and at ragged shapes
+    args = inputs(B, L, H, 64, 192, torch.bfloat16, True)
+    check(f"wide B={B} L={L} H={H} P=64 N=192 bfloat16 from a state", args)
+    wide_ms = time_cuda(lambda: run(args), reps=3, inner=3)
+    wide_plain = time_cuda(lambda: ref.mamba2_scan(*args[:5], h0=args[5]),
+                           reps=2, inner=1)
+    nbytes, nops = ssd_cost(B, L, H, 64, 192, 2, True)
+    say(f"time mamba2_scan [bf16_wide] B={B} L={L} H={H} P=64 N=192 bf16: "
+        f"kernel {wide_ms:.4f} ms (CUDA events), plain {wide_plain:.4f} ms, "
+        f"bound {max(nbytes / peak_bw, nops / peak_flops) * 1e3:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
+        f"{peak_flops / 1e12:.0f} TFLOP/s float32, the CUDA cores)")
+    del args
+    for l, p, n, dtype in ((70, 136, 16, torch.bfloat16),
+                           (130, 16, 192, torch.bfloat16),
+                           (1, 16, 320, torch.float32),
+                           (1, 16, 320, torch.bfloat16)):
+        check(f"wide B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
+              "state", inputs(2, l, 3, p, n, dtype, True))
     # the state continues: two halves, the second from the first's state
     for dtype in (torch.float32, torch.bfloat16):
         x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, dtype, False)
@@ -2320,6 +2372,295 @@ def drive_incremental_path(archive, vcp, sim, site, rows) -> None:
         "second updates no-ops")
 
 
+# -- phase 6b: the federated path -------------------------------------------------
+
+# the federation: KVNX's archive and two more sites of VCP-212 at its full
+# width (the same five cuts), each holding KVNX's last FED_SCANS scan
+# times; a Catalog over the three
+FED_SITES = ("KTLX", "KICT")
+FED_SCANS = 16
+FED_WORKERS = (1, 3)
+# the kernel each federated product launches once per repository
+FED_KERNELS = {"qvp": "qvp_reduce", "qpe": "zr_accum",
+               "mosaic column_max": "grid_map", "mosaic cappi": "grid_map"}
+
+
+def build_federation(archive, vcp, work: str):
+    """KTLX and KICT archives beside KVNX's (FED_SCANS scans each, one
+    commit), and a Catalog over the three; returns (catalog, {site:
+    archive}, {site: (simulator, radar site)})."""
+    from repro_torch.catalog import Catalog
+    from repro_torch.core import RadarArchive, fm301
+    from repro_torch.etl import StormSimulator
+    from repro_torch.store import Repository
+
+    archives, sims = {"KVNX": archive}, {}
+    first = N_SCANS - FED_SCANS
+    for j, site_id in enumerate(FED_SITES):
+        sim, site = StormSimulator(seed=SEED + 1 + j), fm301.SITES[site_id]
+        sims[site_id] = (sim, site)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            vols = list(pool.map(
+                lambda i: archive_volume(sim, site, vcp, i),
+                range(first, N_SCANS)))
+        repo = Repository.create(os.path.join(work, site_id))
+        arc = archives[site_id] = RadarArchive(repo)
+        tx = repo.writable_session()
+        tx.encode_workers = os.cpu_count() or 1
+        for vol in vols:
+            arc.append_scan(vol, tx=tx, commit=False)
+        sid = tx.commit(f"append {FED_SCANS} scans of {vcp.name}")
+        say(f"federation: {site_id} at ({site.latitude}, {site.longitude}): "
+            f"{FED_SCANS} scans (KVNX's scans {first}-{N_SCANS - 1}) at "
+            f"{vcp.n_azimuth} x {vcp.n_gates}, {len(ELEVATIONS)} cuts, "
+            f"built and committed in {time.perf_counter() - t:.1f} s, "
+            f"snapshot {sid}")
+    catalog = Catalog.create(os.path.join(work, "catalog"))
+    for rid, arc in archives.items():
+        entry = catalog.register_repository(arc.repo, repo_id=rid)
+        v = entry.vcps[VCP_NAME]
+        say(f"catalog: {rid} {v['n_times']} scans, t {v['time_min']:.0f}-"
+            f"{v['time_max']:.0f}, sweeps {sorted(v['sweeps'])}, bbox "
+            + ", ".join(f"{k} {x:.3f}" for k, x in entry.bbox.items()))
+    return catalog, archives, sims
+
+
+class SpanCatalog:
+    """A Catalog whose per-repository sessions record their span, open to
+    close (the fan-out opens one per repository and closes it when that
+    repository's product is done): the federated time split per
+    repository."""
+
+    def __init__(self, catalog):
+        self._catalog = catalog
+        self.spans = {}
+
+    def __getattr__(self, name):
+        return getattr(self._catalog, name)
+
+    def open_session(self, repo_id, **kw):
+        t0 = time.perf_counter()
+        session = self._catalog.open_session(repo_id, **kw)
+        close = session.close
+
+        def timed_close():
+            close()
+            self.spans[repo_id] = (time.perf_counter() - t0) * 1e3
+
+        session.close = timed_close
+        return session
+
+
+def fed_requests():
+    from repro_torch.radar import ProductRequest
+
+    return {
+        "qvp": ProductRequest(kind="qvp", vcp=VCP_NAME, sweep=QVP_SWEEP),
+        "qpe": ProductRequest(kind="qpe", vcp=VCP_NAME, sweep=QPE_SWEEP),
+        "mosaic column_max": ProductRequest(kind="mosaic",
+                                            product="column_max",
+                                            vcp=VCP_NAME),
+        "mosaic cappi": ProductRequest(kind="mosaic", product="cappi",
+                                       vcp=VCP_NAME),
+    }
+
+
+def fed_held(kind: str, got, want) -> float:
+    """A federated product against the same request on the plain version:
+    QVP and QPE per repository within the kernels' tolerances, mosaics
+    bitwise (every site's grid and the composite); the largest error."""
+    import torch
+
+    if list(got.repo_ids) != list(want.repo_ids):
+        raise AssertionError(f"federated {kind}: repositories "
+                             f"{got.repo_ids} vs {want.repo_ids}")
+    err = 0.0
+    for rid in want.repo_ids:
+        g, w = got.results[rid], want.results[rid]
+        if kind == "qvp":
+            err = max(err, compare(f"federated qvp {rid}",
+                                   torch.from_numpy(g.profile),
+                                   torch.from_numpy(w.profile), **QVP_TOL))
+        elif kind == "qpe":
+            err = max(err, compare(f"federated qpe {rid}",
+                                   torch.from_numpy(g.accum_mm),
+                                   torch.from_numpy(w.accum_mm), **QPE_TOL))
+        elif not (bits_equal(torch.from_numpy(g.values),
+                             torch.from_numpy(w.values))
+                  and g.times.tobytes() == w.times.tobytes()):
+            raise AssertionError(f"federated {kind} {rid}: grid not bitwise "
+                                 "equal to the plain version's")
+    if kind == "qvp" and not (got.profile.shape == want.profile.shape
+                              and np.array_equal(got.times, want.times)):
+        raise AssertionError("federated qvp: concatenated axes differ")
+    if kind.startswith("mosaic") and not bits_equal(
+            torch.from_numpy(got.composite), torch.from_numpy(want.composite)):
+        raise AssertionError(f"federated {kind}: composite not bitwise equal")
+    return err
+
+
+def drive_federated_path(archive, vcp, work: str, rows) -> None:
+    """Federated QVP, QPE and the column-max and CAPPI mosaics over the
+    three sites through ``compute_product(catalog, ..., device=DEV)``,
+    each held against the same request on the plain version (grids
+    bitwise), with exactly one launch of its kernel per repository, timed
+    at ``workers`` 1 and 3 with each repository's span; a time-windowed
+    mosaic that fetches fewer chunks than the blind one; the device map
+    cache's hits across runs; then an incremental mosaic updated after one
+    scan appended to each of KTLX and KICT, bitwise against the
+    from-scratch mosaic at those heads."""
+    import torch
+    from repro_torch.radar import compute_product, incremental_product
+    from repro_torch.radar import grid as rgrid
+
+    catalog, archives, sims = build_federation(archive, vcp, work)
+    n_repos = len(archives)
+    fast = os.cpu_count() or 1
+    mosaic = None
+    for kind, req in fed_requests().items():
+        kernel = FED_KERNELS[kind]
+        t = time.perf_counter()
+        want = compute_product(catalog, req.with_options(mode="ref"),
+                               device=DEV, workers=n_repos,
+                               read_workers=fast)
+        t_ref = (time.perf_counter() - t) * 1e3
+        maps = None
+        for workers in FED_WORKERS:
+            timed = SpanCatalog(catalog)
+            sync()
+            reset_launches()
+            t = time.perf_counter()
+            got = compute_product(timed, req, device=DEV, workers=workers)
+            wall = (time.perf_counter() - t) * 1e3
+            launched = read_launches()
+            expect = {k: n_repos if k == kernel else 0
+                      for k in kernel_modules()}
+            if launched != expect:
+                raise AssertionError(f"federated {kind} workers={workers}: "
+                                     f"launches {launched}, expected "
+                                     f"{expect}")
+            rows[kernel]["launches"] = (rows[kernel].get("launches", 0)
+                                        + n_repos)
+            err = fed_held(kind, got, want)
+            fetches = (f", {got.chunk_fetches} chunks fetched"
+                       if kind.startswith("mosaic") else "")
+            say(f"federated {kind} workers={workers}: {wall:.1f} ms end to "
+                f"end over {n_repos} repositories; per repository (session "
+                "open to close) "
+                + ", ".join(f"{rid} {timed.spans[rid]:.1f} ms"
+                            for rid in got.repo_ids)
+                + f"; launches {launched}; "
+                + ("bitwise equal to mode='ref'" if kind.startswith("mosaic")
+                   else f"max_abs_err vs mode='ref' {err:.3e}")
+                + f" (mode='ref' at workers={n_repos}, read_workers={fast}: "
+                f"{t_ref:.1f} ms){fetches}")
+            if kind.startswith("mosaic"):
+                # the device maps of the second run are the first run's
+                # (the cache hit every site's map: no entry built)
+                now = dict(rgrid._DEVICE_MAPS)
+                if maps is not None and (now.keys() != maps.keys() or any(
+                        now[k] is not maps[k] for k in now)):
+                    raise AssertionError(f"federated {kind}: device map "
+                                         "cache missed on a repeat run")
+                maps = now
+        if kind.startswith("mosaic"):
+            say(f"federated {kind}: device map cache {len(maps)} entries of "
+                f"{rgrid._DEVICE_MAPS_MAX}, every map of the repeat run a "
+                "hit; composite "
+                f"{got.composite.shape}, {int(np.isfinite(got.composite).sum())}"
+                " cells reached")
+        if kind == "mosaic column_max":
+            mosaic = got
+        if kind == "qvp":
+            say(f"federated qvp: profile {got.profile.shape} (time x "
+                f"height), {len(got.times)} scans over {n_repos} sites")
+        if kind == "qpe":
+            say(f"federated qpe: {got.total_scans} scans, max accumulation "
+                + ", ".join(f"{rid} {float(r.accum_mm.max()):.2f} mm"
+                            for rid, r in got.results.items()))
+
+    # a time window: half of the federation's common scans
+    t_lo = T0 + (N_SCANS - FED_SCANS) * vcp.interval_s
+    window = (t_lo, t_lo + (FED_SCANS // 2 - 1) * vcp.interval_s)
+    reset_launches()
+    win = compute_product(catalog, fed_requests()["mosaic column_max"]
+                          .with_options(time_between=window), device=DEV,
+                          workers=n_repos)
+    launched = read_launches()
+    if launched["grid_map"] != n_repos:
+        raise AssertionError(f"windowed mosaic: launches {launched}")
+    if not 0 < win.chunk_fetches < mosaic.chunk_fetches:
+        raise AssertionError(f"windowed mosaic fetched {win.chunk_fetches} "
+                             f"chunks, the blind one {mosaic.chunk_fetches}")
+    for rid in win.repo_ids:
+        i0 = int(np.searchsorted(mosaic.results[rid].times,
+                                 win.results[rid].times[0]))
+        n = win.results[rid].values.shape[0]
+        if n != FED_SCANS // 2 or not bits_equal(
+                torch.from_numpy(win.results[rid].values),
+                torch.from_numpy(mosaic.results[rid].values[i0:i0 + n])):
+            raise AssertionError(f"windowed mosaic {rid}: not the blind "
+                                 "mosaic's scans in the window")
+    rows["grid_map"]["launches"] += n_repos
+    say(f"federated mosaic column_max, time window of {FED_SCANS // 2} "
+        f"scans: {win.chunk_fetches} chunks fetched against "
+        f"{mosaic.chunk_fetches} blind; each site's grids bitwise equal to "
+        "the blind mosaic's in the window")
+
+    # the incremental mosaic: built at the heads, then one scan appended to
+    # each of KTLX and KICT
+    req = fed_requests()["mosaic column_max"]
+    inc = incremental_product(catalog, req, device=DEV)
+    reset_launches()
+    t = time.perf_counter()
+    boot = inc.update()
+    t_boot = (time.perf_counter() - t) * 1e3
+    if read_launches()["grid_map"] != n_repos:
+        raise AssertionError(f"incremental mosaic build: {boot}")
+    for site_id in FED_SITES:
+        sid = archives[site_id].append_scan(archive_volume(
+            *sims[site_id], vcp, N_SCANS))
+        say(f"incremental mosaic: appended scan {N_SCANS} to {site_id}, "
+            f"snapshot {sid}")
+    reset_launches()
+    t = time.perf_counter()
+    rep = inc.update()
+    t_update = (time.perf_counter() - t) * 1e3
+    launched = read_launches()
+    if (launched["grid_map"] != len(FED_SITES)
+            or rep.n_new_scans != len(FED_SITES)
+            or not 0 < rep.cells_computed < rep.cells_full):
+        raise AssertionError(f"incremental mosaic update: {rep}, launches "
+                             f"{launched}")
+    rows["grid_map"]["launches"] += n_repos + len(FED_SITES)
+    state = inc.composite()
+    t = time.perf_counter()
+    full = compute_product(catalog, req.with_options(grid=inc.grid),
+                           device=DEV, workers=n_repos, read_workers=fast)
+    t_full = (time.perf_counter() - t) * 1e3
+    if not bits_equal(torch.from_numpy(state.composite),
+                      torch.from_numpy(full.composite)) or not all(
+            bits_equal(torch.from_numpy(state.results[rid].values),
+                       torch.from_numpy(full.results[rid].values))
+            for rid in full.repo_ids):
+        raise AssertionError("incremental mosaic: state differs from the "
+                             "from-scratch mosaic")
+    if not inc.update().noop:
+        raise AssertionError("incremental mosaic: a second update at the "
+                             "same heads must be a no-op")
+    say(f"incremental mosaic column_max: build {t_boot:.1f} ms "
+        f"({boot.n_new_scans} scans over {n_repos} sites, {n_repos} "
+        f"grid_map launches); after one scan on each of "
+        f"{', '.join(FED_SITES)}: update {t_update:.1f} ms, +"
+        f"{rep.n_new_scans} scans, cells {rep.cells_computed} of "
+        f"{rep.cells_full}, {rep.chunk_fetches} chunks fetched, launches "
+        f"{launched}; bitwise equal to the from-scratch mosaic at those "
+        f"heads ({t_full:.1f} ms at read_workers={fast}); a second update "
+        "is a no-op")
+
+
+
 # -- phase 7: the LM serve path ------------------------------------------------
 
 def lm_prompts(archive):
@@ -2369,13 +2710,21 @@ def fa_step_ms(rows, tag: str):
     dec = rows["flash_attention:decode"]
     if tag == "lm":
         return pre["ms"], dec.get("device_ms") or dec["ms"]
-    return pre["zamba2_ms"], dec.get("zamba2_device_ms") or dec["zamba2_ms"]
+    return (pre[f"{tag}_ms"],
+            dec.get(f"{tag}_device_ms") or dec[f"{tag}_ms"])
 
 
 def drive_lm_path(archive, rows) -> None:
     """radar-lm-100m at full width serves the archive prompts."""
     drive_serve_path(archive, rows, LM_ARCH, "lm",
                      {"flash_attention": fa_step_ms(rows, "lm")})
+
+
+def drive_stablelm_path(archive, rows) -> None:
+    """stablelm-3b at full width (head dim 80) serves the archive
+    prompts."""
+    drive_serve_path(archive, rows, STABLELM_ARCH, "stablelm",
+                     {"flash_attention": fa_step_ms(rows, "stablelm")})
 
 
 def drive_zamba2_path(archive, rows) -> None:
@@ -2785,6 +3134,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     work = ROOT / ".chip_smoke"
     work.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="archive-", dir=work)
+    fed = tempfile.mkdtemp(prefix="federation-", dir=work)
     try:
         archive, vcp, volumes, sim, site = build_archive(tmp)
         elapsed("4 (archive)")
@@ -2801,14 +3151,21 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 6. the incremental path, which appends to the archive
         drive_incremental_path(archive, vcp, sim, site, rows)
         elapsed("6 (incremental path)")
+        # 6b. the federated path: two more sites and a catalog
+        drive_federated_path(archive, vcp, fed, rows)
+        elapsed("6b (federated path)")
         # 7. the LM serve path, prompts drawn from the archive
         drive_lm_path(archive, rows)
         elapsed("7 (LM serve path)")
         # 8. the zamba2 serve path, the same prompts
         drive_zamba2_path(archive, rows)
         elapsed("8 (zamba2 serve path)")
+        # 8b. the stablelm-3b serve path (head dim 80), the same prompts
+        drive_stablelm_path(archive, rows)
+        elapsed("8b (stablelm-3b serve path)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(fed, ignore_errors=True)
 
     say("library_ms: F.scaled_dot_product_attention for flash_attention, "
         "Tensor.index_add_ for grid_update at the QPE fold (timed beside "
@@ -2818,8 +3175,10 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "(Mamba-2) scan")
     say("launches: summed over the counted runs of every path that "
         "launches the kernel (the serve paths: their bfloat16 generate, of "
-        "radar-lm and of zamba2); flash_attention and mamba2_scan are the "
-        "wrappers, their calls split by route in 'routes', with the numbers "
+        "radar-lm, zamba2 and stablelm-3b; the federated path: one launch "
+        "per repository of each counted run); flash_attention and "
+        "mamba2_scan are the wrappers, their calls split by route in "
+        "'routes', with the numbers "
         "of the route their path takes (tc_prefill at radar-lm's shape, "
         "chunk_tc at zamba2's); <wrapper>:<route> is each of their kernels "
         "(flash_attention's at radar-lm's shapes), the f32 routes' launches "

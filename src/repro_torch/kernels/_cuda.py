@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
 
@@ -117,3 +119,16 @@ def check(name: str, err: int) -> None:
     """Raise when a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def add_launch(module: str, route: Optional[str] = None) -> None:
+    """Count one launch on the kernel module ``module``'s ``launches`` (and
+    on ``route_launches[route]``).  The counters are module globals that
+    callers read and reset; the read-modify-write is under one lock, so
+    launches made from several host threads at once (a federated product's
+    fan-out) are all counted."""
+    mod = sys.modules[module]
+    with _count_lock:
+        mod.launches += 1
+        if route is not None:
+            mod.route_launches[route] += 1

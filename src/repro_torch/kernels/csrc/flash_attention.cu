@@ -39,8 +39,10 @@ constexpr float kNegInf = -1e30f;   // a masked score, as in the TPU kernel
 //   * one warpgroup (128 threads) per (64-row query tile, query head,
 //     batch), the longest causal tiles launched first;
 //   * q, k and v stay bfloat16 in shared memory, in the swizzled layout the
-//     tensor cores read (128-byte swizzle for rows of 64 values, 64- and
-//     32-byte for D = 32 and 16; D = 128 as two 64-wide halves);
+//     tensor cores read, as sub-tiles of the widest of 64, 32 and 16
+//     columns that divides D (128-, 64- and 32-byte swizzle): D = 128 is
+//     two 64-wide sub-tiles, 96 three of 32, 80 five of 16 and 48 three of
+//     16, so any D that is a multiple of 16 up to 128 is whole sub-tiles;
 //   * TMA copies: one thread issues each tile as a 4-D box (D, rows, head,
 //     batch) of a tensor map built over the caller's strides, so a cache
 //     prefix or a transposed view is read in place and rows past Sq or Skv
@@ -50,8 +52,10 @@ constexpr float kNegInf = -1e30f;   // a masked score, as in the TPU kernel
 //   * S = Q K^T is wgmma m64n64k16 from shared memory (D / 16 steps, float32
 //     accumulators); the online softmax runs in float32 on those registers
 //     (row max and sum over the 4 threads of a row); P is rounded to bf16
-//     in registers and is the A operand of O += P V, wgmma m64nDk16 with V
-//     read MN-major (transposed) from the same tile;
+//     in registers and is the A operand of O += P V, one wgmma m64nDk16
+//     with V read MN-major (transposed) from the same tile, its descriptor
+//     stepping from sub-tile to sub-tile by the leading byte offset (five
+//     32-byte swizzle atoms along N at D = 80);
 //   * masked scores are -1e30, expf without fast math, output
 //     acc / max(l, 1e-30) rounded once; no atomics and a fixed order: the
 //     same bits from run to run.
@@ -97,19 +101,31 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// o (64 x D) += a (64 x 16, registers) * the (16 x D) MN-major tile at db
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
                                          uint64_t db) {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dim");
   if constexpr (D == 16) wgmma_rs_n16(o, a, db);
   else if constexpr (D == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (D == 48) wgmma_rs_n48(o, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 80) wgmma_rs_n80(o, a, db);
+  else if constexpr (D == 96) wgmma_rs_n96(o, a, db);
+  else if constexpr (D == 112) wgmma_rs_n112(o, a, db);
   else wgmma_rs_n128(o, a, db);
+}
+
+// columns of a bf16 sub-tile: the widest of 64, 32 and 16 that divides D
+template <int D>
+constexpr int sub_width() {
+  return D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
 }
 
 template <int D>
 struct Tile {
-  static constexpr int kDH = D < 64 ? D : 64;     // columns of a sub-tile
-  static constexpr int kNH = D / kDH;             // sub-tiles (2 for D = 128)
+  static constexpr int kDH = sub_width<D>();      // columns of a sub-tile
+  static constexpr int kNH = D / kDH;             // sub-tiles (5 for D = 80)
   static constexpr int kSub = kRows * kDH * 2;    // bytes of a sub-tile
   static constexpr int kBytes = kNH * kSub;       // bytes of a 64-row tile
   static constexpr uint32_t kSBO = 8 * kDH * 2;   // bytes of 8 rows
@@ -258,7 +274,7 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     // O += P V: 4 steps of 16 keys; V is the MN-major B operand, its
-    // 64-wide halves T::kSub apart (the leading byte offset)
+    // sub-tiles T::kSub apart (the leading byte offset)
     fence_regs(acc);
     wg_fence();
 #pragma unroll
@@ -332,17 +348,29 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                            causal, s);
+      return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                            causal, s);
+      return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
+    case 48:
+      return tc::launch<48>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                            causal, s);
+      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
+    case 80:
+      return tc::launch<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
+    case 96:
+      return tc::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                            scale, causal, s);
+    case 112:
+      return tc::launch<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                             scale, causal, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                             causal, s);
+      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                             scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -365,8 +393,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
 //     tile, query head, batch), the longest causal tiles launched first;
 //   * TMA copies of float32 tiles over 4-D tensor maps built on the
 //     caller's strides (rows past Sq or Skv arrive as zeros), in boxes of
-//     32 values a row (128-byte swizzle; D = 16 one box of 16, 64-byte), so
-//     a 64-wide row is two boxes and D = 128 four;
+//     32 values a row (128-byte swizzle) where 32 divides D, else of 16
+//     (64-byte), so a 64-wide row is two boxes, D = 128 four and D = 80
+//     five of 16; the bf16 pair tiles are tc_prefill's sub-tiles;
 //   * each float32 tile is split once, by the whole warpgroup, into bf16 hi
 //     and lo tiles in the swizzled layout wgmma reads (hopper::split_tile):
 //     Q once per block (its float32 tile lands where K's pair tiles go
@@ -385,8 +414,8 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
 //     tile at D = 64;
 //   * shared memory: the float32 K and V stage (512 D bytes), the Q, K and
 //     V pair tiles (768 D): 1280 D + 1088 bytes a block, 81 KB at D = 64
-//     (two blocks an SM), 161 KB at D = 128 (one), 41 KB at D = 32 and
-//     21 KB at D = 16 (registers decide there);
+//     and 101 KB at D = 80 (two blocks an SM), 121 KB at D = 96 and above
+//     (one), 41 KB at D = 32 and 21 KB at D = 16 (registers decide there);
 //   * no atomics and a fixed order: the same bits from run to run.  Its
 //     plain version with the same roundings is
 //     kernels/ref.py:flash_attention_pairs.
@@ -401,11 +430,11 @@ using namespace hopper;
 
 template <int D>
 struct Tile {
-  static constexpr int kFW = D < 32 ? D : 32;     // float32 values a box row
+  static constexpr int kFW = D % 32 ? 16 : 32;    // float32 values a box row
   static constexpr int kFB = kFW * 4;             // its bytes (128 or 64)
   static constexpr int kNF = D / kFW;             // boxes a tile
   static constexpr int kF32 = kRows * D * 4;      // bytes of a float32 tile
-  static constexpr int kDH = D < 64 ? D : 64;     // bf16 values a sub-tile row
+  static constexpr int kDH = tc::sub_width<D>();  // bf16 values a sub-tile row
   static constexpr int kHB = kDH * 2;             // its bytes (128, 64 or 32)
   static constexpr int kSub = kRows * kHB;        // bytes of a bf16 sub-tile
   static constexpr int kBF = kRows * D * 2;       // bytes of a bf16 tile
@@ -415,10 +444,12 @@ struct Tile {
   // slack to align the swizzled tiles, and the mbarriers
   static constexpr int kStage = 2 * kF32;
   static constexpr int kSmem = 1024 + kStage + 6 * kBF + 64;
+  // blocks an SM holds: 228 KB, less 1 KB the runtime keeps for each
+  static constexpr int kBlocks = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, Tile<D>::kBlocks)
 pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
@@ -579,7 +610,7 @@ pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     // O += Ph Vh + Ph Vl + Pl Vh: 4 steps of 16 keys; V the MN-major B
-    // operand, its 64-wide halves T::kSub apart (the leading byte offset)
+    // operand, its sub-tiles T::kSub apart (the leading byte offset)
     fence_regs(acc);
     wg_fence();
 #pragma unroll
@@ -661,9 +692,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32:
       return pairs::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
                                scale, causal, s);
+    case 48:
+      return pairs::launch<48>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                               scale, causal, s);
     case 64:
       return pairs::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
                                scale, causal, s);
+    case 80:
+      return pairs::launch<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                               scale, causal, s);
+    case 96:
+      return pairs::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                               scale, causal, s);
+    case 112:
+      return pairs::launch<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                                scale, causal, s);
     case 128:
       return pairs::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
                                 scale, causal, s);

@@ -23,9 +23,12 @@
 //     share a KV head are rows of the same block, so each key and value
 //     row is loaded once, as 16-byte vector loads, and used G times;
 //   * n_split (from the wrapper, at most 8) splits the keys so that at
-//     least one block lands on every SM; a lane group of D * size / 16
-//     lanes takes one key row, and each group loads kUnroll rows before it
-//     computes, so a block keeps its loads in flight;
+//     least one block lands on every SM; a lane group takes one key row,
+//     16 bytes a lane: D * size / 16 lanes read it, rounded up to a power
+//     of two (at D = 80, 10 lanes of 16 in bf16 and 20 of 32 in float32;
+//     the lanes past the row hold zeros and load nothing, so the shuffle
+//     sums and merges over the group stay whole), and each group loads
+//     U rows before it computes, so a block keeps its loads in flight;
 //   * float32 on the CUDA cores: the scores, an online softmax per lane
 //     group (running max m, normaliser l, accumulator acc), then the
 //     groups merged in a fixed order (shuffles in a warp, shared memory
@@ -90,6 +93,11 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
 template <int GM, int D>
 constexpr int smem_floats() {
   // per warp (m, l, acc) for each head, then the split's (m, l, acc)
@@ -107,11 +115,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using V = Vec<T>;
   using VT = typename V::type;
   constexpr int VEC = V::n;               // values in 16 bytes
-  constexpr int LPK = D / VEC;            // lanes per key row
+  constexpr int DV = D / VEC;             // lanes that read a key row
+  constexpr int LPK = pow2_ceil(DV);      // lanes per key row (a group)
   constexpr int KPW = 32 / LPK;           // key rows per warp step
   constexpr int NG = kWarps * KPW;        // lane groups in the block
   constexpr int U = GM >= 8 ? 2 : 4;      // rows a group loads at once
-  static_assert(LPK >= 1 && LPK <= 32, "head dim");
+  static_assert(D % VEC == 0 && DV >= 1 && LPK <= 32, "head dim");
 
   extern __shared__ float sm[];
   float* wm = sm;                         // [kWarps][GM]
@@ -124,6 +133,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int sub = lane % LPK;             // this lane's 16-byte slice
+  const bool live = sub < DV;             // the slice lies inside the row
   const int grp = warp * KPW + lane / LPK;
   const int k_begin = split * chunk;
   const int k_end = min(Skv, k_begin + chunk);
@@ -138,7 +148,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       qf[g][e] = 0.f;
       acc[g][e] = 0.f;
     }
-    if (g < G)
+    if (g < G && live)
       V::widen(*reinterpret_cast<const VT*>(q + b * qsb + (hk * G + g) * qsh +
                                             sub * VEC),
                qf[g]);
@@ -153,7 +163,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = j0 + u * NG + grp;
       kr[u] = VT{};
       vr[u] = VT{};
-      if (j < k_end) {
+      if (j < k_end && live) {
         kr[u] = *reinterpret_cast<const VT*>(kb + j * kss);
         vr[u] = *reinterpret_cast<const VT*>(vb + j * vss);
       }
@@ -219,7 +229,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[g] = mn;
     }
   }
-  if (lane < LPK) {
+  if (lane < DV) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (lane == 0) {
@@ -342,9 +352,21 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 32:
       return dispatch_g<T, 32>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
                                scale, s);
+    case 48:
+      return dispatch_g<T, 48>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
+                               scale, s);
     case 64:
       return dispatch_g<T, 64>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
                                scale, s);
+    case 80:
+      return dispatch_g<T, 80>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
+                               scale, s);
+    case 96:
+      return dispatch_g<T, 96>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
+                               scale, s);
+    case 112:
+      return dispatch_g<T, 112>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
+                                scale, s);
     case 128:
       return dispatch_g<T, 128>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
                                 scale, s);

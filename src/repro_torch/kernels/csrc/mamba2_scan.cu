@@ -19,11 +19,16 @@
 //     (chunk_tc: wgmma fed by TMA), after the kernel below;
 //   * mamba2_scan_launch, the float32 scan on the same tensor cores with
 //     every operand as a bf16 hi + lo pair (N up to 128), last;
-//   * mamba2_scan_wide_launch, the float32 scan on the CUDA cores, for
-//     N > 128 only (below), the widths the tensor-core kernel's registers
-//     do not hold.
+//   * mamba2_scan_wide_launch, the scan on the CUDA cores in float32
+//     arithmetic, for float32 with N > 128 and bfloat16 with P or N > 128
+//     (below), the widths the tensor-core kernels' registers do not hold.
 //
-// --- float32 scan on the CUDA cores (N > 128) -------------------------------
+// --- the scan on the CUDA cores (float32 N > 128, bf16 P or N > 128) --------
+//
+// bfloat16 x, Bm and Cm are widened to float32 as they are staged in shared
+// memory, every product and the state are float32, and y is rounded to
+// bfloat16 once, at its store: the reference's arithmetic (bf16 operands,
+// float32 products and state).
 //
 #include <cmath>
 #include <cstdint>
@@ -47,11 +52,26 @@ int smem_floats(int P, int N) {
   return kCS * P + 2 * kCS * (N + 1) + P * (N + 1) + kCS * kLDM + 3 * kCS;
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// T: the type of x, Bm, Cm and y (float or __nv_bfloat16)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mamba2_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ Cm, const float* __restrict__ h0,
-                   float* __restrict__ y, float* __restrict__ hout,
+mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const T* __restrict__ Bm,
+                   const T* __restrict__ Cm, const float* __restrict__ h0,
+                   T* __restrict__ y, float* __restrict__ hout,
                    int64_t xsb, int64_t xsl, int64_t xsh,
                    int64_t dsb, int64_t dsl, int64_t dsh,
                    int64_t bsb, int64_t bsl, int64_t csb, int64_t csl,
@@ -71,12 +91,12 @@ mamba2_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int tx = tid % 16, ty = tid / 16;
   const int h = blockIdx.x, b = blockIdx.y;
   const float a = A[h];
-  const float* xb = x + b * xsb + h * xsh;
+  const T* xb = x + b * xsb + h * xsh;
   const float* db = dt + b * dsb + h * dsh;
-  const float* bb = Bm + b * bsb;
-  const float* cb = Cm + b * csb;
+  const T* bb = Bm + b * bsb;
+  const T* cb = Cm + b * csb;
   const int64_t ysl = static_cast<int64_t>(H) * P;
-  float* yb = y + static_cast<int64_t>(b) * L * ysl + static_cast<int64_t>(h) * P;
+  T* yb = y + static_cast<int64_t>(b) * L * ysl + static_cast<int64_t>(h) * P;
   const int64_t hoff = (static_cast<int64_t>(b) * H + h) * P * N;
 
   for (int i = tid; i < P * N; i += kThreads)
@@ -88,13 +108,13 @@ mamba2_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();   // the previous chunk's x, B, C, M and state are done
     for (int i = tid; i < cs * P; i += kThreads) {
       const int s = i / P, p = i % P;
-      xs[s * P + p] = s < len ? xb[(t0 + s) * xsl + p] : 0.f;
+      xs[s * P + p] = s < len ? widen(xb[(t0 + s) * xsl + p]) : 0.f;
     }
     for (int i = tid; i < cs * N; i += kThreads) {
       const int s = i / N, n = i % N;
       const bool in = s < len;
-      bs[s * LDN + n] = in ? bb[(t0 + s) * bsl + n] : 0.f;
-      cm[s * LDN + n] = in ? cb[(t0 + s) * csl + n] : 0.f;
+      bs[s * LDN + n] = in ? widen(bb[(t0 + s) * bsl + n]) : 0.f;
+      cm[s * LDN + n] = in ? widen(cb[(t0 + s) * csl + n]) : 0.f;
     }
     for (int s = tid; s < cs; s += kThreads)
       dts[s] = s < len ? db[(t0 + s) * dsl] : 0.f;
@@ -202,7 +222,8 @@ mamba2_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           for (int j = 0; j < 4; ++j) {
             const int p = p0 + tx + 16 * j;
             if (p < P)
-              yb[(t0 + t) * ysl + p] = acc[i][j] + el[i] * st[i][j];
+              yb[(t0 + t) * ysl + p] =
+                  narrow<T>(acc[i][j] + el[i] * st[i][j]);
           }
         }
       }
@@ -256,19 +277,20 @@ mamba2_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     hout[hoff + i] = hs[(i / N) * LDN + i % N];
 }
 
+template <typename T>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, const float* h0, void* y, float* hout, int B,
            int L, int H, int P, int N, const int64_t* st,
            cudaStream_t stream) {
   const int bytes = smem_floats(P, N) * static_cast<int>(sizeof(float));
-  auto kernel = mamba2_scan_kernel;
+  auto kernel = mamba2_scan_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), h0, static_cast<float*>(y), hout,
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), h0, static_cast<T*>(y), hout,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       L, H, P, N);
   return static_cast<int>(cudaGetLastError());
@@ -279,8 +301,8 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `strides` holds 10 element strides: x's batch, sequence and head, dt's
 // batch, sequence and head, then Bm's and Cm's batch and sequence.  h0 may
-// be null (a zero start).  dtype must be 0 (float32 x, Bm, Cm and y):
-// bfloat16 goes to mamba2_scan_tc_launch.
+// be null (a zero start).  dtype 0: float32 x, Bm, Cm and y; 1: bfloat16
+// (the wrapper sends bfloat16 here only when P or N is above 128).
 extern "C" int mamba2_scan_wide_launch(const void* x, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* h0, void* y,
@@ -294,9 +316,13 @@ extern "C" int mamba2_scan_wide_launch(const void* x, const void* dt,
   const float* af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
-                       strides, s);
+  if (dtype == 0)
+    return launch<float>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
+                         strides, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P,
+                                 N, strides, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // --- bfloat16 chunk scan on the tensor cores (chunk_tc) --------------------

@@ -36,7 +36,9 @@ launches = 0
 #: the same calls by route; they add up to ``launches``
 route_launches = {"decode": 0, "tc_prefill": 0, "f32": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims every route takes: the multiples of 16 up to 128 (the
+#: tensor cores' k16 step and whole 16-column sub-tiles); any other raises
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 MAX_GROUP = 8          # query heads per KV head the decode kernel takes
 MAX_SPLIT = 8          # key splits: the portable thread-block cluster
 MIN_SPLIT_KEYS = 64    # keys a split holds at least
@@ -109,7 +111,6 @@ def flash_attention_cuda(
     """Attention on the card -> a fresh contiguous (B, Hq, Sq, D) of q's
     dtype.  q, k and v are read through their strides; each needs a
     contiguous last dimension."""
-    global launches
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         for name, x in (("q", q), ("k", k), ("v", v)):
@@ -186,6 +187,5 @@ def flash_attention_cuda(
             err = fn(*head, Sq, Skv, D, strides.buffer_info()[0], scale,
                      int(causal), stream)
     _cuda.check(f"flash_attention ({which})", err)
-    launches += 1
-    route_launches[which] += 1
+    _cuda.add_launch(__name__, which)
     return out

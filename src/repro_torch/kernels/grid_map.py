@@ -120,7 +120,6 @@ def grid_map_cuda(
     :class:`CellOrder` holds them: a row whose ``cells`` entry falls
     outside [0, C) writes nothing (its column is left as it was
     allocated), and a repeated entry makes its rows race."""
-    global launches
     if not 1 <= len(fields) <= MAX_SWEEPS:
         raise ValueError(f"grid_map_cuda: 1 to {MAX_SWEEPS} fields, got "
                          f"{len(fields)}")
@@ -172,5 +171,5 @@ def grid_map_cuda(
                  None if cells is None else cells.data_ptr(), n_live,
                  out.data_ptr(), T, G, C, k, rows, stream)
     _cuda.check("grid_map", err)
-    launches += 1
+    _cuda.add_launch(__name__)
     return out

@@ -44,7 +44,6 @@ def grid_scatter_cuda(
     The kernel skips a cell outside ``[0, C)`` rather than write out of
     bounds.
     """
-    global launches
     if op not in GRID_UPDATE_OPS:
         raise ValueError(f"unknown grid_update op {op!r} (set|add|max)")
     for name, x in (("state", state), ("upd", upd), ("cells", cells)):
@@ -74,5 +73,5 @@ def grid_scatter_cuda(
         err = fn(state.data_ptr(), upd.data_ptr(), cells.data_ptr(), T, C,
                  M, GRID_UPDATE_OPS.index(op), stream)
     _cuda.check("grid_update", err)
-    launches += 1
+    _cuda.add_launch(__name__)
     return state

@@ -8,22 +8,27 @@ state goes through it too.  The plain version is
 the one wrapper, and the route is chosen from the dtype, L and the state
 width N alone (:func:`route`):
 
-* ``"decode"`` (L == 1, float32 or bfloat16): ``csrc/mamba2_decode.cu``,
-  the state streamed row by row in 16-byte vectors;
-* ``"chunk_tc"`` (L > 1, bfloat16): ``csrc/mamba2_scan.cu``'s
-  ``mamba2_scan_tc_launch``, the chunks' products on the tensor cores
-  (wgmma fed by TMA), every float32 operand as a bf16 pair; its plain
-  version with the same roundings is
+* ``"decode"`` (L == 1, float32 or bfloat16, N up to ``DECODE_MAX_N``):
+  ``csrc/mamba2_decode.cu``, the state streamed row by row in 16-byte
+  vectors;
+* ``"chunk_tc"`` (L > 1, bfloat16, P and N up to 128):
+  ``csrc/mamba2_scan.cu``'s ``mamba2_scan_tc_launch``, the chunks'
+  products on the tensor cores (wgmma fed by TMA), every float32 operand
+  as a bf16 pair; its plain version with the same roundings is
   :func:`repro_torch.kernels.ref.mamba2_scan_chunks`;
 * ``"f32"`` (L > 1, float32, N up to 128): ``csrc/mamba2_scan.cu``'s
   ``mamba2_scan_launch``, chunk_tc's design with x, B and C split into
   bf16 pairs too, every product three bf16 products; its plain version
   with the same roundings is
   :func:`repro_torch.kernels.ref.mamba2_scan_chunks` on float32 inputs;
-* ``"f32_wide"`` (L > 1, float32, N above 128, which no configuration of
-  the repo has): ``csrc/mamba2_scan.cu``'s ``mamba2_scan_wide_launch``,
-  float32 FMAs on the CUDA cores, for the widths the tensor-core kernel's
-  registers do not hold.
+* ``"f32_wide"`` (float32, N above 128) and ``"bf16_wide"`` (bfloat16, P
+  or N above 128), the widths no configuration of the repo has and the
+  tensor-core kernels' registers do not hold, and a one-token step with N
+  above ``DECODE_MAX_N``: ``csrc/mamba2_scan.cu``'s
+  ``mamba2_scan_wide_launch``, float32 FMAs on the CUDA cores, bfloat16 x,
+  B and C widened to float32 and y rounded to bfloat16 once.  One kernel,
+  one route name per dtype.  Its shared memory (:func:`smem_bytes`) bounds
+  (P, N): wider raises.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from . import _cuda
 #: reset it to 0); one per scan, whatever the route
 launches = 0
 #: the same calls by route; they add up to ``launches``
-route_launches = {"chunk_tc": 0, "decode": 0, "f32": 0, "f32_wide": 0}
+route_launches = {"chunk_tc": 0, "decode": 0, "f32": 0, "f32_wide": 0,
+                  "bf16_wide": 0}
 
 #: dynamic shared memory a block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
@@ -60,6 +66,7 @@ _DECODE_ARGS = (_P,) * 8 + (_I,) * 4 + (_P, _I, _P)
 _SYMBOLS = {
     "f32": ("mamba2_scan", "mamba2_scan_launch", _SCAN_ARGS),
     "f32_wide": ("mamba2_scan", "mamba2_scan_wide_launch", _SCAN_ARGS),
+    "bf16_wide": ("mamba2_scan", "mamba2_scan_wide_launch", _SCAN_ARGS),
     "chunk_tc": ("mamba2_scan", "mamba2_scan_tc_launch", _SCAN_ARGS),
     "decode": ("mamba2_decode", "mamba2_decode_launch", _DECODE_ARGS),
 }
@@ -68,18 +75,20 @@ _fns = {}      # route -> its bound C function, once loaded
 
 def route(x: torch.Tensor, n: int = 0) -> str:
     """The kernel a scan of this x (B, L, H, P) with a state width ``n``
-    goes to: ``"decode"`` for one token, else ``"chunk_tc"`` for bfloat16,
-    and for float32 ``"f32"``, or ``"f32_wide"`` where ``n`` is above
-    ``TC_MAX_WIDTH``."""
-    if x.shape[1] == 1:
+    goes to: ``"decode"`` for one token with ``n`` up to
+    ``DECODE_MAX_N``; else for bfloat16 ``"chunk_tc"``, or ``"bf16_wide"``
+    where P or ``n`` is above ``TC_MAX_WIDTH``; for float32 ``"f32"``, or
+    ``"f32_wide"`` where ``n`` is above ``TC_MAX_WIDTH``."""
+    if x.shape[1] == 1 and n <= DECODE_MAX_N:
         return "decode"
     if x.dtype == torch.bfloat16:
-        return "chunk_tc"
+        return ("bf16_wide" if max(x.shape[3], n) > TC_MAX_WIDTH
+                else "chunk_tc")
     return "f32_wide" if n > TC_MAX_WIDTH else "f32"
 
 
 def smem_bytes(P: int, N: int) -> int:
-    """Shared memory one block of the ``f32_wide`` route needs for state
+    """Shared memory one block of the wide routes needs for state
     width (P, N), as ``csrc/mamba2_scan.cu``'s ``smem_floats`` counts
     it."""
     return 4 * (_CHUNK * P + 2 * _CHUNK * (N + 1) + P * (N + 1)
@@ -124,7 +133,6 @@ def mamba2_scan_cuda(
     dtype, fresh final state (B, H, P, N) float32).  x, dt, Bmat and Cmat
     are read through their strides (x, Bmat and Cmat need a contiguous
     last dimension); A and h0 are read contiguous."""
-    global launches
     dev = x.device
     if not (x.is_cuda and dt.device == dev and A.device == dev
             and Bmat.device == dev and Cmat.device == dev
@@ -170,16 +178,10 @@ def mamba2_scan_cuda(
         raise ValueError("mamba2_scan_cuda: x, Bmat and Cmat need a "
                          "contiguous last dimension")
     which = route(x, N)
-    if which == "f32_wide" and smem_bytes(P, N) > SMEM_LIMIT:
+    if which in ("f32_wide", "bf16_wide") and smem_bytes(P, N) > SMEM_LIMIT:
         raise ValueError(f"mamba2_scan_cuda: state width P={P}, N={N} needs "
                          f"{smem_bytes(P, N)} bytes of shared memory, above "
                          f"the block's {SMEM_LIMIT}")
-    if which == "chunk_tc" and max(P, N) > TC_MAX_WIDTH:
-        raise ValueError(f"mamba2_scan_cuda: the tensor-core route takes P "
-                         f"and N up to {TC_MAX_WIDTH}, got P={P}, N={N}")
-    if which == "decode" and N > DECODE_MAX_N:
-        raise ValueError(f"mamba2_scan_cuda: the decode route takes N up to "
-                         f"{DECODE_MAX_N}, got N={N}")
     if Bsz > 65535 or H > 65535:
         raise ValueError(f"mamba2_scan_cuda: B={Bsz} or H={H} above the "
                          "grid's 65535")
@@ -224,8 +226,7 @@ def mamba2_scan_cuda(
     else:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     _cuda.check(f"mamba2_scan ({which})", err)
-    launches += 1
-    route_launches[which] += 1
+    _cuda.add_launch(__name__, which)
     if y_out is not y:
         y.copy_(y_out[..., :P])
     return y, h

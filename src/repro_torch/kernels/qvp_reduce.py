@@ -46,7 +46,6 @@ def qvp_reduce_cuda(
     min_valid_fraction: float = 0.1,
 ) -> torch.Tensor:
     """Quality-masked azimuthal mean on the card -> (T, R) float32."""
-    global launches
     _check_input("field", field, field)
     _check_input("quality", quality, field)
     T, A, R = field.shape
@@ -61,5 +60,5 @@ def qvp_reduce_cuda(
         err = fn(field.data_ptr(), quality.data_ptr(), out.data_ptr(),
                  T, A, R, float(quality_min), min_count, stream)
     _cuda.check("qvp_reduce", err)
-    launches += 1
+    _cuda.add_launch(__name__)
     return out

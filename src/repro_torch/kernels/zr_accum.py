@@ -36,7 +36,6 @@ def zr_accum_cuda(
     dbz_max: float = 53.0,
 ) -> torch.Tensor:
     """Z–R rainfall accumulation on the card -> (A, R) float32 mm."""
-    global launches
     if dbz.device.type != "cuda" or dt_s.device != dbz.device:
         raise ValueError("zr_accum_cuda: dbz and dt_s must be CUDA tensors "
                          f"on one device, got {dbz.device} and {dt_s.device}")
@@ -59,5 +58,5 @@ def zr_accum_cuda(
         err = fn(dbz.data_ptr(), dt_s.data_ptr(), out.data_ptr(), T, A * R,
                  k1, k0, float(dbz_min), float(dbz_max), stream)
     _cuda.check("zr_accum", err)
-    launches += 1
+    _cuda.add_launch(__name__)
     return out

@@ -36,9 +36,10 @@ numpy float32, exactly as the reference package builds them, and only
 the adds run on the device; float32 addition is the same IEEE operation
 on both, so the states are also bitwise equal to the reference's.
 
-The multi-repository mosaic (``kind="mosaic"``) needs the catalog and
-waits for the federation slice (``ROADMAP.md``, "Modules to port",
-item 4).
+The multi-repository mosaic (``kind="mosaic"``, :class:`IncrementalMosaic`)
+keeps one such grid state in each member repository of a catalog and
+recomposes the composite from the stored states with the host's exact
+``np.fmax``.
 """
 
 from __future__ import annotations
@@ -598,22 +599,116 @@ class IncrementalQPE:
                             t_now * A * R, fetches, sid, head)
 
 
+# ---------------------------------------------------------------------------
+# Incremental mosaic (multi-repository composite)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MosaicState:
+    """The recomposed mosaic: per-repo products + exact fmax composite."""
+
+    repo_ids: List[str]
+    results: Dict[str, GridProduct]
+    composite: np.ndarray        # (ny, nx)
+    grid: CartesianGrid
+    moment: str
+    product: str
+
+
+class IncrementalMosaic:
+    """Per-repository incremental states + exact max recomposition.
+
+    Each member repository carries its own
+    :class:`IncrementalGridProduct` state node (written *into that
+    repository*, so it versions with its archive); the composite is
+    recomputed from the stored states with the same NaN-aware
+    ``fmax`` reduction as
+    :func:`repro_torch.catalog.federation.federated_mosaic`, on the host —
+    max is exact, so recomposition preserves the bitwise contract.  Every
+    member regrids on ``device`` (resolved once, here).
+    """
+
+    def __init__(self, catalog, request: ProductRequest, *,
+                 name: Optional[str] = None,
+                 device: DeviceLike = None) -> None:
+        if request.kind != "mosaic":
+            raise ValueError(f"incremental mosaic needs kind='mosaic', "
+                             f"got {request.kind!r}")
+        if request.product not in ("column_max", "cappi"):
+            raise ValueError(
+                f"unknown mosaic product {request.product!r} "
+                "(column_max|cappi)"
+            )
+        self.catalog = catalog
+        self.request = request
+        self.device = resolve_device(device)
+        entries = catalog.entries()
+        repo_ids = sorted(request.repos) if request.repos else \
+            sorted(entries)
+        if not repo_ids:
+            raise ValueError("catalog has no repositories to mosaic")
+        self.repo_ids = repo_ids
+        grid = request.grid or CartesianGrid.covering(
+            [entries[rid].bbox for rid in repo_ids if rid in entries],
+            request.ny, request.nx,
+        )
+        self.grid = grid
+        self.name = name or f"inc_mosaic_{request.product}_{request.moment}"
+        member_req = ProductRequest(
+            kind="cappi" if request.product == "cappi" else "column_max",
+            vcp=request.vcp, moment=request.moment, grid=grid,
+            sweeps=request.sweeps, altitude_m=request.altitude_m,
+            method=request.method, mode=request.mode,
+        )
+        self.members = {
+            rid: IncrementalGridProduct(
+                catalog.open_repository(rid, entry=entries.get(rid)),
+                member_req, name=self.name,
+                branch=entries[rid].branch if rid in entries else "main",
+                device=self.device,
+            )
+            for rid in repo_ids
+        }
+
+    def update(self) -> UpdateReport:
+        """Catch every member state up to its repository head."""
+        parts = [self.members[rid].update() for rid in self.repo_ids]
+        return _aggregate(self.name, "mosaic", parts,
+                          head=";".join(p.source_snapshot for p in parts))
+
+    def composite(self) -> MosaicState:
+        """Recompose the mosaic from the stored per-repo states."""
+        results = {rid: self.members[rid].read() for rid in self.repo_ids}
+        composite = np.fmax.reduce(
+            np.stack([results[rid].composite() for rid in self.repo_ids],
+                     axis=0), axis=0,
+        )
+        return MosaicState(
+            repo_ids=list(self.repo_ids),
+            results=results,
+            composite=composite,
+            grid=self.grid,
+            moment=self.request.moment,
+            product=self.request.product,
+        )
+
+
 def incremental_product(target, request: ProductRequest, *,
                         name: Optional[str] = None, branch: str = "main",
                         device: DeviceLike = None):
     """Factory: the right incremental maintainer for a request.
 
     ``target`` is a :class:`repro_torch.store.Repository` for the
-    per-site kinds (``cappi``/``column_max``/``qpe``).  ``device`` is
-    where the maintainer computes: ``None`` means ``"cuda"``, and a
-    missing GPU raises unless the caller passes ``device="cpu"``.
+    per-site kinds (``cappi``/``column_max``/``qpe``) or a
+    :class:`repro_torch.catalog.Catalog` for ``mosaic``, mirroring
+    :func:`repro_torch.radar.products.compute_product`'s dispatch.
+    ``device`` is where the maintainer computes: ``None`` means
+    ``"cuda"``, and a missing GPU raises unless the caller passes
+    ``device="cpu"``.
     """
     if request.kind == "mosaic":
-        raise NotImplementedError(
-            "the incremental mosaic needs a Catalog and is not ported yet: "
-            "see ROADMAP.md, 'Modules to port', item 4 "
-            "(repro_torch.catalog.federation)"
-        )
+        return IncrementalMosaic(target, request, name=name, device=device)
     if request.kind == "qpe":
         return IncrementalQPE(target, request, name=name, branch=branch,
                               device=device)
@@ -629,7 +724,9 @@ def incremental_product(target, request: ProductRequest, *,
 __all__ = [
     "FIRST_SCAN_INTERVAL_S",
     "IncrementalGridProduct",
+    "IncrementalMosaic",
     "IncrementalQPE",
+    "MosaicState",
     "StreamingQPEState",
     "UpdateReport",
     "incremental_product",

@@ -1,11 +1,11 @@
 """Unified product-request API: one dataclass, one dispatcher.
 
 A :class:`ProductRequest` names the product and carries every parameter;
-:func:`compute_product` dispatches on the request *kind* and the target.
-This package computes the session-target QVP, QPE, CAPPI and column-max
-products on the GPU; the multi-repository ``Catalog`` target (and with it
-``mosaic``) is a later slice of the port (``ROADMAP.md``) and raises
-``NotImplementedError``.
+:func:`compute_product` dispatches on the request *kind* and the target:
+a read session (QVP, QPE, CAPPI, column-max of one archive) or a
+:class:`~repro_torch.catalog.Catalog` (federated QVP, QPE and the
+multi-site ``mosaic``), each computed on the GPU unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -124,32 +124,65 @@ def _compute_session(session, req: ProductRequest, device):
     )
 
 
+def _compute_catalog(catalog, req: ProductRequest, device, *, workers,
+                     read_workers):
+    # late import: federation imports this module for its own routing
+    from ..catalog import federation as fed
+
+    common = dict(moment=req.moment, vcp=req.vcp,
+                  time_between=req.time_between, repos=req.repos,
+                  mode=req.mode, workers=workers, read_workers=read_workers,
+                  device=device)
+    if req.kind == "mosaic":
+        return fed._federated_mosaic(
+            catalog, product=req.product, altitude_m=req.altitude_m,
+            grid=req.grid, ny=req.ny, nx=req.nx, sweep=req.sweep,
+            elevation=req.elevation, within=req.within, method=req.method,
+            **common,
+        )
+    if req.kind == "qvp":
+        return fed.federated_qvp(
+            catalog, sweep=req.sweep, elevation=req.elevation,
+            quality_moment=req.quality_moment, quality_min=req.quality_min,
+            **common,
+        )
+    if req.kind == "qpe":
+        return fed.federated_qpe(
+            catalog,
+            sweep=int(req.sweep) if req.sweep is not None else 0,
+            a=req.a, b=req.b, **common,
+        )
+    raise ValueError(
+        f"product {req.kind!r} has no federated form; open one "
+        "repository session and compute it there"
+    )
+
+
 def compute_product(target, request: ProductRequest, *,
                     device: DeviceLike = None,
                     workers: Optional[int] = None, read_workers: int = 1):
     """Compute ``request`` against ``target`` and return its result.
 
-    ``target`` is a read :class:`~repro_torch.store.Session` (one archive;
-    returns ``QVPResult`` / ``QPEResult`` / ``GridProduct``).  ``device``
-    is where the product is computed: ``None`` means ``"cuda"``, and a
-    missing GPU raises ``RuntimeError`` unless the caller passes
-    ``device="cpu"``.
-    ``device``, ``workers`` and ``read_workers`` are execution settings
-    and deliberately *not* part of the request; ``workers`` and
-    ``read_workers`` apply to catalog targets, which this package does not
-    compute yet.
+    ``target`` is either a read :class:`~repro_torch.store.Session` (one
+    archive; returns ``QVPResult`` / ``QPEResult`` / ``GridProduct``) or a
+    :class:`~repro_torch.catalog.Catalog` (the whole federation; returns
+    the ``Federated*`` result types, one product per repository computed
+    from a pool of ``workers`` threads).  ``device`` is where the products
+    are computed: ``None`` means ``"cuda"``, and a missing GPU raises
+    ``RuntimeError``, before any session opens, unless the caller passes
+    ``device="cpu"``.  ``device``, ``workers`` and ``read_workers`` are
+    execution settings and deliberately *not* part of the request: the
+    same request replays identically on any executor.
     """
     if not isinstance(request, ProductRequest):
         raise TypeError(
             f"expected a ProductRequest, got {type(request).__name__}"
         )
+    dev = resolve_device(device)
     if _is_catalog(target):
-        raise NotImplementedError(
-            "Catalog targets (federated products) are not ported yet: see "
-            "ROADMAP.md, 'Modules to port', item 4 "
-            "(repro_torch.catalog.federation)"
-        )
-    return _compute_session(target, request, resolve_device(device))
+        return _compute_catalog(target, request, dev, workers=workers,
+                                read_workers=read_workers)
+    return _compute_session(target, request, dev)
 
 
 __all__ = [

@@ -101,6 +101,60 @@ def normalize_selection(selection, ndim: int) -> list:
     return list(selection) + [slice(None)] * (ndim - len(selection))
 
 
+def selection_bounds(sels: Sequence,
+                     shape: Sequence[int]) -> list:
+    """Normalize a selection to per-axis ``(start, stop)`` bounds.
+
+    Integers become length-1 ranges (with negative-index wrapping and
+    bounds checking), exactly as ``Array.__getitem__`` treats them.
+    Strided selections are rejected here — the single choke point for
+    every scan path (lazy and eager), so they cannot drift apart — just
+    as :meth:`ChunkGrid.chunks_for_selection` rejects them for reads.
+    """
+    bounds = []
+    for ax, (sl, dim) in enumerate(zip(sels, shape)):
+        if isinstance(sl, (int, np.integer)):
+            i = int(sl) + (dim if sl < 0 else 0)
+            if not 0 <= i < dim:
+                raise IndexError(
+                    f"index {int(sl)} out of bounds for axis {ax} "
+                    f"with size {dim}"
+                )
+            bounds.append((i, i + 1))
+            continue
+        b0, b1, step = sl.indices(dim)
+        if step != 1:
+            raise NotImplementedError("strided chunk selection")
+        bounds.append((b0, b1))
+    return bounds
+
+
+def predicate_mask(a: np.ndarray, offsets: Sequence[int],
+                   bounds: Sequence[Tuple[int, int]],
+                   value_gt: Optional[float] = None,
+                   value_lt: Optional[float] = None) -> np.ndarray:
+    """Match mask over one block: valid ∧ inside bounds ∧ value predicates.
+
+    ``a`` is a block whose element ``[i, j, ...]`` sits at global index
+    ``offsets + (i, j, ...)``; *valid* means finite for float dtypes.
+    This is the one definition of "match" shared by the chunk scan
+    (:meth:`repro_torch.store.Array.scan`).
+    """
+    mask = (np.isfinite(a) if np.issubdtype(a.dtype, np.floating)
+            else np.ones(a.shape, dtype=bool))
+    for ax, (off, (b0, b1)) in enumerate(zip(offsets, bounds)):
+        idx = np.arange(off, off + a.shape[ax])
+        ax_ok = (idx >= b0) & (idx < b1)
+        mask &= ax_ok.reshape(
+            tuple(-1 if i == ax else 1 for i in range(a.ndim))
+        )
+    if value_gt is not None:
+        mask &= a > value_gt
+    if value_lt is not None:
+        mask &= a < value_lt
+    return mask
+
+
 def chunk_stats_summary(arr) -> list:
     """Per-chunk statistics triple ``[min, max, valid_fraction]``.
 

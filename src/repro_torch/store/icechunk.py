@@ -282,6 +282,23 @@ class Session:
         """One stat doc ({chunk key -> [min, max, valid]})."""
         return self._cached_obj(f"stats:{sh}", f"stats/{sh}.json")
 
+    # -- chunk statistics (predicate-pushdown sidecars) -----------------
+    def chunk_stats(self, array_path: str, cid) -> Optional[list]:
+        """``[min, max, valid_fraction]`` for one chunk, or None when
+        unknown (pre-v3 snapshot, raw-blob staged chunk, never written).
+
+        None always means "cannot prune"; callers must read the chunk.
+        """
+        entry = self._doc.get("stats", {}).get(array_path)
+        if entry is None:
+            return None
+        # stats entries are always shard-aligned lists
+        key = _chunk_key(tuple(cid))
+        si = _shard_index(key)
+        if si >= len(entry) or not entry[si]:
+            return None
+        return self._stats_obj(entry[si]).get(key)
+
     # -- structure -------------------------------------------------------
     def list_groups(self) -> List[str]:
         return sorted(self._doc["groups"])
@@ -344,9 +361,12 @@ class Session:
         got = self.repo.store.get_many([f"chunks/{r}" for r in uniq])
         return {r: got[f"chunks/{r}"] for r in uniq}
 
-    def _prefetch_manifests(self, array_paths: Sequence[str]) -> int:
+    def _prefetch_manifests(self, array_paths: Sequence[str], *,
+                            stats: bool = False) -> int:
         """Warm the manifest-object cache for ``array_paths`` in one
-        batched fetch; returns the number of objects fetched."""
+        batched fetch; returns the number of objects fetched.  With
+        ``stats=True`` the arrays' stat sidecars ride in the same batch,
+        so a planner about to prune pays no extra round trips."""
         wanted: "OrderedDict[str, str]" = OrderedDict()  # cache key -> obj key
         for path in dict.fromkeys(array_paths):
             entry = self._doc["manifests"].get(path)
@@ -356,6 +376,10 @@ class Session:
                 for sh in entry:
                     if sh:
                         wanted[sh] = f"manifests/{sh}.json"
+            if stats:
+                for sh in self._doc.get("stats", {}).get(path) or []:
+                    if sh:
+                        wanted[f"stats:{sh}"] = f"stats/{sh}.json"
         with self._cache_lock:
             missing = [(ck, ok) for ck, ok in wanted.items()
                        if ck not in self._obj_cache]

@@ -65,6 +65,10 @@ class ObjectStore:
                 os.unlink(tmp)
         return True
 
+    def exists(self, key: str) -> bool:
+        """Whether the key currently resolves to an object."""
+        return os.path.exists(self._path(key))
+
     def get(self, key: str) -> bytes:
         """Read one object; ``KeyError`` when absent."""
         try:

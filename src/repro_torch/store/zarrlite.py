@@ -10,11 +10,12 @@ chunk-granular; writes stage into an open
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .chunks import ChunkGrid
+from .chunks import (ChunkGrid, normalize_selection, predicate_mask,
+                     selection_bounds)
 from .codecs import default_codec
 
 
@@ -58,6 +59,56 @@ class ArrayMeta:
 
 def _chunk_key(cid: Sequence[int]) -> str:
     return "c" + "/".join(str(i) for i in cid) if cid else "c0"
+
+
+@dataclass
+class ScanStats:
+    """Chunk accounting for one :meth:`Array.scan` call."""
+
+    n_chunks: int = 0       # candidate chunks examined
+    n_pruned: int = 0       # skipped via chunk-statistics sidecars
+    n_unwritten: int = 0    # no chunk object exists (fill value only)
+    n_read: int = 0         # chunks actually fetched and decoded
+
+    def merge(self, other: "ScanStats") -> None:
+        self.n_chunks += other.n_chunks
+        self.n_pruned += other.n_pruned
+        self.n_unwritten += other.n_unwritten
+        self.n_read += other.n_read
+
+
+@dataclass
+class ScanResult:
+    """Matches of a predicate scan: global coordinates + values.
+
+    ``coords`` is one int64 index array per axis; ``values`` the matching
+    elements.  The ordering (chunks in grid order, row-major within each
+    chunk) is deterministic and — because pruning only ever skips chunks
+    that cannot contribute a match — identical for every pruning mode.
+    """
+
+    coords: Tuple[np.ndarray, ...]
+    values: np.ndarray
+    stats: ScanStats
+
+
+def _stats_prune(st, value_gt: Optional[float],
+                 value_lt: Optional[float]) -> bool:
+    """True when a chunk's ``[min, max, valid]`` triple proves no match."""
+    mn, mx, valid = st
+    if not valid:  # no valid element at all
+        return True
+    if value_gt is not None and (mx is None or mx <= value_gt):
+        return True
+    if value_lt is not None and (mn is None or mn >= value_lt):
+        return True
+    return False
+
+
+def _stats_prune_cid(session, path: str, cid, value_gt, value_lt) -> bool:
+    """Whether one chunk's stat sidecar proves it cannot match."""
+    st = session.chunk_stats(path, cid)
+    return st is not None and _stats_prune(st, value_gt, value_lt)
 
 
 class Array:
@@ -140,6 +191,116 @@ class Array:
 
     def read(self) -> np.ndarray:
         return self[tuple(slice(None) for _ in self.meta.shape)]
+
+    def scan(
+        self,
+        selection=None,
+        *,
+        value_gt: Optional[float] = None,
+        value_lt: Optional[float] = None,
+        prune: bool = True,
+        pushdown: bool = True,
+    ) -> ScanResult:
+        """Predicate scan with chunk-statistics pushdown.
+
+        A *match* is a valid element (finite, for float dtypes) inside
+        ``selection`` satisfying every value predicate.  With ``prune``
+        the session's stat sidecars skip chunks that provably cannot
+        match; with ``pushdown`` the chunk grid restricts candidates to
+        chunks intersecting ``selection`` (when False, every chunk is a
+        candidate and the selection is applied as a mask — the "blind
+        scan" baseline).  All four mode combinations return bitwise-
+        identical coords/values; only :class:`ScanStats` differ.  Multi-
+        chunk scans fan out over the session's reader pool when one is
+        configured.
+        """
+        shape = self.meta.shape
+        sels = normalize_selection(selection, len(shape))
+        bounds = selection_bounds(sels, shape)
+        grid = self.meta.grid
+        if pushdown:
+            cids = list(grid.chunks_for_selection(
+                [slice(b0, b1) for b0, b1 in bounds]
+            ))
+        else:
+            cids = list(grid.chunk_ids())
+        stats = ScanStats(n_chunks=len(cids))
+        session = self._session
+        is_float = np.issubdtype(self.dtype, np.floating)
+        # only a NaN fill is invalid-by-definition; a finite float fill
+        # (create_array allows one) makes unwritten chunks real matches
+        fill_invalid = is_float and np.isnan(self.meta.fill_value)
+
+        def scan_chunk(cid):
+            if prune:
+                st = session.chunk_stats(self.path, cid)
+                if st is not None and _stats_prune(st, value_gt, value_lt):
+                    return "pruned", None
+            unwritten = (
+                session.chunk_ref(self.path, cid) is None
+                and session.staged_chunk_array(self.path, cid) is None
+            )
+            # never written: fill value only — a NaN fill is invalid by
+            # definition, so nothing can match; any other fill means the
+            # (synthesized, not decoded) fill chunk still has to be
+            # tested against the predicates
+            if unwritten and fill_invalid:
+                return "unwritten", None
+            chunk = self._read_chunk(cid)
+            cslices = grid.chunk_slices(cid)
+            mask = predicate_mask(chunk, [cs.start for cs in cslices],
+                                  bounds, value_gt, value_lt)
+            loc = np.nonzero(mask)
+            coords = tuple(
+                (l + cs.start).astype(np.int64)
+                for l, cs in zip(loc, cslices)
+            )
+            return ("unwritten" if unwritten else "read"), (coords, chunk[loc])
+
+        pool = session.reader_pool() if len(cids) > 1 else None
+        if len(cids) > 1 and not session.writable:
+            # batch the manifest + stat-sidecar round trips, then prefetch
+            # only the chunks pruning cannot skip — so coalescing changes
+            # GET counts, never the gated pruning fetch accounting
+            session._prefetch_manifests([self.path], stats=prune)
+            if prune:
+                survivors = [
+                    cid for cid in cids
+                    if not _stats_prune_cid(session, self.path, cid,
+                                            value_gt, value_lt)
+                ]
+            else:
+                survivors = cids
+            session.prefetch([(self.path, survivors)], wait=pool is None)
+        if pool is None:
+            outcomes = [scan_chunk(cid) for cid in cids]
+        else:
+            # pool.map preserves submission order, so the concatenation
+            # below is deterministic regardless of completion order
+            outcomes = list(pool.map(scan_chunk, cids))
+        parts = []
+        for kind, payload in outcomes:
+            if kind == "pruned":
+                stats.n_pruned += 1
+            else:
+                if kind == "unwritten":
+                    stats.n_unwritten += 1
+                else:
+                    stats.n_read += 1
+                if payload is not None and payload[1].size:
+                    parts.append(payload)
+        if parts:
+            coords = tuple(
+                np.concatenate([p[0][ax] for p in parts])
+                for ax in range(len(shape))
+            )
+            values = np.concatenate([p[1] for p in parts])
+        else:
+            coords = tuple(
+                np.empty(0, dtype=np.int64) for _ in range(len(shape))
+            )
+            values = np.empty(0, dtype=self.dtype)
+        return ScanResult(coords, values, stats)
 
     def _read_chunk(self, cid) -> np.ndarray:
         """Read one chunk at its *actual* (possibly edge-clipped) extent.

@@ -248,9 +248,10 @@ def test_float32_prefill_still_takes_the_f32_route(sq):
 @pytest.mark.parametrize("l, n, want", [(2, 64, "f32"), (1024, 64, "f32"),
                                         (70, 128, "f32"),
                                         (70, 129, "f32_wide"),
-                                        (1, 160, "decode")])
+                                        (1, 160, "decode"),
+                                        (1, 320, "f32_wide")])
 def test_float32_scan_routes_by_length_and_width(l, n, want):
     x = torch.zeros((2, l, 3, 8), dtype=torch.float32)
     assert scan_kernel.route(x, n) == want
     assert set(scan_kernel.route_launches) == {"chunk_tc", "decode", "f32",
-                                               "f32_wide"}
+                                               "f32_wide", "bf16_wide"}

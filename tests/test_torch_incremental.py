@@ -305,9 +305,14 @@ def test_incremental_factory_validation_and_device(base_archive,
         IncrementalQPE(repo, ProductRequest(kind="cappi"), device="cpu")
     with pytest.raises(ValueError, match="no incremental maintainer"):
         incremental_product(repo, ProductRequest(kind="qvp"), device="cpu")
-    # the mosaic needs the catalog: the federation slice
-    with pytest.raises(NotImplementedError, match="item 4"):
-        incremental_product(None, ProductRequest(kind="mosaic"),
+    # the mosaic arm takes a catalog (tests/test_torch_mosaic.py holds its
+    # state against the reference's): an empty one has nothing to mosaic
+    class EmptyCatalog:
+        def entries(self):
+            return {}
+
+    with pytest.raises(ValueError, match="no repositories to mosaic"):
+        incremental_product(EmptyCatalog(), ProductRequest(kind="mosaic"),
                             device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for kind in ("cappi", "column_max", "qpe"):

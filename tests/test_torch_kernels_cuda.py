@@ -394,7 +394,53 @@ def test_flash_decode_kernel_on_a_strided_cache_prefix(skv, group, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+@pytest.mark.parametrize("group, skv", [(1, 1), (4, 65), (2, 1056),
+                                        (8, 2048)])
+def test_flash_decode_kernel_at_head_dims_off_powers_of_two(group, skv, d,
+                                                            dtype):
+    # a lane group of D * size / 16 lanes rounded up to a power of two: at
+    # D = 80, 10 of 16 lanes in bf16 and 20 of 32 in float32 read the row
+    _need_cuda()
+    rng = np.random.default_rng(skv + group + d)
+    dt = getattr(torch, dtype)
+    b, hkv = 2, 2
+    q = _t(rng.normal(size=(b, hkv * group, 1, d)).astype(np.float32))
+    cache = _t(rng.normal(size=(2, b, hkv, skv + 40, d)).astype(np.float32))
+    q = q.cuda().to(dt)
+    k, v = (c[:, :, :skv] for c in cache.cuda().to(dt))
+    got, which = _route_call(q, k, v)
+    assert which == "decode" and got.dtype == dt and got.shape == q.shape
+    tol = 2e-4 if dtype == "float32" else 5e-2    # tests/test_kernels.py
+    splits = flash_attention.decode_splits(
+        b * hkv, skv, torch.cuda.get_device_properties(0).multi_processor_count)
+    for want in (ref.flash_attention(q, k, v, causal=True),
+                 ref.flash_decode(q, k, v, splits)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+        if dt == torch.bfloat16:
+            _assert_bf16_rows(got, want)
+    again = ops.flash_attention(q, k, v)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 8, 136, 24])
+def test_flash_attention_refuses_head_dims_off_its_set(d):
+    # no quiet plain path: a head dim no kernel takes raises on every route
+    _need_cuda()
+    for dt in (torch.float32, torch.bfloat16):
+        for sq in (1, 70):
+            q = torch.zeros((1, 2, sq, d), dtype=dt, device="cuda")
+            k = torch.zeros((1, 2, 80, d), dtype=dt, device="cuda")
+            with pytest.raises(ValueError, match="head dim"):
+                ops.flash_attention(q, k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 48, 80, 96, 112])
 @pytest.mark.parametrize("sq, skv, causal", [
     (100, 100, True), (130, 270, True), (65, 1100, True), (2, 2, True),
     (200, 200, False), (77, 3, False)])
@@ -528,7 +574,7 @@ def _scan_inputs(rng, b, l, h, p, n, dt_, with_h0, offset=0):
 
 
 def _scan_route_call(x, dt, A, Bm, Cm, h0):
-    which = mamba2_scan.route(x)
+    which = mamba2_scan.route(x, Bm.shape[-1])
     before = dict(mamba2_scan.route_launches)
     y, hN = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
     before[which] += 1
@@ -561,7 +607,12 @@ def _assert_scan_close(y, hN, want_y, want_h):
     ("float32", 1, 64, 64, True, "decode"),
     ("bfloat16", 1, 64, 64, True, "decode"),
     ("bfloat16", 1, 72, 80, False, "decode"),
-    ("float32", 1, 8, 6, True, "decode")])
+    ("float32", 1, 8, 6, True, "decode"),
+    ("bfloat16", 130, 64, 192, True, "bf16_wide"),
+    ("bfloat16", 70, 136, 16, False, "bf16_wide"),
+    ("bfloat16", 2, 8, 160, False, "bf16_wide"),
+    ("float32", 1, 4, 300, True, "f32_wide"),
+    ("bfloat16", 1, 4, 300, True, "bf16_wide")])
 def test_mamba2_scan_routes_on_card(dtype, l, p, n, with_h0, expect):
     _need_cuda()
     rng = np.random.default_rng(l + p + n)
@@ -600,15 +651,18 @@ def test_mamba2_chunk_tc_takes_strided_and_misaligned_views(offset):
 
 @pytest.mark.cuda
 def test_mamba2_scan_routes_name_their_width_limits():
+    # wider than the tensor-core and decode kernels go to the wide kernel,
+    # whose shared memory is the one limit left
     _need_cuda()
     rng = np.random.default_rng(9)
     args = _scan_inputs(rng, 1, 3, 1, 136, 16, torch.bfloat16, False)
-    with pytest.raises(ValueError, match="tensor-core route takes P and N "
-                                         "up to 128"):
-        ops.mamba2_scan(*args[:5])
+    assert mamba2_scan.route(args[0], 16) == "bf16_wide"
     args = _scan_inputs(rng, 1, 1, 1, 4, 300, torch.float32, False)
-    with pytest.raises(ValueError, match="decode route takes N up to 256"):
-        ops.mamba2_scan(*args[:5])
+    assert mamba2_scan.route(args[0], 300) == "f32_wide"
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _scan_inputs(rng, 1, 3, 1, 256, 400, dtype, False)
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            ops.mamba2_scan(*args[:5])
 
 
 # ---------------------------------------------------------------------------
@@ -619,7 +673,7 @@ F32_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py, float32
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 48, 80, 96, 112])
 @pytest.mark.parametrize("b, hq, hkv, sq, extra, causal", [
     (2, 4, 2, 100, 0, True), (1, 6, 2, 130, 140, True), (2, 2, 2, 65, 0, False),
     (1, 8, 8, 3, 61, False), (1, 4, 1, 2, 2, True), (2, 4, 4, 200, 37, True)])

@@ -141,14 +141,23 @@ def test_request_validation_and_catalog_targets():
             raise AssertionError("not reached")
 
         def entries(self):
-            return []
+            return {}
 
     with pytest.raises(ValueError, match="unknown product kind"):
         ProductRequest(kind="vil")
     with pytest.raises(TypeError):
         compute_product(object(), {"kind": "qvp"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        compute_product(CatalogLike(), ProductRequest(kind="qpe"),
+    # a catalog target goes to the federation (tests/test_torch_catalog.py
+    # and tests/test_torch_mosaic.py hold its products against the
+    # reference's): an empty catalog matches no repository, and a kind
+    # with no federated form says so
+    for kind in ("qpe", "qvp", "mosaic"):
+        with pytest.raises(ValueError, match="matches no repository"):
+            compute_product(CatalogLike(), ProductRequest(kind=kind,
+                                                          sweep=0),
+                            device="cpu")
+    with pytest.raises(ValueError, match="no federated form"):
+        compute_product(CatalogLike(), ProductRequest(kind="cappi"),
                         device="cpu")
     with pytest.raises(ValueError, match="requires"):
         compute_product(object(), ProductRequest(kind="qvp", vcp="VCP-212"),
