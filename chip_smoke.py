@@ -41,8 +41,11 @@ Phases, each printing its own lines:
    strided prefix of a 2048-long cache, split over the keys; ``f32``, the
    float32 prefill) at radar-lm's, zamba2's and stablelm-3b's (head dim
    80) prefill and decode shapes and at 32 ragged ones (D 16 to 128 in
-   steps of 16), in float32 and bfloat16, each call on the route its
-   dtype and Sq choose; timed beside its plain version and
+   steps of 16), then at head dims no configuration has (40, 72, 136,
+   200, 256: zero columns up to the kernel's width, two column groups of
+   v above 128) at ragged shapes and at stablelm's B, heads and S, in
+   float32 and bfloat16, each call on the route its dtype and Sq choose;
+   timed beside its plain version and
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
    tensor-core instructions of the built library (``cuobjdump -sass``);
@@ -57,7 +60,10 @@ Phases, each printing its own lines:
    ``torch.profiler`` with the wrapper's host time per call, and the
    tensor-core instructions of the built library counted; the CUDA-core
    kernel for states wider than the tensor cores hold, in float32 and
-   (``bf16_wide``) bfloat16 at P = 64, N = 192, timed;
+   (``bf16_wide``) bfloat16 at P = 64, N = 192, timed, and with P tiled
+   over the grid (a state wider than a block's shared memory) at ragged
+   shapes and at zamba2's B, L and H with P = N = 160 and P = 256,
+   N = 192, in both dtypes, timed;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -91,6 +97,23 @@ Phases, each printing its own lines:
       time-windowed mosaic fetching fewer chunks than the blind one; an
       incremental mosaic updated after one scan appended to each of KTLX
       and KICT, bitwise against the from-scratch mosaic;
+   c. the same catalog served over HTTP (``repro_torch.serve.http``,
+      ``ArchiveService(device="cuda")`` behind ``ArchiveServer`` on
+      127.0.0.1): 8 concurrent identical QVP requests coalesced onto one
+      computation and one ``qvp_reduce`` launch, every body bitwise the
+      in-process encoding; QPE, column-max, CAPPI and the column-max
+      mosaic cold, then warm from the product cache with no launch, then
+      304 on ``If-None-Match``, each against ``mode="ref"`` (header bytes
+      equal, grids bitwise); a chunk, a query and a ``/watch`` that sees
+      exactly one scan appended to KTLX; cold, in-process, warm and 304
+      ms and the body's MB;
+   d. store maintenance on KVNX: the head tagged, the QVP sweep's DBZH and
+      RHOHV compacted into one tall time chunk (the QVP after bitwise the
+      QVP before, chunk payloads decoded before and after), ``history``
+      showing it, ``rollback`` to the tag, ``gc(keep_history=False)``
+      after the tag is deleted (objects and bytes removed); the QVP read
+      through a ``SimulatedLatencyStore`` (50 ms round trips) at
+      read_workers 1 and 8, bitwise the local read;
 7. the LM serve path: radar-lm-100m at full width from
    ``init_params(seed=0)`` serves 8 radar scans of 1024 tokens drawn from
    the archive (``RadarTokenDataset``) through ``Engine.generate``, 32 new
@@ -1070,6 +1093,10 @@ def sdpa(q, k, v, causal: bool):
 
 FA_ROUTES = ("tc_prefill", "decode", "f32")
 L2_BYTES = 50e6                            # the H100's L2 cache
+# head dims no configuration has, checked and timed beside the paths'
+# ones: off the multiples of 16 (zero columns up to the kernel's width)
+# and above 128 (two column groups of v), at stablelm's B, heads and S
+FA_WIDE_DIMS = (40, 72, 136, 200, 256)
 
 
 def fa_shapes():
@@ -1411,10 +1438,53 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                   f"D={d} {dt}", q1.to(dtype), k.to(dtype), v.to(dtype),
                   causal)
 
+    # head dims off the multiples of 16 and above 128: ragged Sq and Skv,
+    # each in both dtypes, as a prefill and as a one-query decode
+    B_s, Hq_s, Hkv_s, _ = fa_shapes()["stablelm"]
+    for i, d in enumerate(FA_WIDE_DIMS * 2):
+        hkv = int(rng.choice([1, 2, 4]))
+        hq = hkv * int(rng.choice([1, 2, 4]))
+        sq, extra = int(rng.integers(2, 200)), int(rng.integers(0, 141))
+        b, causal = int(rng.integers(1, 3)), bool(i % 3)
+        q, k, v = (randn(b, hq, sq, d), randn(b, hkv, sq + extra, d),
+                   randn(b, hkv, sq + extra, d))
+        q1 = randn(b, hq, 1, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            check(f"head dim B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                  f"Skv={sq + extra} D={d} (kernel width "
+                  f"{flash_attention.kernel_dim(d)}) causal={causal} {dt}",
+                  q.to(dtype), k.to(dtype), v.to(dtype), causal)
+            check(f"head dim decode B={b} Hq={hq} Hkv={hkv} "
+                  f"Skv={sq + extra} D={d} {dt}", q1.to(dtype), k.to(dtype),
+                  v.to(dtype), causal)
+    for d in FA_WIDE_DIMS:
+        cache = randn(2, B_s, Hkv_s, LM_MAX_LEN, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q = randn(B_s, Hq_s, S, d).to(dtype)
+            k, v = randn(B_s, Hkv_s, S, d).to(dtype), randn(
+                B_s, Hkv_s, S, d).to(dtype)
+            check(f"head dim {d} prefill {dt} B={B_s} Hq={Hq_s} "
+                  f"Hkv={Hkv_s} Sq=Skv={S}", q, k, v, True)
+            cases[(f"D{d}", "prefill", dt)] = (q, k, v)
+            if dtype == torch.bfloat16:
+                q1 = randn(B_s, Hq_s, 1, d).to(dtype)
+                ck, cv = cache[0].to(dtype), cache[1].to(dtype)
+                check(f"head dim {d} decode {dt} Sq=1 kv_len="
+                      f"{S + LM_NEW_TOKENS} of a {LM_MAX_LEN}-long cache", q1,
+                      ck[:, :, :S + LM_NEW_TOKENS],
+                      cv[:, :, :S + LM_NEW_TOKENS], True)
+                cases[(f"D{d}", "decode", dt)] = (q1, ck, cv)
+        del cache
+
     # times at the paths' shapes ---------------------------------------------
     rows = {}
     n_kv = S + LM_NEW_TOKENS
-    for tag, (B, Hq, Hkv, D) in fa_shapes().items():
+    shapes = dict(fa_shapes())
+    shapes.update({f"D{d}": (B_s, Hq_s, Hkv_s, d) for d in FA_WIDE_DIMS})
+    for tag, (B, Hq, Hkv, D) in shapes.items():
+        wide = tag.startswith("D")
         for which, kind, dt in (("tc_prefill", "prefill", "bf16"),
                                 ("decode", "decode", "bf16"),
                                 ("f32", "prefill", "f32")):
@@ -1440,9 +1510,11 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 return sdpa(q, *next(turns), True)
 
             row = {"ms": time_cuda(call),
-                   "plain_ms": time_cuda(plain, reps=3, inner=3),
-                   "library_ms": time_cuda(library),
-                   "host_us": host_us_per_call(call)}
+                   "plain_ms": (time_cuda(plain, reps=2, inner=1) if wide
+                                else time_cuda(plain, reps=3, inner=3)),
+                   "library_ms": time_cuda(library)}
+            if not wide:
+                row["host_us"] = host_us_per_call(call)
             if kind == "decode":
                 row["device_ms"] = profiled_device_ms(call, "flash_decode")
             nbytes, nops = attention_cost(B, Hq, Hkv, q.shape[2], skv, D,
@@ -1454,7 +1526,8 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 peak, t_ops = peak_tc, 3 * nops / peak_tc * 1e3
                 row["cuda_core_bound_ms"] = max(t_bytes,
                                                 nops / peak_flops * 1e3)
-                row["library_kernel"] = profiled_kernel_names(library)
+                row["library_kernel"] = (None if wide else
+                                         profiled_kernel_names(library))
                 say(f"bound flash_attention [f32] {tag}: on the CUDA cores "
                     f"{row['cuda_core_bound_ms']:.4f} ms ({nops / 1e9:.2f} "
                     f"GFLOP at {peak_flops / 1e12:.0f} TFLOP/s float32, "
@@ -1485,8 +1558,12 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"{(3 if which == 'f32' else 1) * nops / 1e9:.2f} GFLOP at "
                 f"{peak / 1e12:.0f} TFLOP/s), "
                 f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
-                f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved; wrapper "
-                f"host {row['host_us']:.2f} us per call (enqueue of 1000)")
+                f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved"
+                + (f"; wrapper host {row['host_us']:.2f} us per call "
+                   "(enqueue of 1000)" if "host_us" in row else
+                   f"; kernel width {flash_attention.kernel_dim(D)}"
+                   + (", a zero-padded copy of q, k and v first"
+                      if D * q.element_size() % 16 else "")))
             rows[(which, tag)] = row
     if DEV == "cuda":
         say("sass flash_attention library (tc_prefill and f32 kernels, both "
@@ -1516,6 +1593,12 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                        zamba2_bound_ms=zrow["bound_ms"],
                        zamba2_cuda_core_bound_ms=zrow["cuda_core_bound_ms"],
                        zamba2_library_kernel=zrow["library_kernel"])
+        # the head dims no configuration has, at stablelm's B, heads and S
+        row["head_dims"] = {
+            str(d): {key: rows[(which, f"D{d}")].get(key)
+                     for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}
+            for d in FA_WIDE_DIMS}
         out[f"flash_attention:{which}"] = row
     return out
 
@@ -1536,6 +1619,8 @@ SSM_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py:330-331
 SSM_BF16_Y_TOL = dict(rtol=1e-2, atol=1e-2)
 SSM_CHUNK = 64                             # csrc/mamba2_scan.cu, kCS and kT
 SSM_ROUTES = ("chunk_tc", "decode", "f32")
+# (P, N) of the wide kernel's P-tiled cases timed at zamba2's B, L and H
+SSM_TILED = ((160, 160), (256, 192))
 # zamba2's bf16 prefill on the kernel routes against the same prefill with
 # only the Mamba-2 scan on its plain version: last-position logits, each
 # request's L2 error over its L2 norm.  The two scans' y differ in the last
@@ -1765,6 +1850,43 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
                            (1, 16, 320, torch.bfloat16)):
         check(f"wide B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
               "state", inputs(2, l, 3, p, n, dtype, True))
+    # a state wider than a block's shared memory: P tiled over the grid
+    # (kernels.mamba2_scan.wide_p_tile), ragged, in both dtypes; then at
+    # zamba2's B, L and H with P = N = 160 and P = 256, N = 192, timed
+    # beside the plain version and the CUDA cores' bound
+    for l, p, n in ((130, 160, 160), (70, 256, 192), (1, 40, 365),
+                    (65, 33, 365)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"P-tiled B=2 L={l} H=3 P={p} N={n} (tiles of "
+                  f"{mamba2_scan.wide_p_tile(p, n)}) {str(dtype)[6:]} from "
+                  "a state", inputs(2, l, 3, p, n, dtype, True))
+    tiled = {}
+    for p, n in SSM_TILED:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(B, L, H, p, n, dtype, True)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            check(f"P-tiled B={B} L={L} H={H} P={p} N={n} {tag} from a "
+                  "state", args)
+            nbytes, nops = ssd_cost(B, L, H, p, n, args[0].element_size(),
+                                    True)
+            t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak_flops * 1e3
+            row = {"ms": time_cuda(lambda: run(args), reps=3, inner=3),
+                   "plain_ms": time_cuda(
+                       lambda: ref.mamba2_scan(*args[:5], h0=args[5]),
+                       reps=2, inner=1),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None,
+                   "p_tile": mamba2_scan.wide_p_tile(p, n)}
+            tiled[(tag, f"P{p}_N{n}")] = row
+            say(f"time mamba2_scan [{mamba2_scan.route(args[0], n)}] B={B} "
+                f"L={L} H={H} P={p} N={n} {tag} (tiles of {row['p_tile']} "
+                f"columns): kernel {row['ms']:.4f} ms (CUDA events), plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                f"{nops / 1e9:.2f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s "
+                "float32, the CUDA cores)")
+            del args
     # the state continues: two halves, the second from the first's state
     for dtype in (torch.float32, torch.bfloat16):
         x, dt, A, Bm, Cm, _ = inputs(2, 512, 4, P, N, dtype, False)
@@ -1853,6 +1975,12 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
     for which in SSM_ROUTES:
         out[f"mamba2_scan:{which}"] = dict(timed[which],
                                            max_abs_err=errs[which])
+    # the P-tiled wide kernel beside the bf16 and float32 prefill routes
+    # (bf16_wide and f32_wide: no configuration of the repo takes them)
+    for which, tag in (("chunk_tc", "bf16"), ("f32", "f32")):
+        out[f"mamba2_scan:{which}"]["wide_p_tiled"] = {
+            shape: dict(row, max_abs_err=errs[f"{tag}_wide"])
+            for (t, shape), row in tiled.items() if t == tag}
     return out
 
 
@@ -2426,6 +2554,400 @@ def build_federation(archive, vcp, work: str):
     return catalog, archives, sims
 
 
+# -- phase 6c: the archive served over HTTP ----------------------------------
+
+HTTP_PRODUCT_CACHE = 256 << 20   # holds every product below (mosaic 28 MB)
+HTTP_CLIENTS = 8                 # concurrent identical QVP requests
+HTTP_READ_WORKERS = 8
+
+
+def http_get(url: str, path: str, headers=None, timeout: float = 600.0):
+    """One GET -> (status, headers, body, ms)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    host = urlsplit(url)
+    conn = http.client.HTTPConnection(host.hostname, host.port,
+                                      timeout=timeout)
+    try:
+        t = time.perf_counter()
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        body = resp.read()
+        ms = (time.perf_counter() - t) * 1e3
+        return resp.status, dict(resp.getheaders()), body, ms
+    finally:
+        conn.close()
+
+
+def frame_header(body: bytes) -> bytes:
+    """The canonical-JSON header of an RPRD product frame."""
+    import struct
+
+    if body[:4] != b"RPRD":
+        raise AssertionError("not an RPRD product frame")
+    (n,) = struct.unpack(">I", body[4:8])
+    return body[8:8 + n]
+
+
+def served_held(kind: str, body: bytes, want_body: bytes) -> float:
+    """A served body against the mode='ref' result's encoding: the same
+    header bytes, QVP and QPE within the kernels' tolerances, every other
+    array (axes, grids) bitwise; the largest error."""
+    import torch
+    from repro_torch.serve.http import decode_payload
+
+    if frame_header(body) != frame_header(want_body):
+        raise AssertionError(f"served {kind}: header differs from the "
+                             "mode='ref' result's")
+    _, got = decode_payload(body)
+    _, want = decode_payload(want_body)
+    err = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if (kind, name) == ("qvp", "profile"):
+            err = max(err, compare(f"served {kind} {name}",
+                                   torch.from_numpy(g.copy()),
+                                   torch.from_numpy(w.copy()), **QVP_TOL))
+        elif (kind, name) == ("qpe", "accum_mm"):
+            err = max(err, compare(f"served {kind} {name}",
+                                   torch.from_numpy(g.copy()),
+                                   torch.from_numpy(w.copy()), **QPE_TOL))
+        elif not bits_equal(torch.from_numpy(g.copy()),
+                            torch.from_numpy(w.copy())):
+            raise AssertionError(f"served {kind} {name}: not bitwise equal "
+                                 "to mode='ref'")
+    return err
+
+
+def drive_http_path(catalog, archives, sims, vcp, rows) -> None:
+    """The federation of phase 6b served by ``repro_torch.serve.http`` on
+    the card: 8 concurrent identical QVP requests coalesced onto one
+    computation and one ``qvp_reduce`` launch, every body bitwise the
+    in-process encoding; QPE, column-max, CAPPI and the column-max mosaic
+    cold then warm (a product-cache hit, no launch) and revalidated by
+    ETag (304), each against mode='ref'; a chunk fetch, a query and a
+    ``/watch`` that sees exactly one appended scan.  Times: the cold
+    served ms beside the in-process ms of the same product, warm, 304 and
+    the body's MB."""
+    import json
+    import threading
+    import urllib.parse
+
+    from repro_torch.catalog import query as q
+    from repro_torch.radar import compute_product
+    from repro_torch.serve.http import (ArchiveServer, ArchiveService,
+                                        encode_product)
+
+    service = ArchiveService(catalog, device=DEV,
+                             read_workers=HTTP_READ_WORKERS,
+                             product_cache_bytes=HTTP_PRODUCT_CACHE)
+    server = ArchiveServer(service, workers=2 * HTTP_CLIENTS).start()
+    url = server.url
+    try:
+        # coalescing: 8 concurrent identical QVP requests ---------------
+        qvp_path = f"/products/qvp?repo=KVNX&vcp={VCP_NAME}&sweep={QVP_SWEEP}"
+        bodies, statuses = [None] * HTTP_CLIENTS, [None] * HTTP_CLIENTS
+        barrier = threading.Barrier(HTTP_CLIENTS)
+
+        def hit(i):
+            barrier.wait()
+            statuses[i], _h, bodies[i], _ms = http_get(url, qvp_path)
+
+        sync()
+        reset_launches()
+        t = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        t_qvp = (time.perf_counter() - t) * 1e3
+        launched = read_launches()
+        if any(th.is_alive() for th in threads) or statuses != [200] * len(
+                statuses):
+            raise AssertionError(f"served qvp: statuses {statuses}")
+        stats = service.stats()
+        flight, cache = stats["product_flight"], stats["product_cache"]
+        expect = {k: 1 if k == "qvp_reduce" else 0 for k in kernel_modules()}
+        if (flight["computations"] != 1 or launched != expect
+                or flight["total"] + cache["hits"] != HTTP_CLIENTS):
+            raise AssertionError(f"served qvp: {HTTP_CLIENTS} identical "
+                                 f"requests gave {flight}, cache {cache}, "
+                                 f"launches {launched}")
+        rows["qvp_reduce"]["launches"] += 1
+        if any(b != bodies[0] for b in bodies):
+            raise AssertionError("served qvp: coalesced bodies differ")
+        req = service._request_for("qvp", service._product_params(
+            "qvp", urllib.parse.parse_qs(qvp_path.split("?")[1])))
+        with catalog.open_session("KVNX",
+                                  read_workers=HTTP_READ_WORKERS) as session:
+            sync()
+            t = time.perf_counter()
+            inproc = encode_product(compute_product(session, req,
+                                                    device=DEV))
+            t_in = (time.perf_counter() - t) * 1e3
+            ref_body = encode_product(compute_product(
+                session, req.with_options(mode="ref"), device=DEV))
+        if bodies[0] != inproc:
+            raise AssertionError("served qvp: body differs from the "
+                                 "in-process encoding")
+        err = served_held("qvp", bodies[0], ref_body)
+        say(f"http qvp: {HTTP_CLIENTS} concurrent identical requests in "
+            f"{t_qvp:.1f} ms: {flight['computations']} computation "
+            f"({flight['total']} through the flight, {cache['hits']} cache "
+            f"hits), launches {launched}; {HTTP_CLIENTS} identical bodies of "
+            f"{len(bodies[0]) / 1e6:.3f} MB, bitwise equal to the in-process "
+            f"encoding ({t_in:.1f} ms in process at read_workers="
+            f"{HTTP_READ_WORKERS}); header equal to mode='ref', max_abs_err "
+            f"{err:.3e}")
+
+        # other products: cold, warm, 304 --------------------------------
+        grid_q = "ny=240&nx=240"
+        products = {
+            "qpe": (f"/products/qpe?repo=KVNX&vcp={VCP_NAME}"
+                    f"&sweep={QPE_SWEEP}", "zr_accum", 1),
+            "column_max": (f"/products/column_max?repo=KVNX&vcp={VCP_NAME}"
+                           f"&{grid_q}", "grid_map", 1),
+            "cappi": (f"/products/cappi?repo=KVNX&vcp={VCP_NAME}&{grid_q}"
+                      "&altitude_m=2000", "grid_map", 1),
+            "mosaic": (f"/products/mosaic?product=column_max&{grid_q}",
+                       "grid_map", len(archives)),
+        }
+        for kind, (path, kernel, n_launch) in products.items():
+            # a tenant of its own: a cold session, as a new client's
+            tenant = {"X-Tenant": f"cold-{kind.replace('_', '-')}"}
+            sync()
+            reset_launches()
+            status, headers, body, t_cold = http_get(url, path, tenant)
+            launched = read_launches()
+            expect = {k: n_launch if k == kernel else 0
+                      for k in kernel_modules()}
+            if status != 200 or launched != expect:
+                raise AssertionError(f"served {kind}: status {status}, "
+                                     f"launches {launched}, expected "
+                                     f"{expect}: {body[:200]!r}")
+            rows[kernel]["launches"] += n_launch
+            reset_launches()
+            status, _h, warm, t_warm = http_get(url, path, tenant)
+            launched = read_launches()
+            hits = service.stats()["product_cache"]["hits"]
+            if (status != 200 or warm != body or any(launched.values())):
+                raise AssertionError(f"served {kind} warm: status {status}, "
+                                     f"launches {launched}")
+            status, _h, empty, t_304 = http_get(
+                url, path, {**tenant, "If-None-Match": headers["ETag"]})
+            if status != 304 or empty:
+                raise AssertionError(f"served {kind}: If-None-Match gave "
+                                     f"{status}")
+            clean = service._product_params(
+                kind, urllib.parse.parse_qs(path.split("?")[1]))
+            req = service._request_for(kind, clean)
+            sync()
+            if kind == "mosaic":
+                t = time.perf_counter()
+                inproc = encode_product(compute_product(
+                    catalog, req, device=DEV,
+                    read_workers=HTTP_READ_WORKERS))
+                t_in = (time.perf_counter() - t) * 1e3
+                ref_body = encode_product(compute_product(
+                    catalog, req.with_options(mode="ref"), device=DEV,
+                    read_workers=HTTP_READ_WORKERS))
+            else:
+                with catalog.open_session(
+                        "KVNX", read_workers=HTTP_READ_WORKERS) as session:
+                    t = time.perf_counter()
+                    inproc = encode_product(compute_product(session, req,
+                                                            device=DEV))
+                    t_in = (time.perf_counter() - t) * 1e3
+                    ref_body = encode_product(compute_product(
+                        session, req.with_options(mode="ref"), device=DEV))
+            if body != inproc:
+                raise AssertionError(f"served {kind}: body differs from the "
+                                     "in-process encoding")
+            err = served_held(kind, body, ref_body)
+            say(f"http {kind}: cold {t_cold:.1f} ms served (in process "
+                f"{t_in:.1f} ms at read_workers={HTTP_READ_WORKERS}), warm "
+                f"{t_warm:.2f} ms (product-cache hit {hits}, no launch), "
+                f"304 {t_304:.2f} ms; body {len(body) / 1e6:.3f} MB bitwise "
+                "equal to the in-process encoding; header equal to "
+                "mode='ref', "
+                + (f"max_abs_err {err:.3e}" if kind == "qpe"
+                   else "grids bitwise"))
+
+        # chunks, queries, watch -------------------------------------------
+        status, _h, body, t_q = http_get(
+            url, f"/query?repos=KVNX&moment=DBZH&sweep={QVP_SWEEP}"
+                 "&value_gt=45&refs=1")
+        doc = json.loads(body)
+        want = q.query(catalog, q.moment("DBZH"), q.sweep(QVP_SWEEP),
+                       q.value_gt(45.0), repos=["KVNX"])
+        if (status != 200 or doc["n_matches"] != want.n_matches
+                or doc["chunks_read"] != want.chunks_read):
+            raise AssertionError(f"served query: {status} {doc.get('n_matches')}"
+                                 f"/{doc.get('chunks_read')} against "
+                                 f"{want.n_matches}/{want.chunks_read}")
+        refs = [r for s_ in doc["scans"] for r in s_.get("chunk_refs", [])]
+        status, headers, blob, t_c = http_get(url,
+                                              f"/chunks/{refs[0]}?repo=KVNX")
+        with catalog.open_session("KVNX") as session:
+            stored = bytes(session.get_blob(refs[0]))
+        if status != 200 or blob != stored or headers["ETag"] != \
+                f'"{refs[0]}"':
+            raise AssertionError("served chunk differs from the stored CAS "
+                                 "blob")
+        say(f"http query (KVNX sweep {QVP_SWEEP} DBZH > 45 dBZ): "
+            f"{doc['n_matches']} matches, {doc['chunks_read']} chunks read, "
+            f"pruning ratio {doc['pruning_ratio']:.3f}, equal to the "
+            f"in-process plan, {t_q:.1f} ms; chunk {refs[0][:12]}... "
+            f"({len(blob) / 1e6:.3f} MB) equal to the stored blob, "
+            f"{t_c:.2f} ms")
+        status, _h, body, _ms = http_get(url, "/watch")
+        boot = json.loads(body)
+        if status != 200 or sorted(c["repo_id"] for c in boot["changes"]) \
+                != sorted(archives):
+            raise AssertionError(f"served watch bootstrap: {boot}")
+        cursor = urllib.parse.quote(json.dumps(boot["cursor"]))
+        sid = archives["KTLX"].append_scan(archive_volume(
+            *sims["KTLX"], vcp, N_SCANS + 1))
+        status, _h, body, t_w = http_get(
+            url, f"/watch?cursor={cursor}&timeout_s=60&poll_interval_s=0.05")
+        woke = json.loads(body)
+        if (status != 200 or woke["timed_out"] or woke["changes"] != [
+                {"repo_id": "KTLX", "snapshot_id": sid,
+                 "prev": boot["cursor"]["KTLX"]}]):
+            raise AssertionError(f"served watch: {woke}")
+        say(f"http watch: bootstrap {len(boot['changes'])} repositories; "
+            f"after one scan appended to KTLX ({sid}) exactly that change, "
+            f"{t_w:.1f} ms")
+    finally:
+        server.close()
+        service.close()
+
+
+# -- phase 6d: store maintenance at full width ---------------------------------
+
+# the timeseries profile at a 64 MB budget: the archive's 16-scan chunks
+# (11.8 MB) already exceed the default 8 MB one, which plans them as they
+# are; 64 MB plans one tall time chunk of the whole series
+MAINT_TARGET_BYTES = 64 << 20
+REMOTE_RTT_S = 0.05
+
+
+def store_bytes(root: str):
+    """(objects, bytes) under a local store's root."""
+    n = size = 0
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            n += 1
+            size += os.path.getsize(os.path.join(dirpath, name))
+    return n, size
+
+
+def drive_maintenance_path(archive, rows) -> None:
+    """KVNX's repository maintained at full width: the head tagged, sweep
+    4's DBZH and RHOHV compacted into one tall time chunk, the QVP at the
+    compacted head bitwise the QVP before with fewer chunk payloads
+    decoded; history shows the compaction, a rollback to the tag gives the
+    old snapshot back, and gc(keep_history=False) after the tag is
+    deleted sweeps what only the compaction and the expired history held.
+    Then the QVP read through a SimulatedLatencyStore (50 ms a round
+    trip) at read_workers 1 and 8, bitwise the local read."""
+    from repro_torch.radar import ProductRequest, compute_product
+    from repro_torch.store import (CompactionProfile, ObjectStore,
+                                   Repository, SimulatedLatencyStore, compact)
+
+    repo = archive.repo
+    req = ProductRequest(kind="qvp", vcp=VCP_NAME, sweep=QVP_SWEEP)
+
+    def qvp_at(repo_, workers):
+        sync()
+        t = time.perf_counter()
+        with repo_.readonly_session(read_workers=workers) as session:
+            reset_launches()
+            res = compute_product(session, req, device=DEV)
+            launched = read_launches()
+            fetched = session.cache_stats()["chunk_fetches"]
+        ms = (time.perf_counter() - t) * 1e3
+        if launched["qvp_reduce"] != 1:
+            raise AssertionError(f"maintenance qvp: launches {launched}")
+        rows["qvp_reduce"]["launches"] += 1
+        return res, fetched, ms
+
+    def same(a, b) -> bool:
+        return (a.profile.tobytes() == b.profile.tobytes()
+                and a.times.tobytes() == b.times.tobytes()
+                and a.height_m.tobytes() == b.height_m.tobytes())
+
+    head = repo.branch_head()
+    repo.tag("pre-compact", head)
+    before, f0, ms0 = qvp_at(repo, HTTP_READ_WORKERS)
+    paths = [f"{VCP_NAME}/sweep_{QVP_SWEEP}/{m}" for m in MOMENTS]
+    profile = CompactionProfile("timeseries",
+                                target_chunk_bytes=MAINT_TARGET_BYTES)
+    t = time.perf_counter()
+    report = compact(repo, profile, paths=paths,
+                     read_workers=HTTP_READ_WORKERS)
+    t_compact = (time.perf_counter() - t) * 1e3
+    if not report.committed or sorted(a.path for a in report.arrays) != \
+            sorted(paths):
+        raise AssertionError(f"compaction: {report}")
+    after, f1, ms1 = qvp_at(repo, HTTP_READ_WORKERS)
+    if not same(after, before) or f1 >= f0:
+        raise AssertionError(f"compacted QVP: bitwise {same(after, before)},"
+                             f" chunk payloads {f1} against {f0}")
+    say(f"maintenance compact: {', '.join(paths)} from chunks "
+        f"{report.arrays[0].chunks_before} to {report.arrays[0].chunks_after}"
+        f" ({report.n_chunks_before} chunk objects to "
+        f"{report.n_chunks_after}) in {t_compact:.1f} ms at read_workers="
+        f"{HTTP_READ_WORKERS}, snapshot {report.snapshot_id}; QVP at the "
+        f"compacted head bitwise equal to the QVP before: {ms1:.1f} ms, "
+        f"{f1} chunk payloads decoded, against {ms0:.1f} ms and {f0}")
+    infos = list(itertools.islice(repo.history(), 2))
+    if (infos[0].snapshot_id != report.snapshot_id
+            or infos[0].parent_id != head
+            or not infos[0].message.startswith("compact")):
+        raise AssertionError(f"history: {infos}")
+    repo.rollback("main", repo.tag_head("pre-compact"))
+    if repo.branch_head() != head:
+        raise AssertionError("rollback did not give the tagged head back")
+    repo.store.delete(repo._tag_key("pre-compact"))
+    objs0, bytes0 = store_bytes(repo.store.root)
+    t = time.perf_counter()
+    removed = repo.gc(grace_seconds=0, keep_history=False)
+    t_gc = (time.perf_counter() - t) * 1e3
+    objs1, bytes1 = store_bytes(repo.store.root)
+    back, _f, _ms = qvp_at(repo, HTTP_READ_WORKERS)
+    if not same(back, before) or removed["chunks"] < 1:
+        raise AssertionError(f"gc: removed {removed}, QVP bitwise "
+                             f"{same(back, before)}")
+    say(f"maintenance history: {infos[0].message!r} on {infos[1].message!r}"
+        f"; rollback to the tag gave {head} back; gc(keep_history=False) "
+        f"after the tag was deleted, {t_gc:.1f} ms: removed {removed}, "
+        f"{objs0 - objs1} objects and {(bytes0 - bytes1) / 1e6:.1f} MB "
+        f"({objs0} objects, {bytes0 / 1e6:.1f} MB before); the QVP at the "
+        "head still bitwise")
+
+    for workers in (1, HTTP_READ_WORKERS):
+        sim = SimulatedLatencyStore(ObjectStore(repo.store.root),
+                                    rtt_s=REMOTE_RTT_S)
+        remote, fetched, ms = qvp_at(Repository.open(sim), workers)
+        st = sim.stats()
+        if not same(remote, before):
+            raise AssertionError(f"remote QVP at read_workers={workers}: "
+                                 "not bitwise the local read")
+        say(f"maintenance remote read (SimulatedLatencyStore, rtt "
+            f"{REMOTE_RTT_S * 1e3:.0f} ms, {sim.bandwidth_bps / 1e6:.0f} "
+            f"MB/s) QVP at read_workers={workers}: {ms:.1f} ms, "
+            f"{st['get_requests']} GET round trips for {st['keys_fetched']} "
+            f"objects ({st['coalesce_keys_per_get']:.2f} a trip), "
+            f"{st['bytes_fetched'] / 1e6:.1f} MB, {st['meta_requests']} "
+            f"metadata trips, {st['simulated_s']:.2f} s simulated; "
+            f"{fetched} chunk payloads decoded; bitwise the local read "
+            f"(local {ms0:.1f} ms at read_workers={HTTP_READ_WORKERS})")
+
+
 class SpanCatalog:
     """A Catalog whose per-repository sessions record their span, open to
     close (the fan-out opens one per repository and closes it when that
@@ -2509,7 +3031,8 @@ def drive_federated_path(archive, vcp, work: str, rows) -> None:
     mosaic that fetches fewer chunks than the blind one; the device map
     cache's hits across runs; then an incremental mosaic updated after one
     scan appended to each of KTLX and KICT, bitwise against the
-    from-scratch mosaic at those heads."""
+    from-scratch mosaic at those heads.  Returns (catalog, {site: archive},
+    {site: (simulator, radar site)}) for the phases after it."""
     import torch
     from repro_torch.radar import compute_product, incremental_product
     from repro_torch.radar import grid as rgrid
@@ -2658,6 +3181,7 @@ def drive_federated_path(archive, vcp, work: str, rows) -> None:
         f"{launched}; bitwise equal to the from-scratch mosaic at those "
         f"heads ({t_full:.1f} ms at read_workers={fast}); a second update "
         "is a no-op")
+    return catalog, archives, sims
 
 
 
@@ -3152,8 +3676,16 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         drive_incremental_path(archive, vcp, sim, site, rows)
         elapsed("6 (incremental path)")
         # 6b. the federated path: two more sites and a catalog
-        drive_federated_path(archive, vcp, fed, rows)
+        catalog, archives, sims = drive_federated_path(archive, vcp, fed,
+                                                       rows)
         elapsed("6b (federated path)")
+        # 6c. the same catalog served over HTTP
+        drive_http_path(catalog, archives, sims, vcp, rows)
+        elapsed("6c (archive HTTP service)")
+        # 6d. KVNX's repository compacted, rolled back, swept, read remotely
+        drive_maintenance_path(archive, rows)
+        elapsed("6d (store maintenance)")
+        del catalog, archives, sims
         # 7. the LM serve path, prompts drawn from the archive
         drive_lm_path(archive, rows)
         elapsed("7 (LM serve path)")
@@ -3176,7 +3708,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     say("launches: summed over the counted runs of every path that "
         "launches the kernel (the serve paths: their bfloat16 generate, of "
         "radar-lm, zamba2 and stablelm-3b; the federated path: one launch "
-        "per repository of each counted run); flash_attention and "
+        "per repository of each counted run; the HTTP path: each cold "
+        "product, the 8 coalesced QVP requests counting one; the "
+        "maintenance path: each QVP); flash_attention and "
         "mamba2_scan are the wrappers, their calls split by route in "
         "'routes', with the numbers "
         "of the route their path takes (tc_prefill at radar-lm's shape, "
@@ -3185,7 +3719,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "from the float32 kernel-route generate (the bf16 path never takes "
         "them); grid_update's numbers are at the QPE fold, 89% wet; "
         "device_ms is a torch.profiler time and host_us the wrapper's host "
-        "time per call, where measured")
+        "time per call, where measured; head_dims are flash_attention's "
+        "routes at head dims no configuration has, wide_p_tiled the "
+        "P-tiled wide scan beside the prefill routes of its dtype")
     idle = [k for k, row in rows.items() if not row.get("launches")]
     if idle:
         raise AssertionError(f"no path launched {idle}")
@@ -3202,7 +3738,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
         for key in ("routes", "device_ms", "host_us", "warm_ms",
-                    "cuda_core_bound_ms", "library_kernel"):
+                    "cuda_core_bound_ms", "library_kernel", "head_dims",
+                    "wide_p_tiled"):
             if row.get(key) is not None:
                 out[-1][key] = row[key]
     return out

@@ -21,14 +21,18 @@ The catalog is one canonical-JSON document in an object store::
 Updates go through the store's compare-and-swap primitive, so concurrent
 registrations of different repositories merge instead of clobbering each
 other.  Entries come from :meth:`Catalog.register_repository`, which
-scans a repository's head.  The document's bytes are those of the
-reference package's catalog, so either package reads what the other
-registered (the reference's ingest-time registration and change feed
-are not ported: no caller of the port needs them yet).
+scans a repository's head, and :meth:`Catalog.note_snapshot` refreshes
+one entry's recorded head after a maintenance commit.  The document's
+bytes are those of the reference package's catalog, so either package
+reads what the other registered.  The change feed (:meth:`Catalog.heads`,
+:meth:`Catalog.poll_changes`, :meth:`Catalog.watch`) is the reference's
+too; its ingest-time registration (``update_from_report``) waits for the
+port of the ETL pipeline.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -234,6 +238,10 @@ class Catalog:
         raise RuntimeError("catalog update contention: too many CAS retries")
 
     # -- registration ----------------------------------------------------
+    def to_doc(self) -> Dict[str, Any]:
+        return self._load()[0]
+
+    # -- registration ----------------------------------------------------
     def register_repository(
         self,
         repo_or_store_or_path,
@@ -278,6 +286,28 @@ class Catalog:
         return CatalogEntry.from_doc(rid, doc["repositories"][rid])
 
     # -- lookup ----------------------------------------------------------
+    def note_snapshot(self, repo_id: str, snapshot_id: str) -> None:
+        """Refresh one entry's recorded head snapshot without rescanning.
+
+        For maintenance commits that change layout but not content —
+        compaction's re-chunking (:mod:`repro_torch.store.compaction`) being
+        the canonical case: coverage (sites, VCPs, moments, time windows,
+        bbox) is already exact, so a full :meth:`register_repository`
+        scan would be wasted I/O.  Unknown repo_ids raise — noting a
+        snapshot for a repository the catalog never saw would fabricate
+        an entry with no coverage.
+        """
+        def mutate(doc: Dict[str, Any]) -> None:
+            try:
+                doc["repositories"][repo_id]["snapshot_id"] = snapshot_id
+            except KeyError:
+                raise KeyError(
+                    f"repository {repo_id!r} not in catalog"
+                ) from None
+
+        self._update(mutate)
+
+    # -- lookup ----------------------------------------------------------
     def repository_ids(self) -> List[str]:
         return sorted(self._load()[0]["repositories"])
 
@@ -312,11 +342,91 @@ class Catalog:
         self._attached[repo_id] = repo
         return repo
 
+    # -- change feed -----------------------------------------------------
+    def heads(self, *, entries: Optional[Dict[str, CatalogEntry]] = None
+              ) -> Dict[str, Optional[str]]:
+        """Current branch head of every catalogued repository.
+
+        One atomic ref read per repository (the same CAS-backed read a
+        commit races against, so a head observed here is never torn).
+        Repositories this process cannot open — no recorded uri, remote
+        storage offline — fall back to the entry's recorded
+        ``snapshot_id``: stale at worst, and refreshed by ``note_snapshot`` (and the
+        reference's ingest) on every commit, so watchers still converge.
+        """
+        entries = entries if entries is not None else self.entries()
+        out: Dict[str, Optional[str]] = {}
+        for rid in sorted(entries):
+            entry = entries[rid]
+            try:
+                repo = self.open_repository(rid, entry=entry)
+                out[rid] = repo.branch_head(entry.branch)
+            except Exception:
+                # unopenable from here: the recorded head is the
+                # conservative answer (never invents a change)
+                out[rid] = entry.snapshot_id
+        return out
+
+    def poll_changes(
+        self, cursor: Optional[Dict[str, Optional[str]]] = None
+    ) -> Tuple[List[Dict[str, Any]], Dict[str, Optional[str]]]:
+        """One non-blocking change poll against a head cursor.
+
+        ``cursor`` maps repo_id -> the last head the caller saw (the
+        second element of the previous call's return; ``None`` / missing
+        keys mean "never seen", so a fresh cursor reports every
+        repository once).  Returns ``(changes, new_cursor)`` where each
+        change is ``{"repo_id", "snapshot_id", "prev"}`` and
+        ``new_cursor`` is the complete current head map — pass it back
+        verbatim to resume.  Repositories dropped from the catalog
+        simply leave the cursor; they are not reported as changes.
+        """
+        cursor = dict(cursor or {})
+        heads = self.heads()
+        changes: List[Dict[str, Any]] = []
+        for rid, head in heads.items():
+            prev = cursor.get(rid)
+            if head != prev:
+                changes.append(
+                    {"repo_id": rid, "snapshot_id": head, "prev": prev}
+                )
+        return changes, heads
+
+    def watch(
+        self,
+        cursor: Optional[Dict[str, Optional[str]]] = None,
+        *,
+        timeout_s: float = 30.0,
+        poll_interval_s: float = 0.25,
+    ) -> Tuple[List[Dict[str, Any]], Dict[str, Optional[str]]]:
+        """Block until any repository head moves past ``cursor``.
+
+        The long-poll primitive under ``GET /watch``: re-polls every
+        ``poll_interval_s`` until :meth:`poll_changes` reports a change
+        or ``timeout_s`` elapses, then returns ``(changes, new_cursor)``
+        — ``changes == []`` means timeout, and the caller re-arms with
+        the returned cursor.  A ``None`` cursor returns immediately with
+        every repository (the bootstrap snapshot).
+        """
+        deadline = time.monotonic() + max(0.0, float(timeout_s))
+        while True:
+            changes, new_cursor = self.poll_changes(cursor)
+            if changes or cursor is None:
+                return changes, new_cursor
+            remaining = deadline - time.monotonic()
+            if remaining <= 0.0:
+                return [], new_cursor
+            time.sleep(min(max(0.0, float(poll_interval_s)), remaining))
+
     def open_session(self, repo_id: str, *,
                      entry: Optional[CatalogEntry] = None, **session_kw):
         """A read session on the repository's branch head (not on the
         entry's recorded snapshot, which may lag a commit)."""
         entry = entry if entry is not None else self.entry(repo_id)
+        # the entry's recorded head doubles as a snapshot hint: when it is
+        # still current the repository opens in one coalesced round trip
+        if entry.snapshot_id and "snapshot_id" not in session_kw:
+            session_kw.setdefault("snapshot_hint", entry.snapshot_id)
         return self.open_repository(repo_id, entry=entry).readonly_session(
             branch=entry.branch, **session_kw
         )

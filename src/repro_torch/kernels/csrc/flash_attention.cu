@@ -43,6 +43,15 @@ constexpr float kNegInf = -1e30f;   // a masked score, as in the TPU kernel
 //     columns that divides D (128-, 64- and 32-byte swizzle): D = 128 is
 //     two 64-wide sub-tiles, 96 three of 32, 80 five of 16 and 48 three of
 //     16, so any D that is a multiple of 16 up to 128 is whole sub-tiles;
+//   * the kernel's width D is a template (kernel_width): a multiple of 16
+//     up to 128, then 160, 192, 224 or 256.  The caller's head dim Dt <= D
+//     is the tensor maps' first extent, so TMA fills the columns past Dt
+//     with zeros (exact: a zero column adds an exact zero to every q.k),
+//     and only Dt columns of o are stored;
+//   * above 128 a block owns one group of DV = D / 2 columns of v and o:
+//     S = Q K^T walks all D columns, and each of the two blocks of a query
+//     tile computes the same S in the same order, so the split is exact and
+//     the accumulator stays at the widths below 128;
 //   * TMA copies: one thread issues each tile as a 4-D box (D, rows, head,
 //     batch) of a tensor map built over the caller's strides, so a cache
 //     prefix or a transposed view is read in place and rows past Sq or Skv
@@ -130,10 +139,21 @@ struct Tile {
   static constexpr int kBytes = kNH * kSub;       // bytes of a 64-row tile
   static constexpr uint32_t kSBO = 8 * kDH * 2;   // bytes of 8 rows
   static constexpr uint64_t kLayout = kDH == 64 ? 1 : (kDH == 32 ? 2 : 3);
-  // q, then per stage k and v; 1024 B of slack to align the swizzled
-  // tiles, and the mbarriers
-  static constexpr int kSmem = 1024 + kBytes * (1 + 2 * kStages) + 64;
 };
+
+// the column group of v and o a block owns: all D columns up to 128, else
+// half of them
+__host__ __device__ constexpr int group_width(int D) {
+  return D <= 128 ? D : D / 2;
+}
+
+// q, then per stage k and v (DV columns); 1024 B of slack to align the
+// swizzled tiles, and the mbarriers
+template <int D>
+constexpr int smem_bytes() {
+  return 1024 + Tile<D>::kBytes +
+         kStages * (Tile<D>::kBytes + Tile<group_width(D)>::kBytes) + 64;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -141,19 +161,23 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   __nv_bfloat16* __restrict__ o, int64_t osb, int64_t osh,
-                  int64_t oss, int group, int Sq, int Skv, float scale,
-                  int causal) {
-  using T = Tile<D>;
+                  int64_t oss, int group, int Sq, int Skv, int Dt,
+                  float scale, int causal) {
+  constexpr int DV = group_width(D);
+  using T = Tile<D>;         // q and k
+  using TV = Tile<DV>;       // v's column group
+  constexpr int kStage = T::kBytes + TV::kBytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t kv_s = base + T::kBytes;   // stage st: k at + 2 st tiles
-  const uint32_t bars = base + T::kBytes * (1 + 2 * kStages);
+  const uint32_t kv_s = base + T::kBytes;   // stage st: k at + st stages
+  const uint32_t bars = kv_s + kStage * kStages;
   const uint32_t q_bar = bars + 8 * kStages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int h = blockIdx.y / (D / DV), b = blockIdx.z, hk = h / group;
+  const int v0 = blockIdx.y % (D / DV) * DV;   // the block's first column
   // query row r sits at key position r + (Skv - Sq)
   const int offset = Skv - Sq;
   const int kv_end = causal ? min(Skv, q0 + kRows + offset) : Skv;
@@ -163,13 +187,15 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const CUtensorMap* vp = &vmap;
   auto load_kv = [=](int t, int st) {
     const uint32_t bar = bars + 8 * st;
-    const uint32_t ks = kv_s + 2 * st * T::kBytes, vs = ks + T::kBytes;
-    mbar_expect_tx(bar, 2 * T::kBytes);
+    const uint32_t ks = kv_s + st * kStage, vs = ks + T::kBytes;
+    mbar_expect_tx(bar, kStage);
 #pragma unroll
-    for (int hh = 0; hh < T::kNH; ++hh) {
+    for (int hh = 0; hh < T::kNH; ++hh)
       tma_load(ks + hh * T::kSub, kp, bar, hh * T::kDH, t * kKeys, hk, b);
-      tma_load(vs + hh * T::kSub, vp, bar, hh * T::kDH, t * kKeys, hk, b);
-    }
+#pragma unroll
+    for (int hh = 0; hh < TV::kNH; ++hh)
+      tma_load(vs + hh * TV::kSub, vp, bar, v0 + hh * TV::kDH, t * kKeys, hk,
+               b);
   };
 
   if (tid == 0) {
@@ -189,15 +215,15 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   // each 8-column block j, columns 8 j + 2 (lane % 4) (+ 1)
   const int r0 = warp * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(q_bar, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
-    const uint32_t ks = kv_s + 2 * st * T::kBytes, vs = ks + T::kBytes;
+    const uint32_t ks = kv_s + st * kStage, vs = ks + T::kBytes;
     mbar_wait(bars + 8 * st, (t / kStages) & 1);
 
     // S = Q K^T: D / 16 steps of k16, both operands K-major
@@ -266,7 +292,7 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
       m[i] = m_new[i];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       acc[4 * j] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
@@ -274,14 +300,14 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 
     // O += P V: 4 steps of 16 keys; V is the MN-major B operand, its
-    // sub-tiles T::kSub apart (the leading byte offset)
+    // sub-tiles TV::kSub apart (the leading byte offset)
     fence_regs(acc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_pv<D>(acc, &p[4 * kk],
-                  make_desc(vs + kk * 16 * T::kDH * 2, T::kSub, T::kSBO,
-                            T::kLayout));
+      wgmma_pv<DV>(acc, &p[4 * kk],
+                   make_desc(vs + kk * 16 * TV::kDH * 2, TV::kSub, TV::kSBO,
+                             TV::kLayout));
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -291,50 +317,91 @@ tc_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == 0 && t + kStages < n_tiles) load_kv(t + kStages, st);
   }
 
-  __nv_bfloat16* ob = o + b * osb + h * osh;
+  // columns v0 + 8 j + c0 (+ 1) of the caller's Dt (a multiple of 8)
+  __nv_bfloat16* ob = o + b * osb + h * osh + v0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * oss + 8 * j + c0) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] / den,
-                                acc[4 * j + 2 * i + 1] / den);
+    for (int j = 0; j < DV / 8; ++j)
+      if (v0 + 8 * j < Dt)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * oss + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] / den,
+                                  acc[4 * j + 2 * i + 1] / den);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, const int64_t* st, float scale,
-           int causal, cudaStream_t stream) {
-  using T = Tile<D>;
+           int Hq, int Hkv, int Sq, int Skv, int Dt, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr int DV = group_width(D);
+  constexpr int kSmem = smem_bytes<D>();
+  static_assert(kSmem <= 232448, "shared memory");
+  if (Hq * (D / DV) > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap qm, km, vm;
-  if (!make_map(encode, &qm, q, B, Hq, Sq, D, st[0], st[1], st[2], T::kDH) ||
-      !make_map(encode, &km, k, B, Hkv, Skv, D, st[3], st[4], st[5],
-                T::kDH) ||
-      !make_map(encode, &vm, v, B, Hkv, Skv, D, st[6], st[7], st[8], T::kDH))
+  if (!make_map(encode, &qm, q, B, Hq, Sq, Dt, st[0], st[1], st[2],
+                Tile<D>::kDH) ||
+      !make_map(encode, &km, k, B, Hkv, Skv, Dt, st[3], st[4], st[5],
+                Tile<D>::kDH) ||
+      !make_map(encode, &vm, v, B, Hkv, Skv, Dt, st[6], st[7], st[8],
+                Tile<DV>::kDH))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = tc_prefill_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
-  kernel<<<grid, kThreads, T::kSmem, stream>>>(
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq * (D / DV), B);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11],
-      Hq / Hkv, Sq, Skv, scale, causal);
+      Hq / Hkv, Sq, Skv, Dt, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
+// The kernel width that serves head dim D (1 <= D <= 256): the next
+// multiple of 16 up to 128, else the next multiple of 32
+constexpr int kernel_width(int D) {
+  return D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32;
+}
+
+// Calls F<W>::run(args...) for the kernel width W of D; cudaErrorInvalidValue
+// for a D no kernel takes
+template <template <int> class F, typename... Args>
+int by_width(int D, Args... args) {
+  switch (D < 1 || D > 256 ? 0 : kernel_width(D)) {
+    case 16: return F<16>::run(args...);
+    case 32: return F<32>::run(args...);
+    case 48: return F<48>::run(args...);
+    case 64: return F<64>::run(args...);
+    case 80: return F<80>::run(args...);
+    case 96: return F<96>::run(args...);
+    case 112: return F<112>::run(args...);
+    case 128: return F<128>::run(args...);
+    case 160: return F<160>::run(args...);
+    case 192: return F<192>::run(args...);
+    case 224: return F<224>::run(args...);
+    case 256: return F<256>::run(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int W>
+struct TcLaunch {
+  template <typename... Args>
+  static int run(Args... args) { return tc::launch<W>(args...); }
+};
+
 // The bfloat16 prefill on the tensor cores.  Same arguments as
 // flash_attention_launch, for bfloat16; q, k and v must be 16-byte
-// aligned with strides of whole 16-byte units (the wrapper sees to it) and
-// Sq >= 2.  Returns cudaGetLastError() (0 on success).
+// aligned with strides of whole 16-byte units and D a multiple of 8 (the
+// wrapper sees to both) and Sq >= 2.  Returns cudaGetLastError() (0 on
+// success).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int Hq, int Hkv, int Sq, int Skv,
@@ -343,37 +410,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || B > 65535 || Hq > 65535 ||
-      (causal && Sq > Skv))
+      (causal && Sq > Skv) || D % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 32:
-      return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 48:
-      return tc::launch<48>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 64:
-      return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 80:
-      return tc::launch<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 96:
-      return tc::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                            scale, causal, s);
-    case 112:
-      return tc::launch<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                             scale, causal, s);
-    case 128:
-      return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                             scale, causal, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width<TcLaunch>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                            scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 // --- float32 prefill on the tensor cores, operands as bf16 pairs -----------
@@ -416,6 +456,12 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
 //     V pair tiles (768 D): 1280 D + 1088 bytes a block, 81 KB at D = 64
 //     and 101 KB at D = 80 (two blocks an SM), 121 KB at D = 96 and above
 //     (one), 41 KB at D = 32 and 21 KB at D = 16 (registers decide there);
+//   * the widths above 128 are tc_prefill's: the caller's Dt <= D is the
+//     maps' first extent (zeros past it), and a block owns DV = D / 2
+//     columns of v and o.  At D = 256 the float32 stage of K and V (96 KB)
+//     beside the pair tiles (160 KB) would not fit 227 KB, so there the
+//     stage (64 KB) holds K and then V in turn ("serial"): V's copy runs
+//     under the S products, the next K's under the P V products;
 //   * no atomics and a fixed order: the same bits from run to run.  Its
 //     plain version with the same roundings is
 //     kernels/ref.py:flash_attention_pairs.
@@ -440,36 +486,53 @@ struct Tile {
   static constexpr int kBF = kRows * D * 2;       // bytes of a bf16 tile
   static constexpr uint32_t kSBO = 8 * kHB;       // bytes of 8 rows
   static constexpr uint64_t kLayout = kDH == 64 ? 1 : (kDH == 32 ? 2 : 3);
-  // the stage of float32 k and v, then qh, ql, kh, kl, vh, vl; 1024 B of
-  // slack to align the swizzled tiles, and the mbarriers
-  static constexpr int kStage = 2 * kF32;
-  static constexpr int kSmem = 1024 + kStage + 6 * kBF + 64;
+};
+
+// Shared memory of width D: the float32 stage, then qh, ql, kh, kl (D
+// columns) and vh, vl (the DV columns of the block); 1024 B of slack to
+// align the swizzled tiles, and the mbarriers.  The stage holds K and V
+// together, or in turn where together would not fit (`serial`).
+template <int D>
+struct Smem {
+  static constexpr int DV = tc::group_width(D);
+  static constexpr int kPairs = 4 * Tile<D>::kBF + 2 * Tile<DV>::kBF;
+  static constexpr bool serial =
+      1024 + Tile<D>::kF32 + Tile<DV>::kF32 + kPairs + 64 > 232448;
+  static constexpr int kStage =
+      serial ? Tile<D>::kF32 : Tile<D>::kF32 + Tile<DV>::kF32;
+  static constexpr int kBytes = 1024 + kStage + kPairs + 64;
   // blocks an SM holds: 228 KB, less 1 KB the runtime keeps for each
-  static constexpr int kBlocks = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
+  static constexpr int kBlocks = 2 * (kBytes + 1024) <= 233472 ? 2 : 1;
+  static_assert(kBytes <= 232448, "shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, Tile<D>::kBlocks)
+__global__ void __launch_bounds__(kThreads, Smem<D>::kBlocks)
 pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     float* __restrict__ o, int64_t osb, int64_t osh,
-                    int64_t oss, int group, int Sq, int Skv, float scale,
-                    int causal) {
-  using T = Tile<D>;
+                    int64_t oss, int group, int Sq, int Skv, int Dt,
+                    float scale, int causal) {
+  using S = Smem<D>;
+  constexpr int DV = S::DV;
+  using T = Tile<D>;          // q and k
+  using TV = Tile<DV>;        // v's column group
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t vf_s = base + T::kF32;               // float32 v
-  const uint32_t qh_s = base + T::kStage, ql_s = qh_s + T::kBF;
+  // float32 k at base; float32 v after it, or at base too when serial
+  const uint32_t vf_s = S::serial ? base : base + T::kF32;
+  const uint32_t qh_s = base + S::kStage, ql_s = qh_s + T::kBF;
   const uint32_t kh_s = ql_s + T::kBF, kl_s = kh_s + T::kBF;
-  const uint32_t vh_s = kl_s + T::kBF, vl_s = vh_s + T::kBF;
-  const uint32_t full = vl_s + T::kBF, q_bar = full + 8;
+  const uint32_t vh_s = kl_s + T::kBF, vl_s = vh_s + TV::kBF;
+  const uint32_t full = vl_s + TV::kBF, q_bar = full + 8, v_bar = q_bar + 8;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int h = blockIdx.y / (D / DV), b = blockIdx.z, hk = h / group;
+  const int v0 = blockIdx.y % (D / DV) * DV;   // the block's first column
   // query row r sits at key position r + (Skv - Sq)
   const int offset = Skv - Sq;
   const int kv_end = causal ? min(Skv, q0 + kRows + offset) : Skv;
@@ -477,20 +540,29 @@ pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const CUtensorMap* kp = &kmap;
   const CUtensorMap* vp = &vmap;
-  auto load_kv = [=](int t) {
-    mbar_expect_tx(full, T::kStage);
+  auto load_k = [=](int t, uint32_t bar) {
 #pragma unroll
-    for (int f = 0; f < T::kNF; ++f) {
-      tma_load(base + f * kRows * T::kFB, kp, full, f * T::kFW, t * kKeys,
-               hk, b);
-      tma_load(vf_s + f * kRows * T::kFB, vp, full, f * T::kFW, t * kKeys,
-               hk, b);
-    }
+    for (int f = 0; f < T::kNF; ++f)
+      tma_load(base + f * kRows * T::kFB, kp, bar, f * T::kFW, t * kKeys, hk,
+               b);
+  };
+  auto load_v = [=](int t, uint32_t bar) {
+#pragma unroll
+    for (int f = 0; f < TV::kNF; ++f)
+      tma_load(vf_s + f * kRows * TV::kFB, vp, bar, v0 + f * TV::kFW,
+               t * kKeys, hk, b);
+  };
+  // the stage's next fill: K and V together, or K alone when serial
+  auto load_next = [=](int t) {
+    mbar_expect_tx(full, S::serial ? T::kF32 : T::kF32 + TV::kF32);
+    load_k(t, full);
+    if constexpr (!S::serial) load_v(t, full);
   };
 
   if (tid == 0) {
     mbar_init(full, 1);
     mbar_init(q_bar, 1);
+    mbar_init(v_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -500,7 +572,7 @@ pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int f = 0; f < T::kNF; ++f)
       tma_load(kh_s + f * kRows * T::kFB, &qmap, q_bar, f * T::kFW, q0, h, b);
-    load_kv(0);
+    load_next(0);
   }
   mbar_wait(q_bar, 0);
   split_tile<kRows, D, T::kFB, T::kHB, kThreads>(
@@ -511,24 +583,32 @@ pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   // each 8-column block j, columns 8 j + 2 (lane % 4) (+ 1)
   const int r0 = warp * 16 + lane / 4;
   const int c0 = 2 * (lane % 4);
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(full, t & 1);
     // every warp is past the last tile's products (and Q's split): split
-    // this tile's K and V into the pair tiles, then refill the stage
+    // this tile's K (and V) into the pair tiles, then refill the stage
     __syncthreads();
     split_tile<kRows, D, T::kFB, T::kHB, kThreads>(
         gbase, gbase + (kh_s - base), gbase + (kl_s - base), tid);
-    split_tile<kRows, D, T::kFB, T::kHB, kThreads>(
-        gbase + (vf_s - base), gbase + (vh_s - base), gbase + (vl_s - base),
-        tid);
+    if constexpr (!S::serial)
+      split_tile<kRows, DV, TV::kFB, TV::kHB, kThreads>(
+          gbase + (vf_s - base), gbase + (vh_s - base), gbase + (vl_s - base),
+          tid);
     fence_proxy_async();
     __syncthreads();
-    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+    if (tid == 0) {
+      if constexpr (S::serial) {
+        mbar_expect_tx(v_bar, TV::kF32);
+        load_v(t, v_bar);
+      } else if (t + 1 < n_tiles) {
+        load_next(t + 1);
+      }
+    }
 
     // S = Qh Kh^T + Qh Kl^T + Ql Kh^T: D / 16 k16 steps of each, both
     // operands K-major from shared memory
@@ -602,79 +682,103 @@ pair_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
       m[i] = m_new[i];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       acc[4 * j] *= alpha[0];
       acc[4 * j + 1] *= alpha[0];
       acc[4 * j + 2] *= alpha[1];
       acc[4 * j + 3] *= alpha[1];
     }
 
+    if constexpr (S::serial) {
+      // V has landed in the stage: split it, then bring the next K
+      mbar_wait(v_bar, t & 1);
+      split_tile<kRows, DV, TV::kFB, TV::kHB, kThreads>(
+          gbase + (vf_s - base), gbase + (vh_s - base), gbase + (vl_s - base),
+          tid);
+      fence_proxy_async();
+      __syncthreads();
+      if (tid == 0 && t + 1 < n_tiles) load_next(t + 1);
+    }
+
     // O += Ph Vh + Ph Vl + Pl Vh: 4 steps of 16 keys; V the MN-major B
-    // operand, its sub-tiles T::kSub apart (the leading byte offset)
+    // operand, its sub-tiles TV::kSub apart (the leading byte offset)
     fence_regs(acc);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      const uint32_t off = kk * 16 * T::kHB;
-      const uint64_t dh = make_desc(vh_s + off, T::kSub, T::kSBO, T::kLayout);
-      tc::wgmma_pv<D>(acc, &ph[4 * kk], dh);
-      tc::wgmma_pv<D>(acc, &ph[4 * kk],
-                      make_desc(vl_s + off, T::kSub, T::kSBO, T::kLayout));
-      tc::wgmma_pv<D>(acc, &pl[4 * kk], dh);
+      const uint32_t off = kk * 16 * TV::kHB;
+      const uint64_t dh =
+          make_desc(vh_s + off, TV::kSub, TV::kSBO, TV::kLayout);
+      tc::wgmma_pv<DV>(acc, &ph[4 * kk], dh);
+      tc::wgmma_pv<DV>(acc, &ph[4 * kk],
+                       make_desc(vl_s + off, TV::kSub, TV::kSBO, TV::kLayout));
+      tc::wgmma_pv<DV>(acc, &pl[4 * kk], dh);
     }
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
   }
 
-  float* ob = o + b * osb + h * osh;
+  // columns v0 + 8 j + c0 (+ 1) of the caller's Dt (a multiple of 4)
+  float* ob = o + b * osb + h * osh + v0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(ob + row * oss + 8 * j + c0) = make_float2(
-          acc[4 * j + 2 * i] / den, acc[4 * j + 2 * i + 1] / den);
+    for (int j = 0; j < DV / 8; ++j)
+      if (v0 + 8 * j + c0 < Dt)
+        *reinterpret_cast<float2*>(ob + row * oss + 8 * j + c0) = make_float2(
+            acc[4 * j + 2 * i] / den, acc[4 * j + 2 * i + 1] / den);
   }
 }
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, const int64_t* st, float scale,
-           int causal, cudaStream_t stream) {
-  using T = Tile<D>;
-  // (D, S, H, B) views with the caller's sequence, head and batch strides,
-  // cut into boxes of T::kFW x 64 rows
-  const cuuint32_t box[4] = {T::kFW, kRows, 1, 1};
+           int Hq, int Hkv, int Sq, int Skv, int Dt, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
+  using S = Smem<D>;
+  constexpr int kGroups = D / S::DV;
+  if (Hq * kGroups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // (Dt, S, H, B) views with the caller's sequence, head and batch strides,
+  // cut into boxes of kFW x 64 rows: q and k at D's box, v at DV's
+  const cuuint32_t boxes[2][4] = {{Tile<D>::kFW, kRows, 1, 1},
+                                  {Tile<S::DV>::kFW, kRows, 1, 1}};
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const cuuint64_t dims[4] = {
-        static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(i ? Skv : Sq),
+        static_cast<cuuint64_t>(Dt), static_cast<cuuint64_t>(i ? Skv : Sq),
         static_cast<cuuint64_t>(i ? Hkv : Hq), static_cast<cuuint64_t>(B)};
     const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
-    if (!encode_f32(&maps[i], ptrs[i], 4, dims, strides, box))
+    if (!encode_f32(&maps[i], ptrs[i], 4, dims, strides, boxes[i == 2]))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = pair_prefill_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
-  kernel<<<grid, kThreads, T::kSmem, stream>>>(
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq * kGroups, B);
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<float*>(o), st[9], st[10],
-      st[11], Hq / Hkv, Sq, Skv, scale, causal);
+      st[11], Hq / Hkv, Sq, Skv, Dt, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pairs
 
+template <int W>
+struct PairLaunch {
+  template <typename... Args>
+  static int run(Args... args) { return pairs::launch<W>(args...); }
+};
+
 // The float32 prefill on the tensor cores, launched on `stream`.
 // `strides` holds 12 element strides: batch, head and sequence of q, k, v
 // and o, in that order.  q, k, v and o are float32; q, k and v must be
-// 16-byte aligned with strides of whole 16-byte units (the wrapper sees to
-// it) and Sq >= 2.  Returns cudaGetLastError() (0 on success).
+// 16-byte aligned with strides of whole 16-byte units and D (1 to 256) a
+// multiple of 4 (the wrapper sees to both) and Sq >= 2.  Returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D,
@@ -682,35 +786,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || B > 65535 || Hq > 65535 ||
-      (causal && Sq > Skv))
+      (causal && Sq > Skv) || D % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return pairs::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 32:
-      return pairs::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 48:
-      return pairs::launch<48>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 64:
-      return pairs::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 80:
-      return pairs::launch<80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 96:
-      return pairs::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                               scale, causal, s);
-    case 112:
-      return pairs::launch<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                                scale, causal, s);
-    case 128:
-      return pairs::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
-                                scale, causal, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width<PairLaunch>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                              scale, causal,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -28,7 +28,13 @@
 //     of two (at D = 80, 10 lanes of 16 in bf16 and 20 of 32 in float32;
 //     the lanes past the row hold zeros and load nothing, so the shuffle
 //     sums and merges over the group stay whole), and each group loads
-//     U rows before it computes, so a block keeps its loads in flight;
+//     U rows before it computes, so a block keeps its loads in flight.  A
+//     row wider than a warp's 512 bytes (float32 above 128) is read by the
+//     whole warp, NV = 2 vectors a lane, 512 bytes apart;
+//   * the kernel's width D is a template (a multiple of 16 up to 128, then
+//     160, 192, 224, 256: the wrapper's kernel_dim); the caller's head dim
+//     Dt <= D, a multiple of 16 bytes, bounds the lanes that load and the
+//     columns stored;
 //   * float32 on the CUDA cores: the scores, an online softmax per lane
 //     group (running max m, normaliser l, accumulator acc), then the
 //     groups merged in a fixed order (shuffles in a warp, shared memory
@@ -111,15 +117,19 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o, int64_t qsb,
                     int64_t qsh, int64_t ksb, int64_t ksh, int64_t kss,
                     int64_t vsb, int64_t vsh, int64_t vss, int64_t osb,
-                    int64_t osh, int G, int Skv, int chunk, float scale) {
+                    int64_t osh, int G, int Skv, int Dt, int chunk,
+                    float scale) {
   using V = Vec<T>;
   using VT = typename V::type;
   constexpr int VEC = V::n;               // values in 16 bytes
-  constexpr int DV = D / VEC;             // lanes that read a key row
-  constexpr int LPK = pow2_ceil(DV);      // lanes per key row (a group)
+  constexpr int DV = D / VEC;             // 16-byte slices of a key row
+  constexpr int NV = (DV + 31) / 32;      // slices a lane reads
+  constexpr int LPK = NV > 1 ? 32 : pow2_ceil(DV);   // lanes per key row
   constexpr int KPW = 32 / LPK;           // key rows per warp step
   constexpr int NG = kWarps * KPW;        // lane groups in the block
-  constexpr int U = GM >= 8 ? 2 : 4;      // rows a group loads at once
+  constexpr int W = NV * VEC;             // values a lane holds
+  // rows a group loads at once
+  constexpr int U = GM * NV >= 16 ? 1 : (GM * NV >= 8 ? 2 : 4);
   static_assert(D % VEC == 0 && DV >= 1 && LPK <= 32, "head dim");
 
   extern __shared__ float sm[];
@@ -132,62 +142,78 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int sub = lane % LPK;             // this lane's 16-byte slice
-  const bool live = sub < DV;             // the slice lies inside the row
+  const int sub = lane % LPK;             // this lane's first 16-byte slice
+  // slice c of this lane holds columns col[c] .. + VEC; it lies inside
+  // the caller's row when col[c] < Dt
+  int col[NV];
+  bool live[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    col[c] = (c * LPK + sub) * VEC;
+    live[c] = col[c] < Dt;
+  }
   const int grp = warp * KPW + lane / LPK;
   const int k_begin = split * chunk;
   const int k_end = min(Skv, k_begin + chunk);
 
-  float qf[GM][VEC], acc[GM][VEC], m[GM], l[GM];
+  float qf[GM][W], acc[GM][W], m[GM], l[GM];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
+    for (int e = 0; e < W; ++e) {
       qf[g][e] = 0.f;
       acc[g][e] = 0.f;
     }
-    if (g < G && live)
-      V::widen(*reinterpret_cast<const VT*>(q + b * qsb + (hk * G + g) * qsh +
-                                            sub * VEC),
-               qf[g]);
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      if (g < G && live[c])
+        V::widen(*reinterpret_cast<const VT*>(
+                     q + b * qsb + (hk * G + g) * qsh + col[c]),
+                 qf[g] + c * VEC);
   }
 
-  const T* kb = k + b * ksb + hk * ksh + sub * VEC;
-  const T* vb = v + b * vsb + hk * vsh + sub * VEC;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
   for (int j0 = k_begin; j0 < k_end; j0 += NG * U) {
-    VT kr[U], vr[U];
+    VT kr[U][NV], vr[U][NV];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * NG + grp;
-      kr[u] = VT{};
-      vr[u] = VT{};
-      if (j < k_end && live) {
-        kr[u] = *reinterpret_cast<const VT*>(kb + j * kss);
-        vr[u] = *reinterpret_cast<const VT*>(vb + j * vss);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[u][c] = VT{};
+        vr[u][c] = VT{};
+        if (j < k_end && live[c]) {
+          kr[u][c] = *reinterpret_cast<const VT*>(kb + j * kss + col[c]);
+          vr[u][c] = *reinterpret_cast<const VT*>(vb + j * vss + col[c]);
+        }
       }
     }
     float s[GM][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      V::widen(kr[u], kf);
+      float kf[W];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) V::widen(kr[u][c], kf + c * VEC);
       const bool valid = j0 + u * NG + grp < k_end;
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+        for (int e = 0; e < W; ++e) dot = fmaf(qf[g][e], kf[e], dot);
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         s[g][u] = valid ? dot * scale : kNegInf;
       }
     }
-    float vf[U][VEC];
+    float vf[U][W];
 #pragma unroll
-    for (int u = 0; u < U; ++u) V::widen(vr[u], vf[u]);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < NV; ++c) V::widen(vr[u][c], vf[u] + c * VEC);
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       float mx = s[g][0];
@@ -197,7 +223,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[g] - m_new);
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < W; ++e) acc[g][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         // a key past the split's end weighs nothing, whatever m is
@@ -205,7 +231,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             j0 + u * NG + grp < k_end ? expf(s[g][u] - m_new) : 0.f;
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+        for (int e = 0; e < W; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
       }
       m[g] = m_new;
     }
@@ -222,14 +248,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float a = expf(m[g] - mn), c = expf(mo - mn);
       l[g] = l[g] * a + lo * c;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < W; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * a + ao * c;
       }
       m[g] = mn;
     }
   }
-  if (lane < DV) {
+  if (lane < LPK) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (lane == 0) {
@@ -237,15 +263,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         wl[warp * GM + g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        wacc[(warp * GM + g) * D + sub * VEC + e] = acc[g][e];
+      for (int c = 0; c < NV; ++c)
+        if (live[c])
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            wacc[(warp * GM + g) * D + col[c] + e] = acc[g][c * VEC + e];
     }
   }
   __syncthreads();
 
-  // the split's partial, warps merged in order
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
+  // the split's partial, warps merged in order, over the Dt columns
+  for (int i = tid; i < G * Dt; i += kThreads) {
+    const int g = i / Dt, d = i % Dt;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * GM + g]);
@@ -273,8 +302,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cluster.sync();
   if (cluster.block_rank() == 0) {
     const int n = static_cast<int>(cluster.num_blocks());
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i % D;
+    for (int i = tid; i < G * Dt; i += kThreads) {
+      const int g = i / Dt, d = i % Dt;
       float mx = kNegInf;
       for (int r = 0; r < n; ++r)
         mx = fmaxf(mx, cluster.map_shared_rank(pm, r)[g]);
@@ -293,10 +322,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int GM>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hkv, int G, int Skv, int n_split, const int64_t* st,
+           int Hkv, int G, int Skv, int Dt, int n_split, const int64_t* st,
            float scale, cudaStream_t stream) {
   auto kernel = flash_decode_kernel<T, D, GM>;
   constexpr int bytes = smem_floats<GM, D>() * static_cast<int>(sizeof(float));
+  if constexpr (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int chunk = (Skv + n_split - 1) / n_split;
   const dim3 grid(n_split, Hkv, B);
   const T* qp = static_cast<const T*>(q);
@@ -306,7 +340,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (n_split == 1) {
     kernel<<<grid, kThreads, bytes, stream>>>(
         qp, kp, vp, op, st[0], st[1], st[3], st[4], st[5], st[6], st[7],
-        st[8], st[9], st[10], G, Skv, chunk, scale);
+        st[8], st[9], st[10], G, Skv, Dt, chunk, scale);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t config = {};
@@ -323,56 +357,61 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, kernel, qp, kp, vp, op, st[0], st[1], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], G, Skv, chunk, scale);
+      st[6], st[7], st[8], st[9], st[10], G, Skv, Dt, chunk, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dispatch_g(const void* q, const void* k, const void* v, void* o, int B,
-               int Hkv, int G, int Skv, int n_split, const int64_t* st,
-               float scale, cudaStream_t s) {
+               int Hkv, int G, int Skv, int Dt, int n_split,
+               const int64_t* st, float scale, cudaStream_t s) {
   if (G <= 1)
-    return launch<T, D, 1>(q, k, v, o, B, Hkv, G, Skv, n_split, st, scale, s);
+    return launch<T, D, 1>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                           scale, s);
   if (G <= 2)
-    return launch<T, D, 2>(q, k, v, o, B, Hkv, G, Skv, n_split, st, scale, s);
+    return launch<T, D, 2>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                           scale, s);
   if (G <= 4)
-    return launch<T, D, 4>(q, k, v, o, B, Hkv, G, Skv, n_split, st, scale, s);
-  return launch<T, D, 8>(q, k, v, o, B, Hkv, G, Skv, n_split, st, scale, s);
+    return launch<T, D, 4>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                           scale, s);
+  return launch<T, D, 8>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st, scale,
+                         s);
+}
+
+// the kernel width of head dim D (1 <= D <= 256): the next multiple of 16
+// up to 128, else the next multiple of 32 (the wrapper's kernel_dim)
+constexpr int kernel_width(int D) {
+  return D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32;
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int Hkv, int G, int Skv, int D, int n_split,
                const int64_t* st, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return dispatch_g<T, 16>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 32:
-      return dispatch_g<T, 32>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 48:
-      return dispatch_g<T, 48>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 64:
-      return dispatch_g<T, 64>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 80:
-      return dispatch_g<T, 80>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 96:
-      return dispatch_g<T, 96>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                               scale, s);
-    case 112:
-      return dispatch_g<T, 112>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                                scale, s);
-    case 128:
-      return dispatch_g<T, 128>(q, k, v, o, B, Hkv, G, Skv, n_split, st,
-                                scale, s);
+  if (D < 1 || D > 256 || (D * static_cast<int>(sizeof(T))) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_DECODE_WIDTH(W)                                              \
+  case W:                                                                 \
+    return dispatch_g<T, W>(q, k, v, o, B, Hkv, G, Skv, D, n_split, st,   \
+                            scale, s);
+  switch (kernel_width(D)) {
+    REPRO_DECODE_WIDTH(16)
+    REPRO_DECODE_WIDTH(32)
+    REPRO_DECODE_WIDTH(48)
+    REPRO_DECODE_WIDTH(64)
+    REPRO_DECODE_WIDTH(80)
+    REPRO_DECODE_WIDTH(96)
+    REPRO_DECODE_WIDTH(112)
+    REPRO_DECODE_WIDTH(128)
+    REPRO_DECODE_WIDTH(160)
+    REPRO_DECODE_WIDTH(192)
+    REPRO_DECODE_WIDTH(224)
+    REPRO_DECODE_WIDTH(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DECODE_WIDTH
 }
 
 }  // namespace
@@ -380,8 +419,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `strides` holds 12 element strides, batch, head and sequence of q, k, v
 // and o in that order (the sequence strides of q and o are not read).  q,
-// k and v must be 16-byte aligned with strides of whole 16-byte units (the
-// wrapper sees to it).  dtype 0 = float32, 1 = bfloat16.
+// k and v must be 16-byte aligned with strides of whole 16-byte units, and
+// D (1 to 256) a whole number of 16-byte units (the wrapper sees to both).
+// dtype 0 = float32, 1 = bfloat16.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* o, int B, int Hq,
                                    int Hkv, int Skv, int D, int n_split,

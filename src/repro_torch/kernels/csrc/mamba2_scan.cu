@@ -30,6 +30,15 @@
 // bfloat16 once, at its store: the reference's arithmetic (bf16 operands,
 // float32 products and state).
 //
+// A block takes one (head, batch) and one tile of PT columns of P.  Given
+// dt, A, B and C, state row p and output column p depend on x[:, p] alone
+// (the reference's _ssd_kernel computes them so too), and every tile
+// computes the same M in the same order, so a tile's values are those of
+// the whole, bitwise.  PT is P where the whole state fits the block's
+// shared memory (smem_floats), else the widest tile that does, the tiles
+// evened out (p_tile): the B and C chunks bound N (kernels/mamba2_scan.py:
+// wide_p_tile mirrors the choice and its limit).
+//
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -50,6 +59,19 @@ constexpr int kLDM = kCS + 1;    // row pitch of M
 // reads down a column), M, and L, dt and the state-update weights
 int smem_floats(int P, int N) {
   return kCS * P + 2 * kCS * (N + 1) + P * (N + 1) + kCS * kLDM + 3 * kCS;
+}
+
+constexpr int kSmemLimit = 232448;   // dynamic shared memory of a block
+
+// columns of P a block takes: P itself where it fits, else the widest
+// multiple of 16 that fits, the tiles then evened out; 0 when no tile does
+int p_tile(int P, int N) {
+  if (smem_floats(P, N) * 4 <= kSmemLimit) return P;
+  int w = (P - 1) / 16 * 16;
+  while (w >= 16 && smem_floats(w, N) * 4 > kSmemLimit) w -= 16;
+  if (w < 16) return 0;
+  const int tiles = (P + w - 1) / w;
+  return (P + tiles - 1) / tiles;
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -75,7 +97,10 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    int64_t xsb, int64_t xsl, int64_t xsh,
                    int64_t dsb, int64_t dsl, int64_t dsh,
                    int64_t bsb, int64_t bsl, int64_t csb, int64_t csl,
-                   int L, int H, int P, int N) {
+                   int L, int H, int PF, int N, int PT) {
+  // this block's columns of P: PF's p_lo .. p_lo + P
+  const int p_lo = blockIdx.z * PT;
+  const int P = min(PT, PF - p_lo);
   extern __shared__ float smem[];
   const int LDN = N + 1;
   float* xs = smem;                  // kCS x P
@@ -91,13 +116,16 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tx = tid % 16, ty = tid / 16;
   const int h = blockIdx.x, b = blockIdx.y;
   const float a = A[h];
-  const T* xb = x + b * xsb + h * xsh;
+  const T* xb = x + b * xsb + h * xsh + p_lo;
   const float* db = dt + b * dsb + h * dsh;
   const T* bb = Bm + b * bsb;
   const T* cb = Cm + b * csb;
-  const int64_t ysl = static_cast<int64_t>(H) * P;
-  T* yb = y + static_cast<int64_t>(b) * L * ysl + static_cast<int64_t>(h) * P;
-  const int64_t hoff = (static_cast<int64_t>(b) * H + h) * P * N;
+  const int64_t ysl = static_cast<int64_t>(H) * PF;
+  T* yb = y + static_cast<int64_t>(b) * L * ysl + static_cast<int64_t>(h) * PF +
+          p_lo;
+  // the block's rows of the contiguous (B, H, PF, N) state
+  const int64_t hoff =
+      ((static_cast<int64_t>(b) * H + h) * PF + p_lo) * static_cast<int64_t>(N);
 
   for (int i = tid; i < P * N; i += kThreads)
     hs[(i / N) * LDN + i % N] = h0 ? h0[hoff + i] : 0.f;
@@ -282,17 +310,19 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, const float* h0, void* y, float* hout, int B,
            int L, int H, int P, int N, const int64_t* st,
            cudaStream_t stream) {
-  const int bytes = smem_floats(P, N) * static_cast<int>(sizeof(float));
+  const int pt = p_tile(P, N);
+  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = smem_floats(pt, N) * static_cast<int>(sizeof(float));
   auto kernel = mamba2_scan_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(H, B);
+  const dim3 grid(H, B, (P + pt - 1) / pt);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), h0, static_cast<T*>(y), hout,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      L, H, P, N);
+      L, H, P, N, pt);
   return static_cast<int>(cudaGetLastError());
 }
 

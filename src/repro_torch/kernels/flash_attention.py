@@ -17,6 +17,14 @@ Sq alone (:func:`route`):
   operand as a bf16 pair, ``hi = bf16(v)``, ``lo = bf16(v - hi)``, and
   every product as three bf16 products; its plain version with the same
   roundings is :func:`repro_torch.kernels.ref.flash_attention_pairs`.
+
+Every route takes any head dim D from 1 to ``MAX_HEAD_DIM`` (256), as the
+TPU kernel does, on a kernel of width :func:`kernel_dim` (a multiple of 16
+up to 128, then 160, 192, 224 or 256): the kernels read the caller's D
+columns and fill the rest of their width with zeros, exact because a zero
+column adds an exact zero to every q.k, and store D columns.  A row that
+is not a whole number of 16-byte units (D not a multiple of 8 in bfloat16
+or of 4 in float32) is first copied into zero-padded rows.
 """
 
 from __future__ import annotations
@@ -36,9 +44,15 @@ launches = 0
 #: the same calls by route; they add up to ``launches``
 route_launches = {"decode": 0, "tc_prefill": 0, "f32": 0}
 
-#: the head dims every route takes: the multiples of 16 up to 128 (the
-#: tensor cores' k16 step and whole 16-column sub-tiles); any other raises
+#: the kernel widths of one column group, on every route: the multiples of
+#: 16 up to 128 (the tensor cores' k16 step and whole 16-column sub-tiles)
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: the kernel widths above 128: a prefill block owns half the columns of v
+#: and o (two column groups), the decode kernel's warp one key row
+WIDE_HEAD_DIMS = (160, 192, 224, 256)
+#: the widest head dim any route takes; every D from 1 to it runs on a
+#: kernel of width :func:`kernel_dim`, a wider one raises
+MAX_HEAD_DIM = 256
 MAX_GROUP = 8          # query heads per KV head the decode kernel takes
 MAX_SPLIT = 8          # key splits: the portable thread-block cluster
 MIN_SPLIT_KEYS = 64    # keys a split holds at least
@@ -66,6 +80,16 @@ def route(q: torch.Tensor) -> str:
     if q.shape[2] == 1:
         return "decode"
     return "tc_prefill" if q.dtype == torch.bfloat16 else "f32"
+
+
+def kernel_dim(d: int) -> int:
+    """The kernel width that serves head dim ``d`` (1 to ``MAX_HEAD_DIM``):
+    the next of ``HEAD_DIMS + WIDE_HEAD_DIMS``.  The columns past ``d``
+    read as zeros, which add exact zeros to every q.k, and are not
+    stored."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    return -(-d // 16) * 16 if d <= 128 else -(-d // 32) * 32
 
 
 def decode_splits(bh: int, skv: int, n_sm: int) -> int:
@@ -136,9 +160,9 @@ def flash_attention_cuda(
         raise ValueError("flash_attention_cuda: need q (B, Hq, Sq, D) and k, "
                          f"v (B, Hkv, Skv, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} is not one of "
-                         f"{HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda: head dim {D} is outside "
+                         f"1..{MAX_HEAD_DIM}, the widest kernel's")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: {Hq} query heads do not "
                          f"group over {Hkv} kv heads")
@@ -155,10 +179,20 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: decode takes at most "
                          f"{MAX_GROUP} query heads per kv head, got "
                          f"{Hq // Hkv}")
-    out = torch.empty((B, Hq, Sq, D), dtype=dtype, device=dev)
     if B == 0 or Hq == 0 or Sq == 0:
-        return out
+        return torch.empty((B, Hq, Sq, D), dtype=dtype, device=dev)
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
+    # the kernels read rows of whole 16-byte units and fill the columns up
+    # to their width with zeros; a row off those units is copied, padded
+    # with zero columns (exact: they add zeros to every q.k), and the
+    # output's padding sliced off
+    unit = 16 // q.element_size()
+    Dp = -(-D // unit) * unit
+    if Dp != D:
+        pad = (0, Dp - D)
+        q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+        qs, ks, vs = q.stride(), k.stride(), v.stride()
+    out = torch.empty((B, Hq, Sq, Dp), dtype=dtype, device=dev)
     # the vector and TMA loads want 16-byte units: copy what is not
     if not _aligned(q, qs):
         q = q.clone(memory_format=torch.contiguous_format)
@@ -171,7 +205,7 @@ def flash_attention_cuda(
         vs = v.stride()
     # element strides: batch, head and sequence of q, k, v and out
     strides = array.array("q", (*qs[:3], *ks[:3], *vs[:3],
-                                Hq * Sq * D, Sq * D, D))
+                                Hq * Sq * Dp, Sq * Dp, Dp))
     fn = _launcher(which)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Hq, Hkv)
@@ -181,11 +215,11 @@ def flash_attention_cuda(
         stream = torch._C._cuda_getCurrentRawStream(index)
         if which == "decode":
             n_split = decode_splits(B * Hkv, Skv, _sm_count(dev))
-            err = fn(*head, Skv, D, n_split, strides.buffer_info()[0], scale,
-                     _DTYPES.index(dtype), stream)
+            err = fn(*head, Skv, Dp, n_split, strides.buffer_info()[0],
+                     scale, _DTYPES.index(dtype), stream)
         else:
-            err = fn(*head, Sq, Skv, D, strides.buffer_info()[0], scale,
+            err = fn(*head, Sq, Skv, Dp, strides.buffer_info()[0], scale,
                      int(causal), stream)
     _cuda.check(f"flash_attention ({which})", err)
     _cuda.add_launch(__name__, which)
-    return out
+    return out if Dp == D else out[..., :D].contiguous()

@@ -27,8 +27,10 @@ width N alone (:func:`route`):
   above ``DECODE_MAX_N``: ``csrc/mamba2_scan.cu``'s
   ``mamba2_scan_wide_launch``, float32 FMAs on the CUDA cores, bfloat16 x,
   B and C widened to float32 and y rounded to bfloat16 once.  One kernel,
-  one route name per dtype.  Its shared memory (:func:`smem_bytes`) bounds
-  (P, N): wider raises.
+  one route name per dtype.  A block takes a tile of P's columns
+  (:func:`wide_p_tile`: all of P where the state fits the block's shared
+  memory, :func:`smem_bytes`), so P is unbounded; the B and C chunks in
+  shared memory bound N (``WIDE_MAX_N`` at P >= 16): wider raises.
 """
 
 from __future__ import annotations
@@ -88,11 +90,32 @@ def route(x: torch.Tensor, n: int = 0) -> str:
 
 
 def smem_bytes(P: int, N: int) -> int:
-    """Shared memory one block of the wide routes needs for state
-    width (P, N), as ``csrc/mamba2_scan.cu``'s ``smem_floats`` counts
-    it."""
+    """Shared memory one block of the wide routes needs for a tile of P
+    columns and state width N, as ``csrc/mamba2_scan.cu``'s
+    ``smem_floats`` counts it."""
     return 4 * (_CHUNK * P + 2 * _CHUNK * (N + 1) + P * (N + 1)
                 + _CHUNK * (_CHUNK + 1) + 3 * _CHUNK)
+
+
+def wide_p_tile(P: int, N: int) -> int:
+    """Columns of P one block of the wide routes takes, as
+    ``csrc/mamba2_scan.cu``'s ``p_tile`` chooses them: P where the whole
+    state fits ``SMEM_LIMIT``, else the widest multiple of 16 that fits,
+    the tiles then evened out; 0 when not even 16 columns fit (N above
+    ``WIDE_MAX_N``)."""
+    if smem_bytes(P, N) <= SMEM_LIMIT:
+        return P
+    w = (P - 1) // 16 * 16
+    while w >= 16 and smem_bytes(w, N) > SMEM_LIMIT:
+        w -= 16
+    if w < 16:
+        return 0
+    tiles = -(-P // w)
+    return -(-P // tiles)
+
+
+#: the widest N the wide routes take at P >= 16 (a tile of 16 columns)
+WIDE_MAX_N = max(n for n in range(1, 1024) if smem_bytes(16, n) <= SMEM_LIMIT)
 
 
 def _launcher(name: str):
@@ -178,10 +201,13 @@ def mamba2_scan_cuda(
         raise ValueError("mamba2_scan_cuda: x, Bmat and Cmat need a "
                          "contiguous last dimension")
     which = route(x, N)
-    if which in ("f32_wide", "bf16_wide") and smem_bytes(P, N) > SMEM_LIMIT:
-        raise ValueError(f"mamba2_scan_cuda: state width P={P}, N={N} needs "
-                         f"{smem_bytes(P, N)} bytes of shared memory, above "
-                         f"the block's {SMEM_LIMIT}")
+    if which in ("f32_wide", "bf16_wide") and P and N \
+            and not wide_p_tile(P, N):
+        tile = min(P, 16)
+        raise ValueError(f"mamba2_scan_cuda: state width N={N} needs "
+                         f"{smem_bytes(tile, N)} bytes of shared memory at a "
+                         f"tile of {tile} columns of P, above the block's "
+                         f"{SMEM_LIMIT}")
     if Bsz > 65535 or H > 65535:
         raise ValueError(f"mamba2_scan_cuda: B={Bsz} or H={H} above the "
                          "grid's 65535")

@@ -7,7 +7,8 @@ from .grid import (CartesianGrid, GridMapping, GridProduct, build_mapping,
 from .incremental import (IncrementalGridProduct, IncrementalMosaic,
                           IncrementalQPE, MosaicState, UpdateReport,
                           incremental_product, streaming_qpe)
-from .products import PRODUCT_KINDS, ProductRequest, compute_product
+from .products import (PRODUCT_KINDS, ProductRequest, compute_product,
+                       request_from_params)
 from .qpe import QPEResult, qpe_from_volumes
 from .qvp import QVPResult, qvp_from_volumes
 from .timeseries import PointSeries, point_series_from_session
@@ -20,6 +21,7 @@ __all__ = [
     "MosaicState",
     "UpdateReport", "incremental_product", "streaming_qpe",
     "PRODUCT_KINDS", "ProductRequest", "compute_product",
+    "request_from_params",
     "QPEResult", "qpe_from_volumes",
     "QVPResult", "qvp_from_volumes",
     "PointSeries", "point_series_from_session",

@@ -185,8 +185,25 @@ def compute_product(target, request: ProductRequest, *,
     return _compute_session(target, request, dev)
 
 
+def request_from_params(kind: str, params: Dict[str, Any]) -> ProductRequest:
+    """Build a request from a flat string-keyed parameter dict.
+
+    The adapter the HTTP service uses: unknown keys raise (the service
+    validates its own surface first), sequence-valued fields are
+    normalized to tuples so requests stay hashable.
+    """
+    kw: Dict[str, Any] = {}
+    for name, value in params.items():
+        if name in ("sweeps", "repos") and value is not None and \
+                not isinstance(value, tuple):
+            value = tuple(value)
+        kw[name] = value
+    return ProductRequest(kind=kind, **kw)
+
+
 __all__ = [
     "PRODUCT_KINDS",
     "ProductRequest",
     "compute_product",
+    "request_from_params",
 ]

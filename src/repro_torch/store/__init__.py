@@ -1,8 +1,10 @@
 """Transactional, chunked archive storage (Zarr + Icechunk analogue).
 
-The write and read path of the reference package's store, kept as this
-package's own copy: same chunk encoding, manifests, stat sidecars and
-snapshot documents, so snapshot ids agree and archives interoperate.
+The reference package's store, kept as this package's own copy: the read
+and commit paths, rebase, branches, tags, history, rollback, compaction
+and gc, and the object-store backends.  Same chunk encoding, manifests,
+stat sidecars and snapshot documents, so the same operations give the
+same snapshot ids and archives interoperate.
 """
 
 from .chunks import (ChunkGrid, chunk_stats_summary, content_hash,
@@ -18,9 +20,19 @@ from .codecs import (
     register_codec,
     set_default_codec,
 )
+from .compaction import (
+    PROFILES as COMPACTION_PROFILES,
+    CompactionProfile,
+    CompactionReport,
+    compact,
+    plan_compaction,
+)
 from .icechunk import (
     DEFAULT_CACHE_BYTES,
+    GC_GRACE_SECONDS,
+    MANIFEST_FORMAT,
     MANIFEST_SHARD_CHUNKS,
+    CommitInfo,
     ConflictError,
     NotFound,
     PrefetchReport,
@@ -28,27 +40,37 @@ from .icechunk import (
     Session,
     Transaction,
 )
-from .object_store import ObjectStore
+from .object_store import Backend, ObjectStore, SimulatedLatencyStore
 from .zarrlite import Array, ArrayMeta
 
 __all__ = [
     "Array",
     "ArrayMeta",
+    "Backend",
+    "COMPACTION_PROFILES",
     "ChunkGrid",
     "Codec",
+    "CommitInfo",
+    "CompactionProfile",
+    "CompactionReport",
     "ConflictError",
     "DEFAULT_CACHE_BYTES",
+    "GC_GRACE_SECONDS",
+    "MANIFEST_FORMAT",
     "MANIFEST_SHARD_CHUNKS",
     "NotFound",
     "ObjectStore",
     "PrefetchReport",
     "Repository",
     "Session",
+    "SimulatedLatencyStore",
     "Transaction",
     "UnknownCodecError",
     "available_codecs",
     "chunk_stats_summary",
+    "compact",
     "content_hash",
+    "plan_compaction",
     "decode_chunk",
     "default_codec",
     "encode_chunk",

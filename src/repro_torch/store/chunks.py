@@ -56,6 +56,9 @@ class ChunkGrid:
             max(1, math.ceil(s / c)) for s, c in zip(self.shape, self.chunks)
         )
 
+    def n_chunks(self) -> int:
+        return int(np.prod(self.grid_shape))
+
     def chunk_ids(self) -> Iterator[Tuple[int, ...]]:
         yield from np.ndindex(*self.grid_shape)
 
@@ -88,6 +91,42 @@ class ChunkGrid:
             ranges.append(range(start // c, (stop - 1) // c + 1))
         for offsets in np.ndindex(*[len(r) for r in ranges]):
             yield tuple(r[o] for r, o in zip(ranges, offsets))
+
+
+def plan_time_chunks(
+    shape: Sequence[int],
+    chunks: Sequence[int],
+    itemsize: int,
+    target_bytes: int,
+) -> Tuple[int, ...]:
+    """Analysis-optimized leading-axis (time) chunk length.
+
+    Chosen under a byte budget.
+
+    Append-heavy ingest leaves an archive with many short time chunks;
+    this plans the tall replacement the compaction pass rewrites them
+    into.  The planned chunk is at least the current one (compaction only
+    merges along time, never splits), a multiple of it while that keeps
+    several chunks (so old chunk boundaries nest inside new ones and the
+    rewrite copies each old chunk exactly once), and capped at the array
+    extent.  Arrays that already fit in one time chunk come back
+    unchanged — the no-op the idempotence of compaction relies on.
+    """
+    shape = tuple(shape)
+    chunks = tuple(chunks)
+    if not shape or shape[0] <= 0:
+        return chunks
+    if math.ceil(shape[0] / chunks[0]) <= 1:
+        return chunks  # a single time chunk cannot be merged further
+    row_bytes = itemsize
+    for s, c in zip(shape[1:], chunks[1:]):
+        row_bytes *= max(1, min(c, s))
+    t = max(1, target_bytes // max(1, row_bytes))
+    if t >= shape[0]:
+        t = shape[0]
+    else:
+        t = max(chunks[0], (t // chunks[0]) * chunks[0])
+    return (int(t),) + chunks[1:]
 
 
 def normalize_selection(selection, ndim: int) -> list:

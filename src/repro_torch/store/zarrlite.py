@@ -128,6 +128,16 @@ class Array:
     def dtype(self):
         return np.dtype(self.meta.dtype)
 
+    @property
+    def chunks(self) -> Tuple[int, ...]:
+        """Chunk grid — fixed at creation, rewritten only by the
+        compaction maintenance pass (:mod:`repro_torch.store.compaction`)."""
+        return self.meta.chunks
+
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        return self.meta.attrs
+
     def _normalize_int(self, ax: int, s: int) -> int:
         dim = self.meta.shape[ax]
         if s < 0:

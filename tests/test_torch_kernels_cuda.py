@@ -331,8 +331,10 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     again = ops.flash_attention(q, k, v, causal=causal)
     assert torch.equal(got, again)
+    # a head dim above the widest kernel's (256) raises
+    wide = torch.zeros((1, 2, 3, 264), dtype=dt, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q[..., :8], k[..., :8], v[..., :8])
+        ops.flash_attention(wide, wide, wide)
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
 
@@ -427,9 +429,10 @@ def test_flash_decode_kernel_at_head_dims_off_powers_of_two(group, skv, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [40, 8, 136, 24])
+@pytest.mark.parametrize("d", [257, 264, 320, 512])
 def test_flash_attention_refuses_head_dims_off_its_set(d):
-    # no quiet plain path: a head dim no kernel takes raises on every route
+    # no quiet plain path: a head dim no kernel takes (above 256, the
+    # widest kernel's) raises on every route
     _need_cuda()
     for dt in (torch.float32, torch.bfloat16):
         for sq in (1, 70):
@@ -437,6 +440,43 @@ def test_flash_attention_refuses_head_dims_off_its_set(d):
             k = torch.zeros((1, 2, 80, d), dtype=dt, device="cuda")
             with pytest.raises(ValueError, match="head dim"):
                 ops.flash_attention(q, k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [40, 72, 136, 200, 256, 8, 33, 144, 176, 250])
+@pytest.mark.parametrize("b, hq, hkv, sq, extra, causal", [
+    (2, 4, 2, 100, 37, True), (1, 3, 1, 65, 0, False), (1, 2, 2, 1, 130, True),
+    (2, 8, 2, 1, 1055, True)])
+def test_flash_attention_routes_at_any_head_dim(b, hq, hkv, sq, extra, causal,
+                                                d, dtype):
+    # every D up to 256 on a kernel: zero columns up to the kernel's width
+    # (a padded copy where a row is off 16-byte units), two column groups
+    # of v above 128; k and v a prefix of a longer cache
+    _need_cuda()
+    rng = np.random.default_rng(sq + extra + d)
+    dt = getattr(torch, dtype)
+    skv = sq + extra
+    q = _t(rng.normal(size=(b, hq, sq, d)).astype(np.float32)).cuda().to(dt)
+    cache = _t(rng.normal(size=(2, b, hkv, skv + 29, d)).astype(np.float32))
+    k, v = (c[:, :, :skv] for c in cache.cuda().to(dt))
+    got, which = _route_call(q, k, v, causal)
+    assert which == flash_attention.route(q) and got.shape == q.shape
+    assert got.dtype == dt and got.is_contiguous()
+    want = ref.flash_attention(q, k, v, causal=causal)
+    if dt == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **F32_TOL)
+        if sq > 1:
+            pairs = ref.flash_attention_pairs(q, k, v, causal=causal)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       pairs.cpu().numpy(), **F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=5e-2,
+                                   atol=5e-2)
+        _assert_bf16_rows(got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.cuda
@@ -553,8 +593,9 @@ def test_mamba2_scan_kernel_matches_plain_on_card(b, l, h, p, n, with_h0,
     assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         ops.mamba2_scan(x.half(), dt, A, Bm.half(), Cm.half())
+    # P is tiled over the grid; N above the tile bound (365) raises
     wide_state = [torch.zeros(shape, device="cuda")
-                  for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 256))]
+                  for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 400))]
     with pytest.raises(ValueError, match="shared memory"):
         ops.mamba2_scan(*wide_state, wide_state[-1])
 
@@ -651,18 +692,45 @@ def test_mamba2_chunk_tc_takes_strided_and_misaligned_views(offset):
 
 @pytest.mark.cuda
 def test_mamba2_scan_routes_name_their_width_limits():
-    # wider than the tensor-core and decode kernels go to the wide kernel,
-    # whose shared memory is the one limit left
+    # wider than the tensor-core and decode kernels go to the wide kernel;
+    # it tiles P over the grid, so the one limit left is N, whose B and C
+    # chunks fill a block's shared memory beside a tile of 16 columns
     _need_cuda()
     rng = np.random.default_rng(9)
     args = _scan_inputs(rng, 1, 3, 1, 136, 16, torch.bfloat16, False)
     assert mamba2_scan.route(args[0], 16) == "bf16_wide"
     args = _scan_inputs(rng, 1, 1, 1, 4, 300, torch.float32, False)
     assert mamba2_scan.route(args[0], 300) == "f32_wide"
+    assert mamba2_scan.WIDE_MAX_N == 365
     for dtype in (torch.float32, torch.bfloat16):
-        args = _scan_inputs(rng, 1, 3, 1, 256, 400, dtype, False)
-        with pytest.raises(ValueError, match="bytes of shared memory"):
-            ops.mamba2_scan(*args[:5])
+        for p, n in ((256, 400), (16, mamba2_scan.WIDE_MAX_N + 1)):
+            args = _scan_inputs(rng, 1, 3, 1, p, n, dtype, False)
+            with pytest.raises(ValueError, match="bytes of shared memory"):
+                ops.mamba2_scan(*args[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l, p, n, with_h0", [
+    (130, 160, 160, True), (70, 256, 192, False), (2, 256, 192, True),
+    (1, 40, 365, True), (65, 33, 365, False)])
+def test_wide_scan_tiles_p_over_the_grid(l, p, n, with_h0, dtype):
+    # a state wider than a block's shared memory: tiles of P's columns,
+    # each the whole's values (every tile computes the same M in the same
+    # order), so the tiled scan equals the scan of each P slice
+    _need_cuda()
+    rng = np.random.default_rng(70 + l + p + n)
+    dt_ = getattr(torch, dtype)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, l, 3, p, n, dt_, with_h0)
+    assert mamba2_scan.wide_p_tile(p, n) < p
+    y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
+    assert which == ("f32_wide" if dtype == "float32" else "bf16_wide")
+    _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    # one P slice through the kernel: its tile's values, bitwise
+    cut = slice(p - 16, p)
+    ys, hs = ops.mamba2_scan(x[..., cut], dt, A, Bm, Cm,
+                             h0=None if h0 is None else h0[:, :, cut])
+    assert torch.equal(ys, y[..., cut]) and torch.equal(hs, hN[:, :, cut])
 
 
 # ---------------------------------------------------------------------------
