@@ -43,8 +43,12 @@ Phases, each printing its own lines:
    80) prefill and decode shapes and at 32 ragged ones (D 16 to 128 in
    steps of 16), then at head dims no configuration has (40, 72, 136,
    200, 256: zero columns up to the kernel's width, two column groups of
-   v above 128) at ragged shapes and at stablelm's B, heads and S, in
-   float32 and bfloat16, each call on the route its dtype and Sq choose;
+   v above 128; 288, 320, 384, 512: S summed over k-slices of 64 columns,
+   v and o in groups of 128, decode in passes of 256) at ragged shapes
+   and, from 256 up, at stablelm's B, heads and S, and a decode of 16
+   query heads on
+   each KV head (at D 64 and 320, and at radar-lm's B and D), in float32
+   and bfloat16, each call on the route its dtype and Sq choose;
    timed beside its plain version and
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
@@ -61,9 +65,11 @@ Phases, each printing its own lines:
    tensor-core instructions of the built library counted; the CUDA-core
    kernel for states wider than the tensor cores hold, in float32 and
    (``bf16_wide``) bfloat16 at P = 64, N = 192, timed, and with P tiled
-   over the grid (a state wider than a block's shared memory) at ragged
-   shapes and at zamba2's B, L and H with P = N = 160 and P = 256,
-   N = 192, in both dtypes, timed;
+   over the grid (a state wider than a block's shared memory) and B and C
+   passed in slices of N (any N; the state in global memory where no 16
+   of its columns fit) at ragged shapes and at zamba2's B, L and H with
+   P = N = 160, P = 256, N = 192 and P = 64, N = 384 and 512, in both
+   dtypes, timed;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -80,7 +86,7 @@ Phases, each printing its own lines:
    its bound, and each product end to end, split into store read and
    decode, host-to-device copy, kernel, and device-to-host copy;
 6. the incremental path (it appends to the archive): incremental CAPPI,
-   column-max and QPE states built at the archive's head, then 3 scans
+   column-max and QPE states built at the archive's head, then 2 scans
    appended one commit each; after each append every state catches up
    and is held bitwise against the from-scratch product at that head,
    with ``grid_update``'s launches counted (one per wet scan for QPE,
@@ -114,6 +120,16 @@ Phases, each printing its own lines:
       after the tag is deleted (objects and bytes removed); the QVP read
       through a ``SimulatedLatencyStore`` (50 ms round trips) at
       read_workers 1 and 8, bitwise the local read;
+   e. Raw2Zarr: 16 raw VCP-212 volumes at full width (sweeps 0-4, the
+      format's 7 moments) from ``repro_torch.etl.generate_raw_archive``,
+      ingested by ``repro_torch.etl.ingest`` at workers 8 (registered in a
+      ``Catalog`` from its report) and 1 into fresh repositories, their
+      snapshot ids equal, stage seconds and MB printed; the DataTree view
+      of the result; QVP and QPE through ``compute_product`` on it, one
+      launch each, against ``mode="ref"``; then a ``LiveFeed`` of 2
+      ``live_scan_feed`` scans, the catalog's head advancing with each,
+      and an incremental CAPPI updated after each (one ``grid_map``
+      launch) bitwise equal to the CAPPI rebuilt from scratch;
 7. the LM serve path: radar-lm-100m at full width from
    ``init_params(seed=0)`` serves 8 radar scans of 1024 tokens drawn from
    the archive (``RadarTokenDataset``) through ``Engine.generate``, 32 new
@@ -137,7 +153,16 @@ Phases, each printing its own lines:
    b. the stablelm-3b serve path the same way (32 layers, d_model 2560,
    32/32 heads of 80): float32 kernel route against the blocked core,
    exactly 32 x (1 + decode steps) ``flash_attention`` launches, then
-   bfloat16 timed.
+   bfloat16 timed;
+9. the train path: ``repro_torch.launch.train`` trains radar-lm-100m at
+   full width with its defaults (batch 8, seq 512, bf16 compute) on
+   tokens of the ingested archive for 20 steps, a checkpoint every 10 in
+   the port's ``Repository``; rolled back to step 10, a second run
+   resumes there and its losses at steps 11-20 stay within 1e-2 relative
+   of the first's; ms per step, tokens/s, peak memory and the first and
+   last loss printed; then ``launch.serve --ckpt`` serves the newest
+   checkpoint (``flash_attention`` on ``tc_prefill`` and ``decode``), its
+   greedy tokens equal to an engine on the trained parameters in memory.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -156,6 +181,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -171,7 +197,7 @@ QPE_SWEEP, QVP_SWEEP = 0, 4
 MOMENTS = ("DBZH", "RHOHV")
 # moments kept per sweep: RHOHV only where QVP and QPE read
 SWEEP_MOMENTS = {QPE_SWEEP: MOMENTS, QVP_SWEEP: MOMENTS}
-N_APPEND = 3                      # scans the incremental path appends
+N_APPEND = 2                      # scans the incremental path appends
 T0 = 1305849600.0                 # 2011-05-20, the paper's KVNX case
 SEED = 0
 VCP_NAME = "VCP-212"
@@ -1094,9 +1120,31 @@ def sdpa(q, k, v, causal: bool):
 FA_ROUTES = ("tc_prefill", "decode", "f32")
 L2_BYTES = 50e6                            # the H100's L2 cache
 # head dims no configuration has, checked and timed beside the paths'
-# ones: off the multiples of 16 (zero columns up to the kernel's width)
-# and above 128 (two column groups of v), at stablelm's B, heads and S
-FA_WIDE_DIMS = (40, 72, 136, 200, 256)
+# ones: off the multiples of 16 (zero columns up to the kernel's width),
+# above 128 (two column groups of v) and above 256 (S summed over k-slices
+# of 64 columns, v and o in groups of 128; decode in passes of 256), at
+# stablelm's B, heads and S
+FA_WIDE_DIMS = (40, 72, 136, 200, 256, 288, 320, 384, 512)
+# the ones timed at stablelm's shapes: 256 and the sliced widths (40-200
+# are checked here; PERF.md row 5a keeps their earlier times)
+FA_TIMED_DIMS = (256, 288, 320, 384, 512)
+# a decode whose group holds more than 8 query heads (sliced over the
+# grid, 8 a block): checked at these head dims, timed at radar-lm's B and
+# head dim with 32 query heads on 2 KV heads
+FA_GROUP = 16
+FA_GROUP_DIMS = (64, 320)
+
+
+def width_note(d: int) -> str:
+    """How the attention kernels cover head dim ``d``."""
+    from repro_torch.kernels import flash_attention
+
+    if d <= flash_attention.SLICED_ABOVE:
+        return f"kernel width {flash_attention.kernel_dim(d)}"
+    slices, groups, smem = flash_attention.wide_tiling(d)
+    passes, _cg, _gs = flash_attention.decode_tiling(d, 1)
+    return (f"{slices} k-slices and {groups} column groups a prefill, "
+            f"{smem} bytes of shared memory a block; {passes} decode passes")
 
 
 def fa_shapes():
@@ -1452,13 +1500,13 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype)[6:]
             check(f"head dim B={b} Hq={hq} Hkv={hkv} Sq={sq} "
-                  f"Skv={sq + extra} D={d} (kernel width "
-                  f"{flash_attention.kernel_dim(d)}) causal={causal} {dt}",
+                  f"Skv={sq + extra} D={d} ({width_note(d)}) "
+                  f"causal={causal} {dt}",
                   q.to(dtype), k.to(dtype), v.to(dtype), causal)
             check(f"head dim decode B={b} Hq={hq} Hkv={hkv} "
                   f"Skv={sq + extra} D={d} {dt}", q1.to(dtype), k.to(dtype),
                   v.to(dtype), causal)
-    for d in FA_WIDE_DIMS:
+    for d in FA_TIMED_DIMS:
         cache = randn(2, B_s, Hkv_s, LM_MAX_LEN, d)
         for dtype in (torch.float32, torch.bfloat16):
             dt = "f32" if dtype == torch.float32 else "bf16"
@@ -1477,17 +1525,42 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                       cv[:, :, :S + LM_NEW_TOKENS], True)
                 cases[(f"D{d}", "decode", dt)] = (q1, ck, cv)
         del cache
+    # a group of FA_GROUP query heads on each KV head: ragged, both dtypes,
+    # then at radar-lm's B and head dim for the timing
+    for d in FA_GROUP_DIMS:
+        for hkv in (1, 2):
+            skv = int(rng.integers(70, 1200))
+            q1 = randn(2, hkv * FA_GROUP, 1, d)
+            k, v = randn(2, hkv, skv, d), randn(2, hkv, skv, d)
+            for dtype in (torch.float32, torch.bfloat16):
+                check(f"group {FA_GROUP} decode B=2 Hq={hkv * FA_GROUP} "
+                      f"Hkv={hkv} Skv={skv} D={d} ({width_note(d)}) "
+                      f"{str(dtype)[6:]}", q1.to(dtype), k.to(dtype),
+                      v.to(dtype), True)
+    B_g, _hq, _hkv, D_g = fa_shapes()["lm"]
+    Hkv_g = 2
+    cache = randn(2, B_g, Hkv_g, LM_MAX_LEN, D_g).to(torch.bfloat16)
+    q1 = randn(B_g, Hkv_g * FA_GROUP, 1, D_g).to(torch.bfloat16)
+    check(f"group {FA_GROUP} decode bf16 B={B_g} Hq={Hkv_g * FA_GROUP} "
+          f"Hkv={Hkv_g} kv_len={S + LM_NEW_TOKENS} of a {LM_MAX_LEN}-long "
+          "cache", q1, cache[0][:, :, :S + LM_NEW_TOKENS],
+          cache[1][:, :, :S + LM_NEW_TOKENS], True)
+    cases[("G16", "decode", "bf16")] = (q1, cache[0], cache[1])
+    del cache
 
     # times at the paths' shapes ---------------------------------------------
     rows = {}
     n_kv = S + LM_NEW_TOKENS
     shapes = dict(fa_shapes())
-    shapes.update({f"D{d}": (B_s, Hq_s, Hkv_s, d) for d in FA_WIDE_DIMS})
+    shapes.update({f"D{d}": (B_s, Hq_s, Hkv_s, d) for d in FA_TIMED_DIMS})
+    shapes["G16"] = (B_g, Hkv_g * FA_GROUP, Hkv_g, D_g)
     for tag, (B, Hq, Hkv, D) in shapes.items():
-        wide = tag.startswith("D")
+        wide = tag.startswith("D") or tag == "G16"
         for which, kind, dt in (("tc_prefill", "prefill", "bf16"),
                                 ("decode", "decode", "bf16"),
                                 ("f32", "prefill", "f32")):
+            if (tag, kind, dt) not in cases:
+                continue
             q, k, v = cases[(tag, kind, dt)]
             skv = n_kv if kind == "decode" else k.shape[2]
             pairs = [(k[:, :, :skv], v[:, :, :skv])]
@@ -1561,7 +1634,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved"
                 + (f"; wrapper host {row['host_us']:.2f} us per call "
                    "(enqueue of 1000)" if "host_us" in row else
-                   f"; kernel width {flash_attention.kernel_dim(D)}"
+                   f"; {width_note(D)}"
                    + (", a zero-padded copy of q, k and v first"
                       if D * q.element_size() % 16 else "")))
             rows[(which, tag)] = row
@@ -1598,7 +1671,12 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             str(d): {key: rows[(which, f"D{d}")].get(key)
                      for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}
-            for d in FA_WIDE_DIMS}
+            for d in FA_TIMED_DIMS}
+        if which == "decode":
+            row["group16"] = {key: rows[("decode", "G16")].get(key)
+                              for key in ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}
         out[f"flash_attention:{which}"] = row
     return out
 
@@ -1619,8 +1697,9 @@ SSM_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels.py:330-331
 SSM_BF16_Y_TOL = dict(rtol=1e-2, atol=1e-2)
 SSM_CHUNK = 64                             # csrc/mamba2_scan.cu, kCS and kT
 SSM_ROUTES = ("chunk_tc", "decode", "f32")
-# (P, N) of the wide kernel's P-tiled cases timed at zamba2's B, L and H
-SSM_TILED = ((160, 160), (256, 192))
+# (P, N) of the wide kernel's cases timed at zamba2's B, L and H: P tiled
+# over the grid, and N above the old limit of 365 (B and C in slices)
+SSM_TILED = ((160, 160), (256, 192), (64, 384), (64, 512))
 # zamba2's bf16 prefill on the kernel routes against the same prefill with
 # only the Mamba-2 scan on its plain version: last-position logits, each
 # request's L2 error over its L2 norm.  The two scans' y differ in the last
@@ -1855,11 +1934,15 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
     # zamba2's B, L and H with P = N = 160 and P = 256, N = 192, timed
     # beside the plain version and the CUDA cores' bound
     for l, p, n in ((130, 160, 160), (70, 256, 192), (1, 40, 365),
-                    (65, 33, 365)):
+                    (65, 33, 365), (130, 64, 384), (70, 160, 512),
+                    (65, 40, 3000)):
         for dtype in (torch.float32, torch.bfloat16):
-            check(f"P-tiled B=2 L={l} H=3 P={p} N={n} (tiles of "
-                  f"{mamba2_scan.wide_p_tile(p, n)}) {str(dtype)[6:]} from "
-                  "a state", inputs(2, l, 3, p, n, dtype, True))
+            tile, resident = mamba2_scan.wide_tiling(p, n)
+            check(f"P-tiled B=2 L={l} H=3 P={p} N={n} (tiles of {tile}, "
+                  f"{mamba2_scan.n_slices(n)} N-slices, the state "
+                  f"{'in shared' if resident else 'in global'} memory) "
+                  f"{str(dtype)[6:]} from a state",
+                  inputs(2, l, 3, p, n, dtype, True))
     tiled = {}
     for p, n in SSM_TILED:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3625,6 +3708,291 @@ def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
               trace_device(step, n, warmup), step_ms, "step")
 
 
+# -- phase 6e: Raw2Zarr ingest, the DataTree view and the live feed -------------
+
+# raw VCP-212 volumes at full width (720 x 1192), sweeps 0-4 of 14, every
+# moment the format carries (7); ingested at INGEST_WORKERS, the ids held
+# equal; then FEED_SCANS live scans appended one commit each
+INGEST_SCANS = 16
+INGEST_SWEEPS = 5
+INGEST_T0 = 1305849600.0          # generate_raw_archive's and the feed's t0
+INGEST_WORKERS = (8, 1)
+FEED_SCANS = 2
+
+
+def drive_ingest_path(work: str, rows) -> str:
+    """Raw files from ``generate_raw_archive``, ingested by
+    ``repro_torch.etl.ingest`` at each of ``INGEST_WORKERS`` into a fresh
+    repository (equal snapshot ids), the first run registered in a
+    ``Catalog`` from its report; the DataTree view of the result; QVP and
+    QPE through ``compute_product`` on the card, one launch each, held
+    against ``mode="ref"``; then a ``LiveFeed`` of ``FEED_SCANS`` scans of
+    ``live_scan_feed`` with the catalog: its head advances per scan and an
+    incremental CAPPI, one ``grid_map`` launch an update, stays bitwise the
+    product rebuilt from scratch.  Returns the archive's path (the
+    training path's data)."""
+    import torch
+    from repro_torch import etl
+    from repro_torch.catalog import Catalog
+    from repro_torch.core import RadarArchive, fm301
+    from repro_torch.radar import (ProductRequest, compute_product,
+                                   incremental_product)
+    from repro_torch.store import ObjectStore, Repository
+
+    full = fm301.VCPS[VCP_NAME]
+    shape = (INGEST_SCANS, full.n_azimuth, full.n_gates)
+    raw = ObjectStore(os.path.join(work, "raw"))
+    t = time.perf_counter()
+    # scan i is the simulator's volume at t0 + i x interval, a pure
+    # function of (seed, time, geometry): one call a scan, on 8 threads,
+    # writes the files of one call for all of them
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        keys = [k for ks in pool.map(
+            lambda i: etl.generate_raw_archive(
+                raw, n_scans=1, t0=INGEST_T0 + i * full.interval_s,
+                n_sweeps=INGEST_SWEEPS, seed=SEED),
+            range(INGEST_SCANS)) for k in ks]
+    say(f"ingest: {len(keys)} raw {VCP_NAME} volumes ({shape[1]} x "
+        f"{shape[2]}, sweeps 0-{INGEST_SWEEPS - 1}, {len(full.moments)} "
+        "moments) written in "
+        f"{time.perf_counter() - t:.1f} s")
+    cat = Catalog.create(os.path.join(work, "catalog"))
+    reports, paths = {}, {}
+    for w in INGEST_WORKERS:
+        paths[w] = os.path.join(work, f"ingest-w{w}")
+        repo = Repository.create(paths[w])
+        reset_launches()
+        rep = etl.ingest(raw, repo, workers=w,
+                         catalog=cat if w == INGEST_WORKERS[0] else None)
+        launched = read_launches()
+        if any(launched.values()):
+            raise AssertionError(f"ingest launched kernels: {launched}")
+        reports[w] = rep
+        objs, size = store_bytes(paths[w])
+        st = rep.stage_seconds
+        say(f"ingest workers={w}: {rep.n_files} files, "
+            f"{rep.bytes_read / 1e6:.1f} MB raw read, {rep.n_volumes} volumes "
+            f"in {rep.n_commits} commit(s); stage seconds extract "
+            f"{st['extract_s']:.3f}, decode {st['decode_s']:.3f}, load "
+            f"{st['load_s']:.3f}, wall {st['wall_s']:.3f}; archive "
+            f"{size / 1e6:.1f} MB in {objs} objects")
+    first, last = (reports[w] for w in INGEST_WORKERS)
+    if first.snapshot_ids != last.snapshot_ids or not first.snapshot_ids:
+        raise AssertionError(f"ingest snapshot ids differ between workers: "
+                             f"{first.snapshot_ids} vs {last.snapshot_ids}")
+    say(f"ingest: snapshot ids equal at workers {INGEST_WORKERS}: "
+        f"{first.snapshot_ids}")
+    repo = Repository.open(paths[INGEST_WORKERS[0]])
+    entry = cat.entry("KVNX")
+    if (entry.snapshot_id != repo.branch_head()
+            or entry.vcps[VCP_NAME]["n_times"] != INGEST_SCANS):
+        raise AssertionError(f"catalog entry after ingest: {entry}")
+
+    # the DataTree view of what was ingested
+    archive = RadarArchive(repo)
+    tree = archive.tree()
+    dbz = tree[f"{VCP_NAME}/sweep_0/DBZH"]
+    if (dbz.shape != shape or not dbz.lazy
+            or tree[f"{VCP_NAME}/time"].shape != (INGEST_SCANS,)):
+        raise AssertionError(f"ingested tree: {dbz!r}")
+    coords, values = dbz.where((slice(0, 2),), value_gt=45.0)
+    say(f"ingest tree: {sum(1 for _ in tree.subtree())} nodes, "
+        f"{VCP_NAME}/sweep_0/DBZH {dbz.shape}; where(scans 0-1, > 45 dBZ) "
+        f"found {values.size} gates")
+
+    # QVP and QPE on the ingested archive, on the card
+    for product, req, kernel, tol in (
+            ("qvp", ProductRequest(kind="qvp", vcp=VCP_NAME,
+                                   sweep=INGEST_SWEEPS - 1),
+             "qvp_reduce", QVP_TOL),
+            ("qpe", ProductRequest(kind="qpe", vcp=VCP_NAME, sweep=0),
+             "zr_accum", QPE_TOL)):
+        with archive.session() as session:
+            reset_launches()
+            t = time.perf_counter()
+            got = compute_product(session, req, device=DEV)
+            ms = (time.perf_counter() - t) * 1e3
+            launched = read_launches()
+            want = compute_product(session, req.with_options(mode="ref"),
+                                   device=DEV)
+        if launched[kernel] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"ingested {product}: launches {launched}")
+        add_path_launches(rows, launched, read_routes())
+        field = "profile" if product == "qvp" else "accum_mm"
+        err = compare(f"ingested {product} vs plain on the card",
+                      torch.from_numpy(getattr(got, field)),
+                      torch.from_numpy(getattr(want, field)), **tol)
+        say(f"ingest path {product}: {getattr(got, field).shape} in "
+            f"{ms:.1f} ms, 1 {kernel} launch, max_abs_err vs plain {err:.3e}")
+
+    # the live feed: scans after the ingested ones, one commit each
+    inc = incremental_product(repo, ProductRequest(kind="cappi",
+                                                   vcp=VCP_NAME),
+                              device=DEV)
+    reset_launches()
+    inc.update()
+    built = read_launches()
+    add_path_launches(rows, built, read_routes())
+    feed = etl.LiveFeed(repo, etl.live_scan_feed(
+        site_id="KVNX", vcp_name=VCP_NAME, t0=INGEST_T0, seed=SEED,
+        n_sweeps=INGEST_SWEEPS, start=INGEST_SCANS),
+        workers=INGEST_WORKERS[0], catalog=cat,
+        repo_id="KVNX")
+    for i in range(FEED_SCANS):
+        t = time.perf_counter()
+        sid = feed.ingest_next(1)
+        t_commit = time.perf_counter() - t
+        if len(sid) != 1 or cat.entry("KVNX").snapshot_id != sid[0] \
+                or sid[0] != repo.branch_head():
+            raise AssertionError(f"live feed scan {i}: commit {sid}, catalog "
+                                 f"head {cat.entry('KVNX').snapshot_id}")
+        reset_launches()
+        t = time.perf_counter()
+        rep = inc.update()
+        t_update = time.perf_counter() - t
+        launched = read_launches()
+        if launched["grid_map"] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"live feed CAPPI update: launches "
+                                 f"{launched}")
+        add_path_launches(rows, launched, read_routes())
+        with repo.readonly_session() as session:
+            t = time.perf_counter()
+            rebuilt = compute_product(session, ProductRequest(
+                kind="cappi", vcp=VCP_NAME, grid=inc.read().grid),
+                device=DEV)
+            t_full = time.perf_counter() - t
+        state = inc.read()
+        if not (bits_equal(torch.from_numpy(state.values),
+                           torch.from_numpy(rebuilt.values))
+                and state.times.tobytes() == rebuilt.times.tobytes()):
+            raise AssertionError(f"live feed scan {i}: incremental CAPPI "
+                                 "differs from the rebuilt one")
+        say(f"live feed scan {INGEST_SCANS + i}: committed in "
+            f"{t_commit * 1e3:.1f} ms (snapshot {sid[0][:12]}, the catalog "
+            f"head with it); CAPPI update {t_update * 1e3:.1f} ms (cells "
+            f"{rep.cells_computed} of {rep.cells_full}, 1 grid_map) vs "
+            f"rebuilt {t_full * 1e3:.1f} ms; bitwise equal")
+    n_times = cat.entry("KVNX").vcps[VCP_NAME]["n_times"]
+    if n_times != INGEST_SCANS + FEED_SCANS:
+        raise AssertionError(f"catalog n_times {n_times}")
+    return paths[INGEST_WORKERS[0]]
+
+
+# -- phase 9: training from the archive, a checkpoint, and serving it ---------
+
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+TRAIN_RESUME_RTOL = 1e-2
+# launch.train's own defaults: batch 8, seq 512, bf16 compute on the card;
+# the CPU rehearsal adds --reduced and smaller shapes here
+TRAIN_EXTRA_ARGS: list = []
+# the served requests: launch.serve's prompts (default_rng(0))
+SERVE_CKPT = dict(requests=8, prompt_len=64, new_tokens=16, max_len=128)
+
+
+def drive_train_path(data: str, work: str, rows) -> None:
+    """``launch.train`` on ``radar-lm-100m`` at full width, tokens from the
+    ingested archive, ``TRAIN_STEPS`` steps with a checkpoint every
+    ``TRAIN_CKPT_EVERY`` in the port's ``Repository``; the repository
+    rolled back to the first checkpoint and a second run resumed from it,
+    its losses within ``TRAIN_RESUME_RTOL`` of the uninterrupted run's;
+    then ``launch.serve --ckpt`` on the newest checkpoint, its greedy
+    tokens equal to an engine serving the trained parameters held in
+    memory."""
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch import serve, train
+    from repro_torch.models.convert import from_reference
+    from repro_torch.serve import Engine
+    from repro_torch.store import Repository
+    from repro_torch.train import CheckpointManager
+
+    ck = os.path.join(work, "ckpt")
+    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--data", data,
+            "--ckpt", ck, "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--device", DEV, "--log-every", "5", *TRAIN_EXTRA_ARGS]
+    reset_launches()
+    t = time.perf_counter()
+    whole = train.main(argv)
+    t_whole = time.perf_counter() - t
+    launched = read_launches()
+    mgr = CheckpointManager(Repository.open(ck))
+    steps = mgr.steps()
+    if steps != list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                           TRAIN_CKPT_EVERY)):
+        raise AssertionError(f"checkpoints at {steps}")
+    losses = [whole["losses"][s] for s in range(1, TRAIN_STEPS + 1)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    args = train._parser().parse_args(argv)
+    tokens = args.batch * args.seq
+    step_ms = statistics.median(whole["step_s"][2:] or whole["step_s"]) * 1e3
+    peak = whole["peak_bytes"]
+    say(f"train {LM_ARCH}: {TRAIN_STEPS} steps in {t_whole:.1f} s with "
+        f"{len(steps)} checkpoints; median step {step_ms:.1f} ms (steps 3 "
+        f"on, synchronised), {tokens / step_ms * 1e3:.0f} tokens/s, peak "
+        f"memory {'not measured' if peak is None else f'{peak / 1e9:.2f} GB'}"
+        f"; loss {losses[0]:.4f} at step 1, {losses[-1]:.4f} at step "
+        f"{TRAIN_STEPS}; kernel launches {launched} (training runs the "
+        "blocked attention core, as the reference)")
+    mgr.rollback_to(TRAIN_CKPT_EVERY)
+    t = time.perf_counter()
+    resumed = train.main(argv)
+    t_resumed = time.perf_counter() - t
+    if resumed["start_step"] != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"resumed at {resumed['start_step']}")
+    worst = 0.0
+    for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1):
+        a, b = resumed["losses"][s], whole["losses"][s]
+        worst = max(worst, abs(a - b) / abs(b))
+    if worst > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"resumed losses differ by {worst:.3e} "
+                             "relative")
+    say(f"train resumed from step {TRAIN_CKPT_EVERY} in {t_resumed:.1f} s: "
+        f"steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} within {worst:.3e} "
+        f"relative of the uninterrupted run (tolerance {TRAIN_RESUME_RTOL})")
+
+    # serve the newest checkpoint; the same requests on the trained
+    # parameters held in memory
+    reduced = "--reduced" in TRAIN_EXTRA_ARGS
+    sargv = ["--arch", LM_ARCH, "--ckpt", ck, "--device", DEV,
+             *(["--reduced"] if reduced else [])]
+    for key, value in SERVE_CKPT.items():
+        sargv += [f"--{key.replace('_', '-')}", str(value)]
+    reset_launches()
+    t = time.perf_counter()
+    outs = serve.main(sargv)
+    t_serve = time.perf_counter() - t
+    launched, routes = read_launches(), read_routes()
+    prefill = "f32" if DEV == "cpu" else "tc_prefill"
+    if not (routes["flash_attention"][prefill]
+            and routes["flash_attention"]["decode"]):
+        raise AssertionError(f"serving the checkpoint launched {routes}")
+    add_path_launches(rows, launched, routes)
+    cfg = get_any_config(LM_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    dtype = "float32" if DEV == "cpu" else "bfloat16"
+    pcfg = ParallelConfig(compute_dtype=dtype, kv_cache_dtype=dtype,
+                          remat="none")
+    params = from_reference(cfg, resumed["state"].params, device=DEV)
+    eng = Engine(cfg, pcfg, params, max_len=SERVE_CKPT["max_len"],
+                 device=DEV)
+    want = eng.generate(serve.make_requests(
+        cfg, SERVE_CKPT["requests"], SERVE_CKPT["prompt_len"],
+        SERVE_CKPT["new_tokens"]), seed=1)
+    for i, (a, b) in enumerate(zip(outs, want)):
+        if not np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens)):
+            raise AssertionError(f"served request {i}: the checkpoint's "
+                                 "tokens differ from the in-memory ones")
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    say(f"serve --ckpt {LM_ARCH} (step {TRAIN_STEPS}): {len(outs)} requests "
+        f"in {t_serve:.1f} s with the restore, greedy tokens equal to the "
+        f"trained parameters in memory; launches {routes}")
+
+
 # the TPU kernel each hand-written kernel replaces (wrapper function)
 REPLACES = {
     "qvp_reduce": "src/repro/kernels/qvp_reduce.py:43",
@@ -3641,7 +4009,7 @@ SOURCES = {"flash_attention:decode": "flash_decode",
 
 
 def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
-    """Phases 3 to 8; returns the per-kernel rows of the JSON line."""
+    """Phases 3 to 9; returns the per-kernel rows of the JSON line."""
     t_start = time.perf_counter()
 
     def elapsed(phase: str) -> None:
@@ -3659,6 +4027,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     work.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="archive-", dir=work)
     fed = tempfile.mkdtemp(prefix="federation-", dir=work)
+    ing = tempfile.mkdtemp(prefix="ingest-", dir=work)
     try:
         archive, vcp, volumes, sim, site = build_archive(tmp)
         elapsed("4 (archive)")
@@ -3668,8 +4037,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         elapsed("4 (QVP, QPE and grid paths)")
         # 5. end-to-end times
         for workers in (1, os.cpu_count() or 1):
-            time_products(archive, workers)
-            time_grid_products(archive, workers)
+            time_products(archive, workers, reps=2)
+            time_grid_products(archive, workers, reps=1)
         time_store_layers(archive)
         elapsed("5 (times)")
         # 6. the incremental path, which appends to the archive
@@ -3686,6 +4055,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         drive_maintenance_path(archive, rows)
         elapsed("6d (store maintenance)")
         del catalog, archives, sims
+        # 6e. Raw2Zarr ingest of raw files, the DataTree view, the live feed
+        ingested = drive_ingest_path(ing, rows)
+        elapsed("6e (ingest and live feed)")
         # 7. the LM serve path, prompts drawn from the archive
         drive_lm_path(archive, rows)
         elapsed("7 (LM serve path)")
@@ -3695,9 +4067,13 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 8b. the stablelm-3b serve path (head dim 80), the same prompts
         drive_stablelm_path(archive, rows)
         elapsed("8b (stablelm-3b serve path)")
+        # 9. training on the ingested archive, a checkpoint, serving it
+        drive_train_path(ingested, ing, rows)
+        elapsed("9 (train, checkpoint, serve path)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(fed, ignore_errors=True)
+        shutil.rmtree(ing, ignore_errors=True)
 
     say("library_ms: F.scaled_dot_product_attention for flash_attention, "
         "Tensor.index_add_ for grid_update at the QPE fold (timed beside "
@@ -3710,7 +4086,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "radar-lm, zamba2 and stablelm-3b; the federated path: one launch "
         "per repository of each counted run; the HTTP path: each cold "
         "product, the 8 coalesced QVP requests counting one; the "
-        "maintenance path: each QVP); flash_attention and "
+        "maintenance path: each QVP; the ingest path: its QVP, QPE and "
+        "each incremental CAPPI; the train path: serving its checkpoint); "
+        "flash_attention and "
         "mamba2_scan are the wrappers, their calls split by route in "
         "'routes', with the numbers "
         "of the route their path takes (tc_prefill at radar-lm's shape, "

@@ -20,14 +20,15 @@ The catalog is one canonical-JSON document in an object store::
 
 Updates go through the store's compare-and-swap primitive, so concurrent
 registrations of different repositories merge instead of clobbering each
-other.  Entries come from :meth:`Catalog.register_repository`, which
-scans a repository's head, and :meth:`Catalog.note_snapshot` refreshes
-one entry's recorded head after a maintenance commit.  The document's
-bytes are those of the reference package's catalog, so either package
-reads what the other registered.  The change feed (:meth:`Catalog.heads`,
-:meth:`Catalog.poll_changes`, :meth:`Catalog.watch`) is the reference's
-too; its ingest-time registration (``update_from_report``) waits for the
-port of the ETL pipeline.
+other.  Entries are produced two ways: :meth:`Catalog.register_repository`
+scans an existing repository, and :meth:`Catalog.update_from_report`
+merges the coverage an :class:`repro_torch.etl.pipeline.IngestReport`
+collected *during* ingest — no archive re-open on the hot path.
+:meth:`Catalog.note_snapshot` refreshes one entry's recorded head after a
+maintenance commit.  The document's bytes are those of the reference
+package's catalog, so either package reads what the other registered.
+The change feed (:meth:`Catalog.heads`, :meth:`Catalog.poll_changes`,
+:meth:`Catalog.watch`) is the reference's too.
 """
 
 from __future__ import annotations
@@ -133,6 +134,37 @@ def scan_repository(repo: Repository, branch: str = "main") -> Dict[str, Any]:
             }
         vcps[g] = vinfo
     return {"site": site, "vcps": vcps, "snapshot_id": session.snapshot_id}
+
+
+def _merge_vcps(into: Dict[str, Any], add: Dict[str, Any]) -> None:
+    """Merge one coverage's VCP map into an entry's, widening time ranges
+    and unioning moment lists (idempotent against a re-register; additive
+    against incremental ingest reports)."""
+    for vcp, vinfo in add.items():
+        cur = into.setdefault(vcp, {
+            "vcp_id": vinfo.get("vcp_id"),
+            "time_min": None,
+            "time_max": None,
+            "n_times": 0,
+            "sweeps": {},
+        })
+        for bound, fn in (("time_min", min), ("time_max", max)):
+            v = vinfo.get(bound)
+            if v is not None:
+                cur[bound] = v if cur[bound] is None else fn(cur[bound], v)
+        cur["n_times"] = int(cur.get("n_times", 0)) + int(
+            vinfo.get("n_times", 0)
+        )
+        for si, sinfo in vinfo.get("sweeps", {}).items():
+            scur = cur["sweeps"].setdefault(si, dict(sinfo))
+            scur["moments"] = sorted(
+                set(scur.get("moments", [])) | set(sinfo.get("moments", []))
+            )
+            # geometry can grow between ingests just as it can between
+            # volumes of one ingest — record maxima across merges too
+            for dim in ("range_max_m", "n_azimuth", "n_gates"):
+                scur[dim] = max(scur.get(dim, 0) or 0,
+                                sinfo.get(dim, 0) or 0)
 
 
 @dataclass
@@ -285,6 +317,101 @@ class Catalog:
         doc = self._update(mutate)
         return CatalogEntry.from_doc(rid, doc["repositories"][rid])
 
+    def update_from_report(
+        self,
+        report,
+        *,
+        repo_id: Optional[str] = None,
+        uri: Optional[str] = None,
+        branch: str = "main",
+        repo: Optional[Repository] = None,
+    ) -> CatalogEntry:
+        """Merge an :class:`~repro_torch.etl.pipeline.IngestReport`'s coverage — incremental
+        registration without re-opening the repository.
+
+        The *first* registration of a repo_id is special-cased: the
+        repository head is scanned in full (via ``repo`` or ``uri``) so
+        history ingested before any catalog existed becomes findable; the
+        report alone only covers its own ingest.  Pass at least one of
+        ``repo``/``uri`` when the repository may predate the catalog.
+        Every later call is a pure incremental merge.
+        """
+        cov = dict(report.coverage or {})
+        if not cov.get("vcps"):
+            raise ValueError(
+                "report carries no coverage metadata; ingest nothing?"
+            )
+        seen = cov.get("sites_seen", [])
+        if len(seen) > 1:
+            raise ValueError(
+                f"one repository, one site: the ingest saw {sorted(seen)} "
+                "(split multi-site feeds per repository)"
+            )
+        rid = repo_id or cov.get("site", {}).get("site_id")
+        if not rid:
+            raise ValueError("repo_id required when coverage has no site id")
+        if repo is not None:
+            self._attached[rid] = repo
+        snapshot_id = report.snapshot_ids[-1] if report.snapshot_ids else None
+        # first registration of a repository that may hold history older
+        # than this ingest: the report only covers what *this* ingest
+        # appended, so seed the entry from a full head scan instead —
+        # otherwise the planner would silently prune the older data.
+        # (The scanned head already includes this ingest's volumes, so the
+        # report's coverage must NOT be merged on top — it would double-
+        # count n_times.)  The new-entry decision is made inside the CAS
+        # loop against the freshly loaded document; the scan itself is
+        # doc-independent and memoized across retries.  Counters like
+        # n_times remain advisory under concurrent first-registrations of
+        # one repository from several writers.
+        scan_memo: Dict[str, Any] = {}
+
+        def head_scan() -> Optional[Dict[str, Any]]:
+            # an unattached caller still gets the full-history scan when
+            # it recorded a uri; with neither repo nor uri the entry is
+            # seeded from this report alone (documented limitation)
+            target = repo if repo is not None else (
+                Repository.open(uri) if uri else None
+            )
+            if target is None:
+                return None
+            if "cov" not in scan_memo:
+                scan_memo["cov"] = scan_repository(target, branch)
+            return scan_memo["cov"]
+
+        def mutate(doc: Dict[str, Any]) -> None:
+            scan_cov = (head_scan()
+                        if rid not in doc["repositories"] else None)
+            if scan_cov is not None:
+                doc["repositories"][rid] = {
+                    "uri": uri or "",
+                    "branch": branch,
+                    "snapshot_id": scan_cov["snapshot_id"],
+                    "site": scan_cov["site"],
+                    "vcps": scan_cov["vcps"],
+                    "bbox": coverage_bbox(scan_cov["site"],
+                                          scan_cov["vcps"]),
+                }
+                return
+            entry = doc["repositories"].setdefault(rid, {
+                "uri": uri or "",
+                "branch": branch,
+                "snapshot_id": None,
+                "site": cov.get("site", {}),
+                "vcps": {},
+                "bbox": {},
+            })
+            if uri:
+                entry["uri"] = uri
+            if snapshot_id:
+                entry["snapshot_id"] = snapshot_id
+            _merge_vcps(entry["vcps"], cov.get("vcps", {}))
+            entry["bbox"] = coverage_bbox(entry.get("site", {}),
+                                          entry["vcps"])
+
+        doc = self._update(mutate)
+        return CatalogEntry.from_doc(rid, doc["repositories"][rid])
+
     # -- lookup ----------------------------------------------------------
     def note_snapshot(self, repo_id: str, snapshot_id: str) -> None:
         """Refresh one entry's recorded head snapshot without rescanning.
@@ -351,8 +478,9 @@ class Catalog:
         commit races against, so a head observed here is never torn).
         Repositories this process cannot open — no recorded uri, remote
         storage offline — fall back to the entry's recorded
-        ``snapshot_id``: stale at worst, and refreshed by ``note_snapshot`` (and the
-        reference's ingest) on every commit, so watchers still converge.
+        ``snapshot_id``: stale at worst, and refreshed by ingest's
+        ``update_from_report`` / ``note_snapshot`` on every commit, so
+        watchers still converge.
         """
         entries = entries if entries is not None else self.entries()
         out: Dict[str, Optional[str]] = {}

@@ -1,6 +1,6 @@
-"""Core Radar DataTree data model: the FM-301 schema and the archive."""
+"""Core Radar DataTree data model (the paper's primary contribution)."""
 
 from . import fm301
-from .datatree import RadarArchive
+from .datatree import DataTree, RadarArchive, Variable, tree_from_session
 
-__all__ = ["RadarArchive", "fm301"]
+__all__ = ["DataTree", "RadarArchive", "Variable", "fm301", "tree_from_session"]

@@ -1,5 +1,8 @@
-"""Model data drawn from the archive: radar scans as LM token sequences."""
+"""Model data: synthetic batches, and radar scans from the archive as LM
+token sequences."""
 
+from .batches import input_specs, make_batch
 from .radar_tokens import DBZ_MAX, DBZ_MIN, RadarTokenDataset, TokenizerSpec
 
-__all__ = ["DBZ_MAX", "DBZ_MIN", "RadarTokenDataset", "TokenizerSpec"]
+__all__ = ["DBZ_MAX", "DBZ_MIN", "RadarTokenDataset", "TokenizerSpec",
+           "input_specs", "make_batch"]

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -173,3 +173,48 @@ class StormSimulator:
                 }
             )
         return {"site": site, "vcp": vcp, "time": float(t), "sweeps": sweeps}
+
+
+# ---------------------------------------------------------------------------
+# Live scan feed (streaming ingest, paper §5.4's live-append mode)
+# ---------------------------------------------------------------------------
+
+def live_scan_feed(
+    *,
+    site_id: str = "KVNX",
+    vcp_name: str = "VCP-212",
+    t0: float = 1305849600.0,  # 2011-05-20, the paper's KVNX case
+    seed: int = 0,
+    n_az: Optional[int] = None,
+    n_gates: Optional[int] = None,
+    n_sweeps: Optional[int] = None,
+    start: int = 0,
+) -> Iterator[Dict]:
+    """Yield FM-301 volumes scan-by-scan, forever — the live-radar stand-in.
+
+    Scan ``i`` (counting from ``start``) is the simulator volume at
+    ``t0 + i * interval_s`` — a pure function of ``(seed, i, geometry)``,
+    so two feeds with the same arguments yield byte-identical scan
+    sequences and a restarted consumer resumes exactly where it stopped
+    by passing ``start=<scans already ingested>``.  ``n_az`` /
+    ``n_gates`` / ``n_sweeps`` shrink the geometry for tests while
+    preserving the VCP's elevation structure, mirroring
+    :func:`repro_torch.etl.pipeline.generate_raw_archive` (which batch-writes
+    the *same* volumes this feed streams).
+    """
+    site = fm301.SITES[site_id]
+    vcp = fm301.VCPS[vcp_name]
+    if n_az or n_gates or n_sweeps:
+        vcp = fm301.VCPDef(
+            vcp.vcp_id,
+            vcp.elevations[: n_sweeps or vcp.n_sweeps],
+            n_az or vcp.n_azimuth,
+            n_gates or vcp.n_gates,
+            vcp.gate_m,
+            vcp.interval_s,
+        )
+    sim = StormSimulator(seed=seed)
+    i = int(start)
+    while True:
+        yield sim.volume(site, vcp, t0 + i * vcp.interval_s)
+        i += 1

@@ -10,12 +10,14 @@
 // with G = Hq / Hkv.  Under `causal` the mask is aligned to the end of the
 // keys: query i sees the keys j <= Skv - Sq + i (Sq <= Skv).
 //
-// Two kernels live here; the wrapper picks one from the dtype and Sq (the
-// single-query decode call goes to csrc/flash_decode.cu):
+// Three kernels live here; the wrapper picks one from the dtype, Sq and D
+// (the single-query decode call goes to csrc/flash_decode.cu):
 //   * flash_attention_tc_launch, the bfloat16 prefill on the tensor cores
 //     (tc_prefill: wgmma fed by TMA), first;
 //   * flash_attention_launch, the float32 prefill on the same tensor cores,
-//     each float32 operand as a bf16 hi + lo pair, after it.
+//     each float32 operand as a bf16 hi + lo pair, after it;
+//   * flash_attention_wide_launch, both dtypes' prefill at head dims above
+//     256 (mma.sync, S summed over k-slices of D), last.
 
 #include <cmath>
 #include <cstdint>
@@ -791,4 +793,349 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return by_width<PairLaunch>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
                               scale, causal,
                               static_cast<cudaStream_t>(stream));
+}
+
+// --- head dims above 256: both prefill routes, S over k-slices ------------
+//
+// The prefill (Sq >= 2) of tc_prefill (bfloat16) and f32 (float32) at a
+// head dim D above 256, where a block cannot hold Q's and K's tiles over
+// all of D in shared memory.  Bound: operations, 4 * B * Hq * D flops per
+// visible pair at the bf16 tensor-core peak (three bf16 products per
+// float32 product on f32).  The design, simple before fast:
+//   * one block of 4 warps per (64-row query tile, query head and column
+//     group, batch), the longest causal tiles first; a block owns one group
+//     of at most 128 columns of v and o (ceil(D / 128) groups over the
+//     grid), and each group's blocks compute the same S in the same order,
+//     so the split is exact;
+//   * S = Q K^T is summed over D in k-slices of 64 columns: per key tile
+//     the block stages the Q slice and the K slice in shared memory (as
+//     float32, zeros past D or past the rows), adds their product to S,
+//     and moves on, so its shared memory (the two slices and one 64 x 128
+//     V tile, 68 KB) does not depend on D.  Q's slices are read again for
+//     each key tile (from L2);
+//   * the products are mma.sync m16n8k16 (bf16 operands, float32
+//     accumulators), a warp 16 query rows: on f32 every float32 operand is
+//     the bf16 pair hi = bf16(v), lo = bf16(v - hi) and every product
+//     hi.hi + hi.lo + lo.hi, as on the f32 route; on tc_prefill the bf16
+//     operands are exact and P is rounded to bf16 once, as there;
+//   * the online softmax in float32 on the S fragments (masked scores
+//     -1e30, expf), O in float32 registers, output acc / max(l, 1e-30)
+//     rounded once to the dtype; no atomics and a fixed order: the same
+//     bits from run to run.
+
+namespace wide {
+
+constexpr int kRows = 64;       // query rows per block, 16 a warp
+constexpr int kKeys = 64;       // keys per tile
+constexpr int kSlice = 64;      // columns of D in a k-slice
+constexpr int kGroup = 128;     // columns of v and o a block owns
+constexpr int kThreads = 128;
+constexpr int kQP = kSlice + 4;   // float row pitch of the Q and K slices
+constexpr int kVP = kGroup + 4;   // float row pitch of the V tile
+constexpr int kSmem = (2 * kRows * kQP + kKeys * kVP) * 4;
+
+template <typename T>
+struct Vec16;   // 16 bytes of T widened to float32
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+  __device__ static void load(const float* p, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* f) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
+// ROWS x COLS of src (row stride `stride`, the first `rows` rows and
+// `cols` columns inside the tensor) into dst (float, pitch PITCH), zeros
+// elsewhere; cols is a multiple of the 16-byte unit
+template <typename T, int ROWS, int COLS, int PITCH>
+__device__ __forceinline__ void stage(float* dst, const T* src,
+                                      int64_t stride, int rows, int cols,
+                                      int tid) {
+  constexpr int VN = Vec16<T>::n;
+  constexpr int kPerRow = COLS / VN;
+  for (int i = tid; i < ROWS * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * VN;
+    float f[VN];
+    if (r < rows && c < cols) {
+      Vec16<T>::load(src + r * stride + c, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VN; ++e) dst[r * PITCH + c + e] = f[e];
+  }
+}
+
+// d (16 x 8, float32) += a (16 x 16, bf16) * b (16 x 8, bf16)
+__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the pair (hi, lo) of two float32 values on f32 (PAIRS); on tc_prefill
+// the bf16 of each (exact for a bf16 operand), lo unused
+template <bool PAIRS>
+__device__ __forceinline__ void operand(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo) {
+  if constexpr (PAIRS) {
+    hopper::split(x0, x1, hi, lo);
+  } else {
+    hi = hopper::pack_bf16(x0, x1);
+  }
+}
+
+// d += a * b over the pair terms: hi.hi, then on f32 hi.lo and lo.hi
+template <bool PAIRS>
+__device__ __forceinline__ void mma_pair(float* d, const uint32_t* ah,
+                                         const uint32_t* al, uint32_t bh0,
+                                         uint32_t bh1, uint32_t bl0,
+                                         uint32_t bl1) {
+  mma(d, ah, bh0, bh1);
+  if constexpr (PAIRS) {
+    mma(d, ah, bl0, bl1);
+    mma(d, al, bh0, bh1);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o, int64_t qsb,
+                    int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                    int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                    int64_t osb, int64_t osh, int64_t oss, int group,
+                    int n_groups, int Sq, int Skv, int D, float scale,
+                    int causal) {
+  constexpr bool PAIRS = sizeof(T) == 4;
+  extern __shared__ float wsm[];
+  float* qs = wsm;                  // kRows x kQP, Q's slice
+  float* ks = qs + kRows * kQP;     // kKeys x kQP, K's slice
+  float* vs = ks + kKeys * kQP;     // kKeys x kVP, V's column group
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y / n_groups, b = blockIdx.z, hk = h / group;
+  const int v0 = blockIdx.y % n_groups * kGroup;   // the block's columns
+  const int offset = Skv - Sq;    // query row r sits at key r + offset
+  const int kv_end = causal ? min(Skv, q0 + kRows + offset) : Skv;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  const T* qb = q + b * qsb + h * qsh + q0 * qss;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
+  // the warp's rows of a tile: r0 and r0 + 8
+  const int r0 = warp * 16 + g8;
+
+  float acc[kGroup / 8][4];
+#pragma unroll
+  for (int j = 0; j < kGroup / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kKeys;
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+    // S = Q K^T, summed over the k-slices of D
+    for (int c0 = 0; c0 < D; c0 += kSlice) {
+      __syncthreads();   // every warp is done with the last slice (and V)
+      stage<T, kRows, kSlice, kQP>(qs, qb + c0, qss, Sq - q0, D - c0, tid);
+      stage<T, kKeys, kSlice, kQP>(ks, kb + k0 * kss + c0, kss, Skv - k0,
+                                   D - c0, tid);
+      if (c0 == 0)
+        stage<T, kKeys, kGroup, kVP>(vs, vb + k0 * vss + v0, vss, Skv - k0,
+                                     D - v0, tid);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kSlice / 16; ++kk) {
+        const int c = kk * 16 + 2 * t4;
+        const float* qr = qs + r0 * kQP + c;
+        uint32_t ah[4], al[4];
+        operand<PAIRS>(qr[0], qr[1], ah[0], al[0]);
+        operand<PAIRS>(qr[8 * kQP], qr[8 * kQP + 1], ah[1], al[1]);
+        operand<PAIRS>(qr[8], qr[9], ah[2], al[2]);
+        operand<PAIRS>(qr[8 * kQP + 8], qr[8 * kQP + 9], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const float* kr = ks + (8 * j + g8) * kQP + c;
+          uint32_t bh0, bl0, bh1, bl1;
+          operand<PAIRS>(kr[0], kr[1], bh0, bl0);
+          operand<PAIRS>(kr[8], kr[9], bh1, bl1);
+          mma_pair<PAIRS>(s[j], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+
+    // online softmax in float32 on the fragments: s[j][0..1] row r0,
+    // columns 8 j + 2 t4 (+ 1), s[j][2..3] row r0 + 8
+    const bool edge =
+        (causal && k0 + kKeys - 1 > q0 + offset) || k0 + kKeys > Skv;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int row = q0 + r0 + (e >> 1) * 8;
+          const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+          if ((causal && row + offset < col) || col >= Skv) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_new[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+      m[i] = m_new[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V over the tile's 4 steps of 16 keys; P's A fragment is the
+    // S fragments of key blocks 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      operand<PAIRS>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      operand<PAIRS>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      operand<PAIRS>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      operand<PAIRS>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      const float* vr = vs + (16 * kk + 2 * t4) * kVP + g8;
+#pragma unroll
+      for (int j = 0; j < kGroup / 8; ++j) {
+        const float* vc = vr + 8 * j;
+        uint32_t bh0, bl0, bh1, bl1;
+        operand<PAIRS>(vc[0], vc[kVP], bh0, bl0);
+        operand<PAIRS>(vc[8 * kVP], vc[9 * kVP], bh1, bl1);
+        mma_pair<PAIRS>(acc[j], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  // columns v0 + 8 j + 2 t4 (+ 1) of the caller's D (even)
+  T* ob = o + b * osb + h * osh + v0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kGroup / 8; ++j)
+      if (v0 + 8 * j + 2 * t4 < D)
+        store2<T>(ob + row * oss + 8 * j + 2 * t4, acc[j][2 * i] / den,
+                  acc[j][2 * i + 1] / den);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
+  const int n_groups = (D + kGroup - 1) / kGroup;
+  if (static_cast<int64_t>(Hq) * n_groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wide_prefill_kernel<T>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq * n_groups, B);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      Hq / Hkv, n_groups, Sq, Skv, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
+// Both prefill routes at a head dim above 256 (any D, a whole number of
+// 16-byte units; the wrapper sees to it), launched on `stream`: the same
+// arguments as flash_attention_launch, then the dtype (0 = float32, 1 =
+// bfloat16).  q, k and v must be 16-byte aligned with strides of whole
+// 16-byte units and Sq >= 2.  Returns cudaGetLastError() (0 on success).
+extern "C" int flash_attention_wide_launch(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Hq, int Hkv, int Sq, int Skv,
+                                           int D, const int64_t* strides,
+                                           float scale, int causal, int dtype,
+                                           void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || B > 65535 || D < 1 ||
+      (causal && Sq > Skv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D % 4 == 0)
+    return wide::launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                               scale, causal, s);
+  if (dtype == 1 && D % 8 == 0)
+    return wide::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                       strides, scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,7 +21,10 @@
 // does about it:
 //   * one block per (key split, KV head, batch).  The G query heads that
 //     share a KV head are rows of the same block, so each key and value
-//     row is loaded once, as 16-byte vector loads, and used G times;
+//     row is loaded once, as 16-byte vector loads, and used G times; a
+//     group wider than 8 is sliced over the grid, 8 heads a block, each
+//     slice reading the keys again (any G, as the TPU kernel's h // G
+//     index map takes);
 //   * n_split (from the wrapper, at most 8) splits the keys so that at
 //     least one block lands on every SM; a lane group takes one key row,
 //     16 bytes a lane: D * size / 16 lanes read it, rounded up to a power
@@ -34,7 +37,10 @@
 //   * the kernel's width D is a template (a multiple of 16 up to 128, then
 //     160, 192, 224, 256: the wrapper's kernel_dim); the caller's head dim
 //     Dt <= D, a multiple of 16 bytes, bounds the lanes that load and the
-//     columns stored;
+//     columns stored.  Above 256 (any Dt) q . k walks the row in passes of
+//     256 columns in the same lane layout, each lane's partial dot kept
+//     across the passes, and a block owns one group of 256 columns of v
+//     and o, the groups over the grid;
 //   * float32 on the CUDA cores: the scores, an online softmax per lane
 //     group (running max m, normaliser l, accumulator acc), then the
 //     groups merged in a fixed order (shuffles in a warp, shared memory
@@ -58,7 +64,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplit = 8;      // the portable cluster size
-constexpr int kMaxGroup = 8;      // query heads per KV head
+constexpr int kMaxGroup = 8;      // query heads a block holds at most
 constexpr float kNegInf = -1e30f;
 
 // 16 bytes of T, and their widening to float32
@@ -110,15 +116,20 @@ constexpr int smem_floats() {
   return kWarps * GM * (D + 2) + GM * (D + 2);
 }
 
-// GM >= G query heads per block (the registers are sized for GM)
-template <typename T, int D, int GM>
+// A block holds GM query heads (the registers are sized for GM): the
+// group's heads n_gs slices of GM, the last one ragged.  Its kernel width
+// D (a template) is the caller's width Dt rounded up, or, WIDE (Dt above
+// 256), the width of one pass: then q . k walks Dt in passes of D columns
+// in the same lane layout, and the block owns one group of D columns of v
+// and o (n_cg groups over the grid, each recomputing the same scores).
+template <typename T, int D, int GM, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o, int64_t qsb,
                     int64_t qsh, int64_t ksb, int64_t ksh, int64_t kss,
                     int64_t vsb, int64_t vsh, int64_t vss, int64_t osb,
-                    int64_t osh, int G, int Skv, int Dt, int chunk,
-                    float scale) {
+                    int64_t osh, int G, int n_gs, int n_cg, int Skv, int Dt,
+                    int chunk, float scale) {
   using V = Vec<T>;
   using VT = typename V::type;
   constexpr int VEC = V::n;               // values in 16 bytes
@@ -140,39 +151,53 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pl = pm + GM;                    // [GM]
   float* pacc = pl + GM;                  // [GM][D]
 
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int cgi = blockIdx.y % n_cg;     // the block's column group
+  const int gs = blockIdx.y / n_cg % n_gs;
+  const int hk = blockIdx.y / (n_cg * n_gs);
+  const int hq = hk * G + gs * GM;        // the block's first query head
+  const int Gb = min(GM, G - gs * GM);    // and its number of heads
+  const int v0 = cgi * D;                 // its first column of v and o
+  const int Dv = min(D, Dt - v0);         // and its number of columns
+  const int n_pass = WIDE ? (Dt + D - 1) / D : 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int sub = lane % LPK;             // this lane's first 16-byte slice
-  // slice c of this lane holds columns col[c] .. + VEC; it lies inside
-  // the caller's row when col[c] < Dt
+  // slice c of this lane holds columns col[c] .. + VEC of a pass, and of
+  // the block's group of v and o, where it lies inside the caller's row
   int col[NV];
   bool live[NV];
 #pragma unroll
   for (int c = 0; c < NV; ++c) {
     col[c] = (c * LPK + sub) * VEC;
-    live[c] = col[c] < Dt;
+    live[c] = v0 + col[c] < Dt;
   }
   const int grp = warp * KPW + lane / LPK;
   const int k_begin = split * chunk;
   const int k_end = min(Skv, k_begin + chunk);
 
   float qf[GM][W], acc[GM][W], m[GM], l[GM];
+  // q's columns cb + col[c] .. of the block's heads, zeros past Dt
+  auto load_q = [&](int cb) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) qf[g][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        if (g < Gb && cb + col[c] < Dt)
+          V::widen(*reinterpret_cast<const VT*>(
+                       q + b * qsb + (hq + g) * qsh + cb + col[c]),
+                   qf[g] + c * VEC);
+    }
+  };
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < W; ++e) {
-      qf[g][e] = 0.f;
-      acc[g][e] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-      if (g < G && live[c])
-        V::widen(*reinterpret_cast<const VT*>(
-                     q + b * qsb + (hk * G + g) * qsh + col[c]),
-                 qf[g] + c * VEC);
+    for (int e = 0; e < W; ++e) acc[g][e] = 0.f;
   }
+  if constexpr (!WIDE) load_q(0);
 
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
@@ -183,26 +208,51 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = j0 + u * NG + grp;
 #pragma unroll
       for (int c = 0; c < NV; ++c) {
-        kr[u][c] = VT{};
         vr[u][c] = VT{};
-        if (j < k_end && live[c]) {
-          kr[u][c] = *reinterpret_cast<const VT*>(kb + j * kss + col[c]);
-          vr[u][c] = *reinterpret_cast<const VT*>(vb + j * vss + col[c]);
-        }
+        if (j < k_end && live[c])
+          vr[u][c] = *reinterpret_cast<const VT*>(vb + j * vss + v0 + col[c]);
       }
     }
     float s[GM][U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[W];
+    for (int g = 0; g < GM; ++g)
 #pragma unroll
-      for (int c = 0; c < NV; ++c) V::widen(kr[u][c], kf + c * VEC);
+      for (int u = 0; u < U; ++u) s[g][u] = 0.f;
+    // q . k over the passes: each lane's partial dot in the order of the
+    // passes, then summed over the row's lanes
+    for (int ps = 0; ps < n_pass; ++ps) {
+      const int cb = ps * D;
+      if constexpr (WIDE) load_q(cb);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * NG + grp;
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          kr[u][c] = VT{};
+          if (j < k_end && cb + col[c] < Dt)
+            kr[u][c] = *reinterpret_cast<const VT*>(kb + j * kss + cb + col[c]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[W];
+#pragma unroll
+        for (int c = 0; c < NV; ++c) V::widen(kr[u][c], kf + c * VEC);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          float dot = s[g][u];
+#pragma unroll
+          for (int e = 0; e < W; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+          s[g][u] = dot;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
       const bool valid = j0 + u * NG + grp < k_end;
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < W; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+        float dot = s[g][u];
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -272,9 +322,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // the split's partial, warps merged in order, over the Dt columns
-  for (int i = tid; i < G * Dt; i += kThreads) {
-    const int g = i / Dt, d = i % Dt;
+  // the split's partial, warps merged in order, over the block's Dv columns
+  T* ob = o + b * osb + hq * osh + v0;
+  for (int i = tid; i < Gb * Dv; i += kThreads) {
+    const int g = i / Dv, d = i % Dv;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * GM + g]);
@@ -286,7 +337,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       as += wacc[(w * GM + g) * D + d] * c;
     }
     if (gridDim.x == 1) {
-      o[b * osb + (hk * G + g) * osh + d] = narrow<T>(as / fmaxf(ls, 1e-30f));
+      ob[g * osh + d] = narrow<T>(as / fmaxf(ls, 1e-30f));
     } else {
       if (d == 0) {
         pm[g] = mx;
@@ -297,13 +348,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (gridDim.x == 1) return;
 
-  // the splits of this (b, h_kv) are one cluster: rank 0 combines them
+  // the splits of this block's heads and columns are one cluster: rank 0
+  // combines them
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (cluster.block_rank() == 0) {
     const int n = static_cast<int>(cluster.num_blocks());
-    for (int i = tid; i < G * Dt; i += kThreads) {
-      const int g = i / Dt, d = i % Dt;
+    for (int i = tid; i < Gb * Dv; i += kThreads) {
+      const int g = i / Dv, d = i % Dv;
       float mx = kNegInf;
       for (int r = 0; r < n; ++r)
         mx = fmaxf(mx, cluster.map_shared_rank(pm, r)[g]);
@@ -313,26 +365,30 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ls += cluster.map_shared_rank(pl, r)[g] * c;
         as += cluster.map_shared_rank(pacc, r)[g * D + d] * c;
       }
-      o[b * osb + (hk * G + g) * osh + d] = narrow<T>(as / fmaxf(ls, 1e-30f));
+      ob[g * osh + d] = narrow<T>(as / fmaxf(ls, 1e-30f));
     }
   }
   // no block leaves while rank 0 still reads its shared memory
   cluster.sync();
 }
 
-template <typename T, int D, int GM>
+template <typename T, int D, int GM, bool WIDE>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hkv, int G, int Skv, int Dt, int n_split, const int64_t* st,
            float scale, cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<T, D, GM>;
+  auto kernel = flash_decode_kernel<T, D, GM, WIDE>;
   constexpr int bytes = smem_floats<GM, D>() * static_cast<int>(sizeof(float));
   if constexpr (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int n_gs = (G + GM - 1) / GM;       // slices of the group
+  const int n_cg = (Dt + D - 1) / D;        // column groups of v and o
+  if (static_cast<int64_t>(Hkv) * n_gs * n_cg > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = (Skv + n_split - 1) / n_split;
-  const dim3 grid(n_split, Hkv, B);
+  const dim3 grid(n_split, Hkv * n_gs * n_cg, B);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -340,7 +396,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (n_split == 1) {
     kernel<<<grid, kThreads, bytes, stream>>>(
         qp, kp, vp, op, st[0], st[1], st[3], st[4], st[5], st[6], st[7],
-        st[8], st[9], st[10], G, Skv, Dt, chunk, scale);
+        st[8], st[9], st[10], G, n_gs, n_cg, Skv, Dt, chunk, scale);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t config = {};
@@ -357,26 +413,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, kernel, qp, kp, vp, op, st[0], st[1], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], G, Skv, Dt, chunk, scale);
+      st[6], st[7], st[8], st[9], st[10], G, n_gs, n_cg, Skv, Dt, chunk,
+      scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+// GM: the heads a block holds, the group's size rounded up to a power of
+// two, at most kMaxGroup (a wider group is sliced over the grid)
+template <typename T, int D, bool WIDE>
 int dispatch_g(const void* q, const void* k, const void* v, void* o, int B,
                int Hkv, int G, int Skv, int Dt, int n_split,
                const int64_t* st, float scale, cudaStream_t s) {
   if (G <= 1)
-    return launch<T, D, 1>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
-                           scale, s);
+    return launch<T, D, 1, WIDE>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                                 scale, s);
   if (G <= 2)
-    return launch<T, D, 2>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
-                           scale, s);
+    return launch<T, D, 2, WIDE>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                                 scale, s);
   if (G <= 4)
-    return launch<T, D, 4>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
-                           scale, s);
-  return launch<T, D, 8>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st, scale,
-                         s);
+    return launch<T, D, 4, WIDE>(q, k, v, o, B, Hkv, G, Skv, Dt, n_split, st,
+                                 scale, s);
+  return launch<T, D, kMaxGroup, WIDE>(q, k, v, o, B, Hkv, G, Skv, Dt,
+                                       n_split, st, scale, s);
 }
 
 // the kernel width of head dim D (1 <= D <= 256): the next multiple of 16
@@ -389,12 +448,15 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int Hkv, int G, int Skv, int D, int n_split,
                const int64_t* st, float scale, cudaStream_t s) {
-  if (D < 1 || D > 256 || (D * static_cast<int>(sizeof(T))) % 16 != 0)
+  if (D < 1 || (D * static_cast<int>(sizeof(T))) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 256)   // passes of 256 columns, column groups of 256
+    return dispatch_g<T, 256, true>(q, k, v, o, B, Hkv, G, Skv, D, n_split,
+                                    st, scale, s);
 #define REPRO_DECODE_WIDTH(W)                                              \
   case W:                                                                 \
-    return dispatch_g<T, W>(q, k, v, o, B, Hkv, G, Skv, D, n_split, st,   \
-                            scale, s);
+    return dispatch_g<T, W, false>(q, k, v, o, B, Hkv, G, Skv, D, n_split, \
+                                   st, scale, s);
   switch (kernel_width(D)) {
     REPRO_DECODE_WIDTH(16)
     REPRO_DECODE_WIDTH(32)
@@ -420,7 +482,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 // `strides` holds 12 element strides, batch, head and sequence of q, k, v
 // and o in that order (the sequence strides of q and o are not read).  q,
 // k and v must be 16-byte aligned with strides of whole 16-byte units, and
-// D (1 to 256) a whole number of 16-byte units (the wrapper sees to both).
+// D (1 or more) a whole number of 16-byte units (the wrapper sees to both).
 // dtype 0 = float32, 1 = bfloat16.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* o, int B, int Hq,
@@ -428,7 +490,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const int64_t* strides, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || Skv <= 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 ||
       n_split < 1 || n_split > kMaxSplit || n_split > Skv || B > 65535 ||
       Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

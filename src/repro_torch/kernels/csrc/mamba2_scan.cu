@@ -34,10 +34,21 @@
 // dt, A, B and C, state row p and output column p depend on x[:, p] alone
 // (the reference's _ssd_kernel computes them so too), and every tile
 // computes the same M in the same order, so a tile's values are those of
-// the whole, bitwise.  PT is P where the whole state fits the block's
-// shared memory (smem_floats), else the widest tile that does, the tiles
-// evened out (p_tile): the B and C chunks bound N (kernels/mamba2_scan.py:
-// wide_p_tile mirrors the choice and its limit).
+// the whole, bitwise.
+//
+// Any N: the B and C chunks pass through shared memory in slices of kNS
+// columns of N.  Per chunk and slice the block adds the slice's terms to
+// M = C B^T (registers, each thread its own 4 x 4 of M, in the order of n)
+// and to the C h term of y (yc in shared memory, each element its one
+// thread's, in the order of n), then updates the slice of the state,
+// which depends on that slice of B alone.  So a chunk's y and state are
+// the arithmetic of the kernel that held all of N at once, bitwise.  The
+// state tile (PT x N floats) stays in shared memory where it fits
+// ("resident"), else in hout, read and written per slice and chunk by
+// the thread that owns each element.  PT is P where it fits with the
+// state resident, else the widest tile that does, else P (or the widest
+// tile) with the state in hout: p_tile chooses, kernels/mamba2_scan.py:
+// wide_tiling mirrors it.  No atomics, a fixed order.
 //
 #include <cmath>
 #include <cstdint>
@@ -50,28 +61,38 @@
 namespace {
 
 constexpr int kCS = 64;          // chunk length (tokens)
+constexpr int kNS = 64;          // columns of N in a slice of B and C
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kLDM = kCS + 1;    // row pitch of M
+constexpr int kLDS = kNS + 1;    // row pitch of the B, C slices (conflict-free)
 
-
-// floats of shared memory for state width P and N: the x chunk (kCS x P),
-// the B and C chunks and the state with rows padded to N + 1 (conflict-free
-// reads down a column), M, and L, dt and the state-update weights
-int smem_floats(int P, int N) {
-  return kCS * P + 2 * kCS * (N + 1) + P * (N + 1) + kCS * kLDM + 3 * kCS;
+// floats of shared memory for a tile of P columns and state width N: the x
+// chunk (kCS x P), the B and C slices, the C h term of y (kCS x P), M, and
+// L, dt and the state-update weights; with the state resident also its
+// tile, rows padded to N + 1
+int smem_floats(int P, int N, bool resident) {
+  return 2 * kCS * P + 2 * kCS * kLDS + kCS * kLDM + 3 * kCS +
+         (resident ? P * (N + 1) : 0);
 }
 
 constexpr int kSmemLimit = 232448;   // dynamic shared memory of a block
 
-// columns of P a block takes: P itself where it fits, else the widest
-// multiple of 16 that fits, the tiles then evened out; 0 when no tile does
-int p_tile(int P, int N) {
-  if (smem_floats(P, N) * 4 <= kSmemLimit) return P;
+// the widest tile of P (P itself, else a multiple of 16, the tiles then
+// evened out) that fits the block; 0 when not even 16 columns fit
+int fit_tile(int P, int N, bool resident) {
+  if (smem_floats(P, N, resident) * 4 <= kSmemLimit) return P;
   int w = (P - 1) / 16 * 16;
-  while (w >= 16 && smem_floats(w, N) * 4 > kSmemLimit) w -= 16;
+  while (w >= 16 && smem_floats(w, N, resident) * 4 > kSmemLimit) w -= 16;
   if (w < 16) return 0;
   const int tiles = (P + w - 1) / w;
   return (P + tiles - 1) / tiles;
+}
+
+// columns of P a block takes, and where the state lives
+int p_tile(int P, int N, bool* resident) {
+  const int t = fit_tile(P, N, true);
+  *resident = t > 0;
+  return t > 0 ? t : fit_tile(P, N, false);
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -97,17 +118,16 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    int64_t xsb, int64_t xsl, int64_t xsh,
                    int64_t dsb, int64_t dsl, int64_t dsh,
                    int64_t bsb, int64_t bsl, int64_t csb, int64_t csl,
-                   int L, int H, int PF, int N, int PT) {
+                   int L, int H, int PF, int N, int PT, int resident) {
   // this block's columns of P: PF's p_lo .. p_lo + P
   const int p_lo = blockIdx.z * PT;
   const int P = min(PT, PF - p_lo);
   extern __shared__ float smem[];
-  const int LDN = N + 1;
   float* xs = smem;                  // kCS x P
-  float* bs = xs + kCS * P;          // kCS x LDN
-  float* cm = bs + kCS * LDN;        // kCS x LDN
-  float* hs = cm + kCS * LDN;        // P x LDN, the carried state
-  float* ms = hs + P * LDN;          // kCS x kLDM, M
+  float* yc = xs + kCS * P;          // kCS x P, the C h term of y
+  float* bs = yc + kCS * P;          // kCS x kLDS, a slice of B
+  float* cm = bs + kCS * kLDS;       // kCS x kLDS, the slice of C
+  float* ms = cm + kCS * kLDS;       // kCS x kLDM, M
   float* lc = ms + kCS * kLDM;       // kCS, cumulative log-decay
   float* dts = lc + kCS;             // kCS, dt
   float* ws = dts + kCS;             // kCS, exp(L_last - L_s) dt_s
@@ -126,23 +146,21 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   // the block's rows of the contiguous (B, H, PF, N) state
   const int64_t hoff =
       ((static_cast<int64_t>(b) * H + h) * PF + p_lo) * static_cast<int64_t>(N);
+  // the state tile: resident in shared memory (rows of N + 1) or in hout
+  float* hs = resident ? ms + kCS * kLDM + 3 * kCS : hout + hoff;
+  const int ldh = resident ? N + 1 : N;
 
   for (int i = tid; i < P * N; i += kThreads)
-    hs[(i / N) * LDN + i % N] = h0 ? h0[hoff + i] : 0.f;
+    hs[(i / N) * ldh + i % N] = h0 ? h0[hoff + i] : 0.f;
 
   const int cs = min(kCS, L);
   for (int t0 = 0; t0 < L; t0 += cs) {
     const int len = min(cs, L - t0);   // tokens of this chunk inside L
-    __syncthreads();   // the previous chunk's x, B, C, M and state are done
+    __syncthreads();   // the previous chunk's x, M, y and state are done
     for (int i = tid; i < cs * P; i += kThreads) {
       const int s = i / P, p = i % P;
       xs[s * P + p] = s < len ? widen(xb[(t0 + s) * xsl + p]) : 0.f;
-    }
-    for (int i = tid; i < cs * N; i += kThreads) {
-      const int s = i / N, n = i % N;
-      const bool in = s < len;
-      bs[s * LDN + n] = in ? widen(bb[(t0 + s) * bsl + n]) : 0.f;
-      cm[s * LDN + n] = in ? widen(cb[(t0 + s) * csl + n]) : 0.f;
+      yc[s * P + p] = 0.f;
     }
     for (int s = tid; s < cs; s += kThreads)
       dts[s] = s < len ? db[(t0 + s) * dsl] : 0.f;
@@ -158,31 +176,135 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const float l_last = lc[cs - 1];
     for (int s = tid; s < cs; s += kThreads)
       ws[s] = expf(l_last - lc[s]) * dts[s];
+    const float dl = expf(l_last);
 
-    // M[t, s]: rows t = ty + 16 i, columns s = tx + 16 j, depth N
-    if (ty < cs && tx < cs) {
-      int ro[4], co[4];
-      float acc[4][4];
+    // M[t, s] = sum_n C[t, n] B[s, n]: rows t = ty + 16 i, columns
+    // s = tx + 16 j, summed over the slices in the order of n
+    int ro[4], co[4];
+    float macc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ro[i] = min(ty + 16 * i, cs - 1) * LDN;
-        co[i] = min(tx + 16 * i, cs - 1) * LDN;
+    for (int i = 0; i < 4; ++i) {
+      ro[i] = min(ty + 16 * i, cs - 1) * kLDS;
+      co[i] = min(tx + 16 * i, cs - 1) * kLDS;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) macc[i][j] = 0.f;
+    }
+    for (int n0 = 0; n0 < N; n0 += kNS) {
+      const int ns = min(kNS, N - n0);
+      __syncthreads();   // the last slice's B, C and state reads are done
+      for (int i = tid; i < cs * ns; i += kThreads) {
+        const int s = i / ns, n = i % ns;
+        const bool in = s < len;
+        bs[s * kLDS + n] = in ? widen(bb[(t0 + s) * bsl + n0 + n]) : 0.f;
+        cm[s * kLDS + n] = in ? widen(cb[(t0 + s) * csl + n0 + n]) : 0.f;
       }
+      __syncthreads();
+      if (ty < cs && tx < cs) {
 #pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
+        for (int n = 0; n < ns; ++n) {
+          float cv[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          cv[i] = cm[ro[i] + n];
-          bv[i] = bs[co[i] + n];
+          for (int i = 0; i < 4; ++i) {
+            cv[i] = cm[ro[i] + n];
+            bv[i] = bs[co[i] + n];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              macc[i][j] = fmaf(cv[i], bv[j], macc[i][j]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
       }
+      // yc[t, p] += sum_n C[t, n] h[p, n] over the slice: rows
+      // t = ty + 16 i, columns p = p0 + tx + 16 j
+      if (ty < cs) {
+        int tr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tr[i] = min(ty + 16 * i, cs - 1);
+        for (int p0 = 0; p0 + tx < P; p0 += 64) {
+          int pc[4];
+          float st[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pc[j] = min(p0 + tx + 16 * j, P - 1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) st[i][j] = yc[tr[i] * P + pc[j]];
+#pragma unroll 8
+          for (int n = 0; n < ns; ++n) {
+            float cv[4], hv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              cv[i] = cm[tr[i] * kLDS + n];
+              hv[i] = hs[pc[i] * ldh + n0 + n];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                st[i][j] = fmaf(cv[i], hv[j], st[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int t = ty + 16 * i;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int p = p0 + tx + 16 * j;
+              if (t < cs && p < P) yc[t * P + p] = st[i][j];
+            }
+          }
+        }
+      }
+      __syncthreads();   // every read of the state slice for y is done
+
+      // h[p, n] <- exp(L_last) h[p, n] + sum_s w_s x[s, p] B[s, n] on the
+      // slice: rows p = p0 + ty + 16 i, columns n = tx + 16 j; each
+      // element is read and written by its one owning thread
+      for (int p0 = 0; p0 + ty < P; p0 += 64) {
+        for (int nn = 0; nn + tx < ns; nn += 64) {
+          int pr[4], nc[4];
+          float acc[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pr[i] = min(p0 + ty + 16 * i, P - 1);
+            nc[i] = min(nn + tx + 16 * i, ns - 1);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+          }
+#pragma unroll 4
+          for (int s = 0; s < cs; ++s) {
+            const float w = ws[s];
+            float xv[4], bv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              xv[i] = w * xs[s * P + pr[i]];
+              bv[i] = bs[s * kLDS + nc[i]];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int p = p0 + ty + 16 * i;
+            if (p >= P) continue;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int n = nn + tx + 16 * j;
+              if (n < ns) {
+                float* e = hs + p * ldh + n0 + n;
+                *e = dl * *e + acc[i][j];
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // M from its sums, with the decay and dt
+    if (ty < cs && tx < cs) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int t = ty + 16 * i;
@@ -191,14 +313,14 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           const int s = tx + 16 * j;
           if (t < cs && s < cs)
             ms[t * kLDM + s] =
-                s <= t ? expf(lc[t] - lc[s]) * dts[s] * acc[i][j] : 0.f;
+                s <= t ? expf(lc[t] - lc[s]) * dts[s] * macc[i][j] : 0.f;
         }
       }
     }
     __syncthreads();
 
-    // y[t, p] = sum_s M[t, s] x[s, p] + exp(L_t) sum_n C[t, n] h[p, n]:
-    // rows t = ty + 16 i, columns p = p0 + tx + 16 j
+    // y[t, p] = sum_s M[t, s] x[s, p] + exp(L_t) yc[t, p]: rows
+    // t = ty + 16 i, columns p = p0 + tx + 16 j
     if (ty < cs) {
       int tr[4];
       float el[4];
@@ -209,13 +331,13 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
       for (int p0 = 0; p0 + tx < P; p0 += 64) {
         int pc[4];
-        float acc[4][4], st[4][4];
+        float acc[4][4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) pc[j] = min(p0 + tx + 16 * j, P - 1);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = st[i][j] = 0.f;
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
         for (int s = 0; s < cs; ++s) {
           float mv[4], xv[4];
@@ -229,19 +351,6 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
             for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(mv[i], xv[j], acc[i][j]);
         }
-#pragma unroll 8
-        for (int n = 0; n < N; ++n) {
-          float cv[4], hv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            cv[i] = cm[tr[i] * LDN + n];
-            hv[i] = hs[pc[i] * LDN + n];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) st[i][j] = fmaf(cv[i], hv[j], st[i][j]);
-        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int t = ty + 16 * i;
@@ -251,58 +360,16 @@ mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             const int p = p0 + tx + 16 * j;
             if (p < P)
               yb[(t0 + t) * ysl + p] =
-                  narrow<T>(acc[i][j] + el[i] * st[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // every read of the state for y is done
-
-    // h[p, n] <- exp(L_last) h[p, n] + sum_s w_s x[s, p] B[s, n]:
-    // rows p = p0 + ty + 16 i, columns n = n0 + tx + 16 j; each element is
-    // read and written by its one owning thread
-    const float dl = expf(l_last);
-    for (int p0 = 0; p0 + ty < P; p0 += 64) {
-      for (int n0 = 0; n0 + tx < N; n0 += 64) {
-        int pr[4], nc[4];
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pr[i] = min(p0 + ty + 16 * i, P - 1);
-          nc[i] = min(n0 + tx + 16 * i, N - 1);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        }
-#pragma unroll 4
-        for (int s = 0; s < cs; ++s) {
-          const float w = ws[s];
-          float xv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            xv[i] = w * xs[s * P + pr[i]];
-            bv[i] = bs[s * LDN + nc[i]];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = p0 + ty + 16 * i;
-          if (p >= P) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (n < N) hs[p * LDN + n] = dl * hs[p * LDN + n] + acc[i][j];
+                  narrow<T>(acc[i][j] + el[i] * yc[t * P + p]);
           }
         }
       }
     }
   }
+  if (!resident) return;   // the state is already in hout
   __syncthreads();
   for (int i = tid; i < P * N; i += kThreads)
-    hout[hoff + i] = hs[(i / N) * LDN + i % N];
+    hout[hoff + i] = hs[(i / N) * ldh + i % N];
 }
 
 template <typename T>
@@ -310,9 +377,11 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, const float* h0, void* y, float* hout, int B,
            int L, int H, int P, int N, const int64_t* st,
            cudaStream_t stream) {
-  const int pt = p_tile(P, N);
+  bool resident = false;
+  const int pt = p_tile(P, N, &resident);
   if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = smem_floats(pt, N) * static_cast<int>(sizeof(float));
+  const int bytes =
+      smem_floats(pt, N, resident) * static_cast<int>(sizeof(float));
   auto kernel = mamba2_scan_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -322,7 +391,7 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), h0, static_cast<T*>(y), hout,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      L, H, P, N, pt);
+      L, H, P, N, pt, static_cast<int>(resident));
   return static_cast<int>(cudaGetLastError());
 }
 

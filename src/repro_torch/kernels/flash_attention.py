@@ -18,13 +18,20 @@ Sq alone (:func:`route`):
   every product as three bf16 products; its plain version with the same
   roundings is :func:`repro_torch.kernels.ref.flash_attention_pairs`.
 
-Every route takes any head dim D from 1 to ``MAX_HEAD_DIM`` (256), as the
-TPU kernel does, on a kernel of width :func:`kernel_dim` (a multiple of 16
-up to 128, then 160, 192, 224 or 256): the kernels read the caller's D
-columns and fill the rest of their width with zeros, exact because a zero
-column adds an exact zero to every q.k, and store D columns.  A row that
-is not a whole number of 16-byte units (D not a multiple of 8 in bfloat16
-or of 4 in float32) is first copied into zero-padded rows.
+Every route takes any head dim D, as the TPU kernel does.  Up to 256 a
+kernel of width :func:`kernel_dim` (a multiple of 16 up to 128, then 160,
+192, 224 or 256) reads the caller's D columns and fills the rest of its
+width with zeros, exact because a zero column adds an exact zero to every
+q.k, and stores D columns.  Above 256 both prefill routes go to
+``csrc/flash_attention.cu``'s ``flash_attention_wide_launch``, which sums
+S = QK^T over k-slices of ``WIDE_SLICE`` columns and gives each block a
+group of ``WIDE_GROUP`` columns of v and o (:func:`wide_tiling`: its
+shared memory does not depend on D), and the decode kernel walks a key
+row in passes of 256 columns, a block owning 256 columns of v and o.  The
+decode kernel holds at most ``MAX_GROUP`` query heads of a KV head in a
+block; a wider group is sliced over the grid (:func:`decode_tiling`).  A
+row that is not a whole number of 16-byte units (D not a multiple of 8 in
+bfloat16 or of 4 in float32) is first copied into zero-padded rows.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from __future__ import annotations
 import array
 import contextlib
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,10 +57,16 @@ HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: the kernel widths above 128: a prefill block owns half the columns of v
 #: and o (two column groups), the decode kernel's warp one key row
 WIDE_HEAD_DIMS = (160, 192, 224, 256)
-#: the widest head dim any route takes; every D from 1 to it runs on a
-#: kernel of width :func:`kernel_dim`, a wider one raises
-MAX_HEAD_DIM = 256
-MAX_GROUP = 8          # query heads per KV head the decode kernel takes
+#: above this head dim the prefill routes sum S over k-slices and the
+#: decode kernel walks a key row in passes
+SLICED_ABOVE = 256
+WIDE_SLICE = 64        # columns of D in one k-slice of the wide prefill
+WIDE_GROUP = 128       # columns of v and o one wide prefill block owns
+#: shared memory of one wide prefill block: the Q and K slices and the V
+#: tile as float32 rows padded by 4 (csrc/flash_attention.cu, wide::kSmem)
+WIDE_SMEM_BYTES = (2 * 64 * (WIDE_SLICE + 4) + 64 * (WIDE_GROUP + 4)) * 4
+DECODE_PASS = 256      # columns of a decode pass and of its column group
+MAX_GROUP = 8          # query heads of a KV head one decode block holds
 MAX_SPLIT = 8          # key splits: the portable thread-block cluster
 MIN_SPLIT_KEYS = 64    # keys a split holds at least
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -64,11 +77,15 @@ _STRIDES = ctypes.c_void_p    # 12 int64 element strides
 # dtype (decode), the stream
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES,
              ctypes.c_float, _I, _P)
-# route -> (library, C symbol)
+# the wide prefill: the same, then the dtype, then the stream
+_WIDE_ARGTYPES = _ARGTYPES[:-1] + (_I, _P)
+# kernel -> (library, C symbol, argtypes)
 _SYMBOLS = {
-    "f32": ("flash_attention", "flash_attention_launch"),
-    "tc_prefill": ("flash_attention", "flash_attention_tc_launch"),
-    "decode": ("flash_decode", "flash_decode_launch"),
+    "f32": ("flash_attention", "flash_attention_launch", _ARGTYPES),
+    "tc_prefill": ("flash_attention", "flash_attention_tc_launch", _ARGTYPES),
+    "wide": ("flash_attention", "flash_attention_wide_launch",
+             _WIDE_ARGTYPES),
+    "decode": ("flash_decode", "flash_decode_launch", _ARGTYPES),
 }
 _fns = {}      # route -> its bound C function, once loaded
 _sms = {}      # device index -> streaming multiprocessors
@@ -83,13 +100,36 @@ def route(q: torch.Tensor) -> str:
 
 
 def kernel_dim(d: int) -> int:
-    """The kernel width that serves head dim ``d`` (1 to ``MAX_HEAD_DIM``):
+    """The kernel width that serves head dim ``d`` up to ``SLICED_ABOVE``:
     the next of ``HEAD_DIMS + WIDE_HEAD_DIMS``.  The columns past ``d``
     read as zeros, which add exact zeros to every q.k, and are not
-    stored."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    stored.  Above it the width of the k-slices (prefill) and passes
+    (decode) that walk ``d``: :func:`wide_tiling`, :func:`decode_tiling`."""
+    if d < 1:
+        raise ValueError(f"head dim {d} is below 1")
+    if d > SLICED_ABOVE:
+        raise ValueError(f"head dim {d} is above {SLICED_ABOVE}: it is "
+                         "walked in slices (wide_tiling, decode_tiling)")
     return -(-d // 16) * 16 if d <= 128 else -(-d // 32) * 32
+
+
+def wide_tiling(d: int) -> Tuple[int, int, int]:
+    """``(k-slices, column groups, shared memory bytes)`` of the wide
+    prefill at head dim ``d`` (above ``SLICED_ABOVE``): S sums
+    ``ceil(d / WIDE_SLICE)`` slices, the grid holds ``ceil(d /
+    WIDE_GROUP)`` groups of v and o, and a block's shared memory is
+    ``WIDE_SMEM_BYTES`` whatever ``d``."""
+    return -(-d // WIDE_SLICE), -(-d // WIDE_GROUP), WIDE_SMEM_BYTES
+
+
+def decode_tiling(d: int, group: int) -> Tuple[int, int, int]:
+    """``(passes over a key row, column groups of v and o, slices of the
+    query group)`` of the decode kernel at head dim ``d`` with ``group``
+    query heads a KV head: one pass and one column group up to
+    ``SLICED_ABOVE``, else ``ceil(d / DECODE_PASS)`` of each; the group in
+    slices of ``MAX_GROUP`` heads."""
+    n = 1 if d <= SLICED_ABOVE else -(-d // DECODE_PASS)
+    return n, n, -(-group // MAX_GROUP)
 
 
 def decode_splits(bh: int, skv: int, n_sm: int) -> int:
@@ -104,8 +144,8 @@ def decode_splits(bh: int, skv: int, n_sm: int) -> int:
 def _launcher(name: str):
     fn = _fns.get(name)
     if fn is None:
-        lib, symbol = _SYMBOLS[name]
-        fn = _fns[name] = _cuda.launcher(lib, _ARGTYPES, symbol=symbol)
+        lib, symbol, argtypes = _SYMBOLS[name]
+        fn = _fns[name] = _cuda.launcher(lib, argtypes, symbol=symbol)
     return fn
 
 
@@ -160,9 +200,8 @@ def flash_attention_cuda(
         raise ValueError("flash_attention_cuda: need q (B, Hq, Sq, D) and k, "
                          f"v (B, Hkv, Skv, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_cuda: head dim {D} is outside "
-                         f"1..{MAX_HEAD_DIM}, the widest kernel's")
+    if D < 1:
+        raise ValueError(f"flash_attention_cuda: head dim {D} is below 1")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: {Hq} query heads do not "
                          f"group over {Hkv} kv heads")
@@ -175,10 +214,6 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: B={B} or Hq={Hq} above the "
                          "grid's 65535")
     which = route(q)
-    if which == "decode" and Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"flash_attention_cuda: decode takes at most "
-                         f"{MAX_GROUP} query heads per kv head, got "
-                         f"{Hq // Hkv}")
     if B == 0 or Hq == 0 or Sq == 0:
         return torch.empty((B, Hq, Sq, D), dtype=dtype, device=dev)
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
@@ -206,7 +241,8 @@ def flash_attention_cuda(
     # element strides: batch, head and sequence of q, k, v and out
     strides = array.array("q", (*qs[:3], *ks[:3], *vs[:3],
                                 Hq * Sq * Dp, Sq * Dp, Dp))
-    fn = _launcher(which)
+    wide = which != "decode" and Dp > SLICED_ABOVE
+    fn = _launcher("wide" if wide else which)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Hq, Hkv)
     index = dev.index
@@ -217,6 +253,9 @@ def flash_attention_cuda(
             n_split = decode_splits(B * Hkv, Skv, _sm_count(dev))
             err = fn(*head, Skv, Dp, n_split, strides.buffer_info()[0],
                      scale, _DTYPES.index(dtype), stream)
+        elif wide:
+            err = fn(*head, Sq, Skv, Dp, strides.buffer_info()[0], scale,
+                     int(causal), _DTYPES.index(dtype), stream)
         else:
             err = fn(*head, Sq, Skv, Dp, strides.buffer_info()[0], scale,
                      int(causal), stream)

@@ -27,10 +27,10 @@ width N alone (:func:`route`):
   above ``DECODE_MAX_N``: ``csrc/mamba2_scan.cu``'s
   ``mamba2_scan_wide_launch``, float32 FMAs on the CUDA cores, bfloat16 x,
   B and C widened to float32 and y rounded to bfloat16 once.  One kernel,
-  one route name per dtype.  A block takes a tile of P's columns
-  (:func:`wide_p_tile`: all of P where the state fits the block's shared
-  memory, :func:`smem_bytes`), so P is unbounded; the B and C chunks in
-  shared memory bound N (``WIDE_MAX_N`` at P >= 16): wider raises.
+  one route name per dtype, any P and any N: B and C pass through shared
+  memory in slices of ``N_SLICE`` columns, a block takes a tile of P's
+  columns, and the state tile stays in shared memory where it fits, else
+  in the output state in global memory (:func:`wide_tiling`).
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ TC_MAX_WIDTH = 128
 #: the widest N the decode route takes (16 lanes a row, 16 values a lane)
 DECODE_MAX_N = 256
 _CHUNK = 64
+#: columns of N in one slice of the B and C chunks on the wide routes
+N_SLICE = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, dt, A, Bm, Cm, h0, y, hout, B, then (L, H, P, N) for a scan or (H, P,
@@ -89,24 +91,23 @@ def route(x: torch.Tensor, n: int = 0) -> str:
     return "f32_wide" if n > TC_MAX_WIDTH else "f32"
 
 
-def smem_bytes(P: int, N: int) -> int:
+def smem_bytes(P: int, N: int, resident: bool = True) -> int:
     """Shared memory one block of the wide routes needs for a tile of P
     columns and state width N, as ``csrc/mamba2_scan.cu``'s
-    ``smem_floats`` counts it."""
-    return 4 * (_CHUNK * P + 2 * _CHUNK * (N + 1) + P * (N + 1)
-                + _CHUNK * (_CHUNK + 1) + 3 * _CHUNK)
+    ``smem_floats`` counts it: the x chunk and y's C h term (64 x P each),
+    the B and C slices (64 x ``N_SLICE`` each), M, three 64-vectors and,
+    with the state ``resident``, its tile (P x (N + 1)).  Without it the
+    bytes do not depend on N."""
+    return 4 * (2 * _CHUNK * P + 2 * _CHUNK * (N_SLICE + 1)
+                + _CHUNK * (_CHUNK + 1) + 3 * _CHUNK
+                + (P * (N + 1) if resident else 0))
 
 
-def wide_p_tile(P: int, N: int) -> int:
-    """Columns of P one block of the wide routes takes, as
-    ``csrc/mamba2_scan.cu``'s ``p_tile`` chooses them: P where the whole
-    state fits ``SMEM_LIMIT``, else the widest multiple of 16 that fits,
-    the tiles then evened out; 0 when not even 16 columns fit (N above
-    ``WIDE_MAX_N``)."""
-    if smem_bytes(P, N) <= SMEM_LIMIT:
+def _fit_tile(P: int, N: int, resident: bool) -> int:
+    if smem_bytes(P, N, resident) <= SMEM_LIMIT:
         return P
     w = (P - 1) // 16 * 16
-    while w >= 16 and smem_bytes(w, N) > SMEM_LIMIT:
+    while w >= 16 and smem_bytes(w, N, resident) > SMEM_LIMIT:
         w -= 16
     if w < 16:
         return 0
@@ -114,8 +115,28 @@ def wide_p_tile(P: int, N: int) -> int:
     return -(-P // tiles)
 
 
-#: the widest N the wide routes take at P >= 16 (a tile of 16 columns)
-WIDE_MAX_N = max(n for n in range(1, 1024) if smem_bytes(16, n) <= SMEM_LIMIT)
+def wide_tiling(P: int, N: int) -> Tuple[int, bool]:
+    """``(columns of P one block takes, whether the state tile stays in
+    shared memory)`` on the wide routes, as ``csrc/mamba2_scan.cu``'s
+    ``p_tile`` chooses them: P where it fits with the state resident, else
+    the widest multiple of 16 that does, the tiles then evened out; where
+    not even 16 columns of state fit, the same choice with the state in
+    global memory, which always finds a tile."""
+    tile = _fit_tile(P, N, True)
+    if tile:
+        return tile, True
+    return _fit_tile(P, N, False), False
+
+
+def wide_p_tile(P: int, N: int) -> int:
+    """Columns of P one block of the wide routes takes
+    (:func:`wide_tiling`)."""
+    return wide_tiling(P, N)[0]
+
+
+def n_slices(N: int) -> int:
+    """Slices of ``N_SLICE`` columns the wide routes pass B and C in."""
+    return -(-N // N_SLICE)
 
 
 def _launcher(name: str):
@@ -201,13 +222,6 @@ def mamba2_scan_cuda(
         raise ValueError("mamba2_scan_cuda: x, Bmat and Cmat need a "
                          "contiguous last dimension")
     which = route(x, N)
-    if which in ("f32_wide", "bf16_wide") and P and N \
-            and not wide_p_tile(P, N):
-        tile = min(P, 16)
-        raise ValueError(f"mamba2_scan_cuda: state width N={N} needs "
-                         f"{smem_bytes(tile, N)} bytes of shared memory at a "
-                         f"tile of {tile} columns of P, above the block's "
-                         f"{SMEM_LIMIT}")
     if Bsz > 65535 or H > 65535:
         raise ValueError(f"mamba2_scan_cuda: B={Bsz} or H={H} above the "
                          "grid's 65535")

@@ -5,11 +5,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
 
 The port of the reference package's ``launch/serve.py``: random
-parameters (``init_params(cfg, 0)``) and random prompts, as there.
-``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  Off the CPU the model computes in bfloat16 with a
-bfloat16 KV cache, on the CPU in float32.  ``--ckpt`` needs the training
-checkpoints (``train.checkpoint``), which the port does not have yet.
+parameters (``init_params(cfg, 0)``), or with ``--ckpt`` the parameters of
+the newest checkpoint in that repository (``launch.train --ckpt``), and
+random prompts, as there.  ``--device`` defaults to ``cuda``; ``--device
+cpu`` runs the plain PyTorch versions of the kernels.  Off the CPU the
+model computes in bfloat16 with a bfloat16 KV cache, on the CPU in
+float32.
 """
 
 from __future__ import annotations
@@ -23,12 +24,48 @@ import torch
 from repro_torch.configs import get_any_config
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models import model as M
+from repro_torch.models.convert import from_reference
 from repro_torch.radar._device import resolve_device
 from repro_torch.serve import Engine, Request
+from repro_torch.store import Repository
+from repro_torch.train import (AdamWConfig, CheckpointManager,
+                               train_state_specs)
 
 
-def main(argv=None) -> None:
-    """CLI entry point; see the module docstring."""
+def load_checkpoint(cfg, path: str, device) -> M.LMParams:
+    """The parameters of the newest checkpoint in the repository at
+    ``path`` (``launch.train --ckpt``, or the reference's), on
+    ``device``."""
+    mgr = CheckpointManager(Repository.open(path))
+    step = mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"--ckpt {path}: the repository holds no "
+                         "checkpoint")
+    specs = train_state_specs(cfg, AdamWConfig(), ParallelConfig()).params
+    tree = mgr.restore(specs, step=step, device=device, subtree="params")
+    print(f"parameters of checkpoint step {step}")
+    return from_reference(cfg, tree, device=device)
+
+
+def make_requests(cfg, n: int, prompt_len: int, new_tokens: int,
+                  temperature: float = 0.0):
+    """The command line's requests: ``n`` prompts from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return [
+        Request(
+            prompt=rng.integers(2, cfg.vocab_size,
+                                size=(prompt_len,)).astype(np.int32),
+            max_new_tokens=new_tokens,
+            temperature=temperature,
+        )
+        for _ in range(n)
+    ]
+
+
+def main(argv=None):
+    """CLI entry point; see the module docstring.  Returns the
+    completions."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="radar-lm-100m")
     ap.add_argument("--ckpt", default=None)
@@ -46,11 +83,6 @@ def main(argv=None) -> None:
                          "plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise SystemExit(
-            "--ckpt is not ported yet: loading a checkpoint needs "
-            "train.checkpoint (ROADMAP, 'Modules to port', item 7.3); drop "
-            "--ckpt to serve random parameters")
     device = resolve_device(args.device)
     cfg = get_any_config(args.arch)
     if args.reduced:
@@ -58,19 +90,12 @@ def main(argv=None) -> None:
     dtype = "float32" if device.type == "cpu" else "bfloat16"
     pcfg = ParallelConfig(compute_dtype=dtype, kv_cache_dtype=dtype,
                           remat="none")
-    params = M.init_params(cfg, 0, device=device)
+    params = (load_checkpoint(cfg, args.ckpt, device) if args.ckpt
+              else M.init_params(cfg, 0, device=device))
 
     eng = Engine(cfg, pcfg, params, max_len=args.max_len, device=device)
-    rng = np.random.default_rng(0)
-    reqs = [
-        Request(
-            prompt=rng.integers(2, cfg.vocab_size,
-                                size=(args.prompt_len,)).astype(np.int32),
-            max_new_tokens=args.new_tokens,
-            temperature=args.temperature,
-        )
-        for _ in range(args.requests)
-    ]
+    reqs = make_requests(cfg, args.requests, args.prompt_len,
+                         args.new_tokens, args.temperature)
     t0 = time.time()
     outs = eng.generate(reqs, seed=1, max_batch=args.max_batch)
     if device.type == "cuda":
@@ -82,6 +107,7 @@ def main(argv=None) -> None:
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {np.asarray(o.tokens).ravel()[:16]} ... "
               f"[{o.finished}]")
+    return outs
 
 
 if __name__ == "__main__":

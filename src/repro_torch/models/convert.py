@@ -11,7 +11,10 @@ The port keeps the reference's leaf names and ``(d_in, d_out)`` layouts
 (it multiplies by the kernels itself and uses no ``nn.Linear``), so each
 leaf is copied as it is, and a stacked leaf is split along its leading
 repeat axis into one layer each.  A leaf of the one tree that the other
-lacks, or a shape that differs, raises ``ValueError``.
+lacks, or a shape that differs, raises ``ValueError``.  :func:`to_reference`
+is the inverse, the port's parameters as the reference's stacked tree (the
+layout training keeps and checkpoints store), and :func:`unstack` reads
+such a tree back one layer per repeat, as the forward pass takes it.
 """
 
 from __future__ import annotations
@@ -68,8 +71,9 @@ def _port_leaves(params: LMParams):
 def from_reference(cfg: ModelConfig, tree: Any, *,
                    dtype: torch.dtype = torch.float32,
                    device: DeviceLike = None) -> LMParams:
-    """``tree`` (the reference's parameter pytree with numpy leaves) as the
-    port's parameters on ``device`` (``None`` means ``"cuda"``)."""
+    """``tree`` (the reference's parameter pytree with numpy or torch
+    leaves) as the port's parameters on ``device`` (``None`` means
+    ``"cuda"``)."""
     dev = resolve_device(device)
     params = init_params(cfg, device="meta", dtype=dtype)
     leaves = _flatten(tree)
@@ -79,7 +83,9 @@ def from_reference(cfg: ModelConfig, tree: Any, *,
             raise ValueError("reference parameters lack "
                              + "/".join(map(str, path)))
         seen.add(path)
-        value = np.asarray(leaves[path])
+        value = leaves[path]
+        value = (value.detach().to("cpu", torch.float32).numpy()
+                 if isinstance(value, torch.Tensor) else np.asarray(value))
         if rep is not None:
             reps = len(params["groups"][path[1]])
             if value.ndim == 0 or value.shape[0] != reps:
@@ -100,3 +106,48 @@ def from_reference(cfg: ModelConfig, tree: Any, *,
         raise ValueError(f"reference parameters the port does not have: "
                          f"{extra}")
     return params
+
+
+def to_reference(params: LMParams) -> Dict[str, Any]:
+    """The inverse of :func:`from_reference`: ``params`` as the reference's
+    pytree, plain nested dicts and lists of tensors on ``params``' device,
+    every leaf under ``groups`` stacked over its group's repeats (a new
+    tensor), the others the port's own tensors, detached."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Path, list] = {}
+    for path, rep, owner, name in _port_leaves(params):
+        leaf = owner[name].detach()
+        if rep is None:
+            _set(tree, path, leaf)
+        else:
+            stacks.setdefault(path, []).append(leaf)
+    for path, reps in stacks.items():
+        _set(tree, path, torch.stack(reps))
+    tree["groups"] = [tree["groups"][gi] for gi in sorted(tree["groups"])]
+    return tree
+
+
+def _set(tree: Dict[Any, Any], path: Path, value: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def unstack(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A reference-layout tree (:func:`to_reference`) as the forward pass
+    reads parameters: ``groups[g][r]`` one repeat's dict, each leaf a view
+    ``leaf[r]`` of the stacked one, so gradients reach the stacked
+    leaves."""
+    out = {k: v for k, v in tree.items() if k != "groups"}
+    groups = []
+    for group in tree["groups"]:
+        reps = next(iter(_flatten(group).values())).shape[0]
+        groups.append([_take(group, r) for r in range(reps)])
+    out["groups"] = groups
+    return out
+
+
+def _take(node: Any, r: int) -> Any:
+    if isinstance(node, Mapping):
+        return {k: _take(v, r) for k, v in node.items()}
+    return node[r]

@@ -104,7 +104,8 @@ def count_params(cfg: ModelConfig) -> int:
                init_params(cfg, device="meta").parameters())
 
 
-def compute_params(params: Params, compute_dtype) -> Dict[str, Any]:
+def compute_params(params: Params, compute_dtype, *,
+                   detach: bool = True) -> Dict[str, Any]:
     """The reference's cast rule as a plain nested dict of tensors.
 
     The reference casts float32 leaves with ``ndim > 1`` to
@@ -114,14 +115,15 @@ def compute_params(params: Params, compute_dtype) -> Dict[str, Any]:
     float32 leaf under ``groups`` goes to ``compute_dtype``; outside them
     (``embed``, ``final_norm``, ``shared``) the ``ndim > 1`` rule holds as
     written.  Idempotent, so its result can be passed wherever ``params``
-    is."""
+    is.  ``detach=False`` keeps the leaves in the autograd graph (the
+    training step's path, :func:`train_loss`)."""
     dtype = _dtype(compute_dtype)
 
     def cast(node, stacked: bool):
         if isinstance(node, torch.Tensor):
             if node.dtype == torch.float32 and (stacked or node.ndim > 1):
-                return node.detach().to(dtype)
-            return node.detach()
+                node = node.to(dtype)
+            return node.detach() if detach else node
         if isinstance(node, (list, tuple, nn.ModuleList)):
             return [cast(n, stacked) for n in node]
         return {k: cast(v, stacked) for k, v in node.items()}
@@ -167,18 +169,11 @@ def _embed_batch(cfg: ModelConfig, cparams, batch: Dict,
     return x.to(compute_dtype), positions
 
 
-@torch.inference_mode()
-def forward(
-    cfg: ModelConfig,
-    pcfg: ParallelConfig,
-    params: Params,
-    batch: Dict,
-    *,
-    attn_impl: str = "blocked",
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Cache-less forward -> (float32 logits, aux)."""
+def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
+             batch: Dict, attn_impl: str, detach: bool
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     compute_dtype = _dtype(pcfg.compute_dtype)
-    cparams = compute_params(params, compute_dtype)
+    cparams = compute_params(params, compute_dtype, detach=detach)
     x, positions = _embed_batch(cfg, cparams, batch, compute_dtype)
     emb0 = x
     shared = cparams.get("shared")
@@ -194,6 +189,32 @@ def forward(
     return unembed(cfg, cparams["embed"], x), aux_total
 
 
+def _loss(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
+          batch: Dict, attn_impl: str, detach: bool
+          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = _forward(cfg, pcfg, params, batch, attn_impl, detach)
+    targets = _as_tensor(batch["targets"], logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gathered = torch.gather(logits, -1, targets[..., None])[..., 0]
+    loss = torch.mean(lse - gathered)
+    metrics = {"loss": loss, **aux}
+    total = loss + sum(v for k, v in aux.items() if k.startswith("moe_"))
+    return total, metrics
+
+
+@torch.inference_mode()
+def forward(
+    cfg: ModelConfig,
+    pcfg: ParallelConfig,
+    params: Params,
+    batch: Dict,
+    *,
+    attn_impl: str = "blocked",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cache-less forward -> (float32 logits, aux)."""
+    return _forward(cfg, pcfg, params, batch, attn_impl, True)
+
+
 @torch.inference_mode()
 def loss_fn(
     cfg: ModelConfig,
@@ -204,14 +225,24 @@ def loss_fn(
     attn_impl: str = "blocked",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over one batch (forward only)."""
-    logits, aux = forward(cfg, pcfg, params, batch, attn_impl=attn_impl)
-    targets = _as_tensor(batch["targets"], logits.device).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gathered = torch.gather(logits, -1, targets[..., None])[..., 0]
-    loss = torch.mean(lse - gathered)
-    metrics = {"loss": loss, **aux}
-    total = loss + sum(v for k, v in aux.items() if k.startswith("moe_"))
-    return total, metrics
+    return _loss(cfg, pcfg, params, batch, attn_impl, True)
+
+
+def train_loss(
+    cfg: ModelConfig,
+    pcfg: ParallelConfig,
+    params: Params,
+    batch: Dict,
+    *,
+    attn_impl: str = "blocked",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` inside the autograd graph: ``params`` (an
+    :class:`LMParams` or the same tree of plain tensors, one layer per
+    repeat) may hold leaves that require gradients, and the loss carries
+    them.  The reference's training step differentiates its ``loss_fn``
+    on the ``"blocked"`` core; so does the port's
+    (:func:`repro_torch.train.make_train_step`)."""
+    return _loss(cfg, pcfg, params, batch, attn_impl, False)
 
 
 # ---------------------------------------------------------------------------

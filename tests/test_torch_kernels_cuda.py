@@ -331,10 +331,13 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     again = ops.flash_attention(q, k, v, causal=causal)
     assert torch.equal(got, again)
-    # a head dim above the widest kernel's (256) raises
-    wide = torch.zeros((1, 2, 3, 264), dtype=dt, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(wide, wide, wide)
+    # a head dim above 256 takes the k-sliced prefill: no refusal
+    wide = _t(np.random.default_rng(264).normal(
+        size=(1, 2, 3, 264)).astype(np.float32)).cuda().to(dt)
+    np.testing.assert_allclose(
+        ops.flash_attention(wide, wide, wide).float().cpu().numpy(),
+        ref.flash_attention(wide, wide, wide).float().cpu().numpy(),
+        rtol=tol, atol=tol)
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
 
@@ -431,15 +434,29 @@ def test_flash_decode_kernel_at_head_dims_off_powers_of_two(group, skv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [257, 264, 320, 512])
 def test_flash_attention_refuses_head_dims_off_its_set(d):
-    # no quiet plain path: a head dim no kernel takes (above 256, the
-    # widest kernel's) raises on every route
+    # no head dim is off the set any more: above 256 the prefill routes sum
+    # S over k-slices (column groups of 128 of v and o) and the decode
+    # kernel walks a key row in passes, every route against its plain
+    # version and the same bits from run to run
     _need_cuda()
+    rng = np.random.default_rng(d)
     for dt in (torch.float32, torch.bfloat16):
-        for sq in (1, 70):
-            q = torch.zeros((1, 2, sq, d), dtype=dt, device="cuda")
-            k = torch.zeros((1, 2, 80, d), dtype=dt, device="cuda")
-            with pytest.raises(ValueError, match="head dim"):
-                ops.flash_attention(q, k, k)
+        for sq, hq in ((1, 4), (70, 4), (1, 32)):
+            q = _t(rng.normal(size=(1, hq, sq, d)).astype(np.float32))
+            kv = _t(rng.normal(size=(2, 1, 2, 80, d)).astype(np.float32))
+            q, (k, v) = q.cuda().to(dt), kv.cuda().to(dt)
+            got, which = _route_call(q, k, v, True)
+            assert which == flash_attention.route(q) and got.shape == q.shape
+            want = ref.flash_attention(q, k, v, causal=True)
+            if dt == torch.float32:
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           want.cpu().numpy(), **F32_TOL)
+            else:
+                np.testing.assert_allclose(got.float().cpu().numpy(),
+                                           want.float().cpu().numpy(),
+                                           rtol=5e-2, atol=5e-2)
+                _assert_bf16_rows(got, want)
+            assert torch.equal(got, ops.flash_attention(q, k, v))
 
 
 @pytest.mark.cuda
@@ -593,11 +610,17 @@ def test_mamba2_scan_kernel_matches_plain_on_card(b, l, h, p, n, with_h0,
     assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         ops.mamba2_scan(x.half(), dt, A, Bm.half(), Cm.half())
-    # P is tiled over the grid; N above the tile bound (365) raises
-    wide_state = [torch.zeros(shape, device="cuda")
-                  for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 400))]
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.mamba2_scan(*wide_state, wide_state[-1])
+    # P is tiled over the grid and B and C pass in slices of N: N above
+    # the old bound (365) computes
+    rng = np.random.default_rng(400)
+    wide = [_t(rng.normal(size=shape).astype(np.float32)).cuda()
+            for shape in ((1, 2, 1, 512), (1, 2, 1), (1,), (1, 2, 400))]
+    wide[1], wide[2] = wide[1].abs() * 0.05, -wide[2].abs()
+    got = ops.mamba2_scan(*wide, wide[-1])
+    want = ref.mamba2_scan(*wide, wide[-1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
 
 
 def _scan_inputs(rng, b, l, h, p, n, dt_, with_h0, offset=0):
@@ -693,20 +716,24 @@ def test_mamba2_chunk_tc_takes_strided_and_misaligned_views(offset):
 @pytest.mark.cuda
 def test_mamba2_scan_routes_name_their_width_limits():
     # wider than the tensor-core and decode kernels go to the wide kernel;
-    # it tiles P over the grid, so the one limit left is N, whose B and C
-    # chunks fill a block's shared memory beside a tile of 16 columns
+    # it tiles P over the grid and passes B and C in slices of N, so no
+    # width is refused: N above the old limit of 365 computes, with the
+    # state in global memory where no 16 columns of it fit a block
     _need_cuda()
     rng = np.random.default_rng(9)
     args = _scan_inputs(rng, 1, 3, 1, 136, 16, torch.bfloat16, False)
     assert mamba2_scan.route(args[0], 16) == "bf16_wide"
     args = _scan_inputs(rng, 1, 1, 1, 4, 300, torch.float32, False)
     assert mamba2_scan.route(args[0], 300) == "f32_wide"
-    assert mamba2_scan.WIDE_MAX_N == 365
     for dtype in (torch.float32, torch.bfloat16):
-        for p, n in ((256, 400), (16, mamba2_scan.WIDE_MAX_N + 1)):
-            args = _scan_inputs(rng, 1, 3, 1, p, n, dtype, False)
-            with pytest.raises(ValueError, match="bytes of shared memory"):
-                ops.mamba2_scan(*args[:5])
+        for p, n in ((256, 400), (16, 366), (16, 4096)):
+            x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 1, 70, 1, p, n, dtype,
+                                                True)
+            y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
+            assert which == ("f32_wide" if dtype == torch.float32
+                             else "bf16_wide")
+            _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm,
+                                                       h0=h0))
 
 
 @pytest.mark.cuda
@@ -722,7 +749,8 @@ def test_wide_scan_tiles_p_over_the_grid(l, p, n, with_h0, dtype):
     rng = np.random.default_rng(70 + l + p + n)
     dt_ = getattr(torch, dtype)
     x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, l, 3, p, n, dt_, with_h0)
-    assert mamba2_scan.wide_p_tile(p, n) < p
+    # P = 40 and 33 at N = 365 fit one block since B and C pass in slices
+    assert mamba2_scan.wide_p_tile(p, n) < p or n == 365
     y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
     assert which == ("f32_wide" if dtype == "float32" else "bf16_wide")
     _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))

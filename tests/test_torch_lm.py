@@ -393,13 +393,18 @@ def test_radar_token_batches_bitwise_equal(token_archive, seq_len, batch,
     assert TokenizerSpec().encode(dbz).tolist() == [2, 2, 86, 174, 255]
 
 
-def test_serve_command_line_on_the_cpu(capsys):
+def test_serve_command_line_on_the_cpu(capsys, tmp_path):
     from repro_torch.launch import serve
+    from repro_torch.store import Repository
 
     serve.main(["--reduced", "--device", "cpu", "--requests", "3",
                 "--prompt-len", "8", "--new-tokens", "3", "--max-len", "16",
                 "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "3 completions, 9 tokens" in out and "on cpu" in out
-    with pytest.raises(SystemExit, match="item 7.3"):
-        serve.main(["--ckpt", "somewhere", "--device", "cpu"])
+    # --ckpt loads the newest checkpoint (tests/test_torch_train.py); a
+    # repository that holds none is refused
+    Repository.create(str(tmp_path / "empty"))
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        serve.main(["--reduced", "--ckpt", str(tmp_path / "empty"),
+                    "--device", "cpu"])

@@ -1,15 +1,20 @@
-"""Head dims up to 256 and scans of any P, on the CPU.
+"""Head dims of any width, decode groups over 8, scans of any P and N, on
+the CPU.
 
-The attention kernels take every head dim from 1 to 256: a kernel of
-width ``kernel_dim(D)`` reads the caller's D columns with zeros past
-them, scales by the true D and stores D columns.  The scan's wide kernel
-tiles P over the grid.  Both rest on identities the CPU can check: here
-the port's plain attention at D = 40, 72, 136, 200 and 256 is held
-against the reference's oracle and its Pallas kernel in interpret mode,
+The attention kernels take every head dim: up to 256 a kernel of width
+``kernel_dim(D)`` reads the caller's D columns with zeros past them,
+scales by the true D and stores D columns; above it S is summed over
+k-slices and v and o split into column groups (``wide_tiling``,
+``decode_tiling``), and a decode group wider than 8 heads is sliced over
+the grid.  The scan's wide kernel tiles P over the grid and passes B and
+C in slices of N.  All rest on identities the CPU can check: here the
+port's plain attention at D = 40, 72, 136, 200, 256, 320 and 512 and at
+a group of 16 is held against the reference's oracle and its Pallas
+kernel in interpret mode,
 the zero-pad identity (padded inputs, true-D scale, sliced output)
-against the unpadded plain version, the plain scan at P = N = 160
-against the reference's Pallas kernel in interpret mode, and the scan of
-P's slices, concatenated, against the whole.  The CUDA kernels at these
+against the unpadded plain version, the plain scan at P = N = 160 and at
+N = 384 and 512 against the reference's Pallas kernel in interpret mode,
+and the scan of P's slices, concatenated, against the whole.  The CUDA kernels at these
 widths are in ``tests/test_torch_kernels_cuda.py``, marked ``cuda``.
 """
 
@@ -44,15 +49,31 @@ def _qkv(seed, b, hq, hkv, sq, skv, d):
 
 def test_kernel_dims_cover_every_head_dim_up_to_256():
     dims = flash_attention.HEAD_DIMS + flash_attention.WIDE_HEAD_DIMS
-    assert flash_attention.MAX_HEAD_DIM == 256 == dims[-1]
+    assert flash_attention.SLICED_ABOVE == 256 == dims[-1]
     for d in range(1, 257):
         w = flash_attention.kernel_dim(d)
         assert w in dims and w >= d
         # the narrowest width that holds d: 16s up to 128, then 32s
         assert w - d < (16 if d <= 128 else 32)
-    for bad in (0, 257, 320):
+    # above 256 no kernel width bounds D: the prefill sums S over k-slices
+    # of 64 columns and the grid holds groups of 128 columns of v and o,
+    # a block's shared memory the same at every D; the decode kernel walks
+    # a key row in passes of 256 columns, a block owning 256 of v and o
+    for d in (257, 264, 288, 320, 384, 512, 1000, 4096):
+        slices, groups, smem = flash_attention.wide_tiling(d)
+        assert (slices, groups) == (-(-d // 64), -(-d // 128))
+        assert smem == flash_attention.WIDE_SMEM_BYTES \
+            <= mamba2_scan.SMEM_LIMIT
+        passes, cgroups, gslices = flash_attention.decode_tiling(d, 16)
+        assert passes == cgroups == -(-d // 256) and gslices == 2
         with pytest.raises(ValueError, match="head dim"):
-            flash_attention.kernel_dim(bad)
+            flash_attention.kernel_dim(d)
+    # a group wider than 8 query heads: slices of 8 heads over the grid
+    assert flash_attention.decode_tiling(64, 8) == (1, 1, 1)
+    assert flash_attention.decode_tiling(256, 9) == (1, 1, 2)
+    assert flash_attention.decode_tiling(512, 40) == (2, 2, 5)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.kernel_dim(0)
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -134,17 +155,26 @@ def _scan_inputs(seed, b, l, h, p, n, with_h0):
 
 
 def test_wide_p_tile_fits_the_block_and_bounds_n():
+    # any N: B and C pass through shared memory in slices of 64 columns,
+    # and the state tile leaves shared memory (for the output state in
+    # global memory) only where not even 16 of its columns fit
     limit = mamba2_scan.SMEM_LIMIT
-    for p, n in ((160, 160), (256, 192), (64, 64), (512, 300), (4, 365)):
-        tile = mamba2_scan.wide_p_tile(p, n)
-        assert 1 <= tile <= p and mamba2_scan.smem_bytes(tile, n) <= limit
+    for p, n in ((160, 160), (256, 192), (64, 64), (512, 300), (4, 365),
+                 (64, 384), (160, 512), (40, 3000), (16, 4096)):
+        tile, resident = mamba2_scan.wide_tiling(p, n)
+        assert 1 <= tile <= p
+        assert mamba2_scan.smem_bytes(tile, n, resident) <= limit
         if mamba2_scan.smem_bytes(p, n) <= limit:
-            assert tile == p      # one tile: the old kernel's launch
+            assert (tile, resident) == (p, True)  # the old one-tile launch
     assert mamba2_scan.wide_p_tile(160, 160) == 80
-    n_max = mamba2_scan.WIDE_MAX_N
-    assert mamba2_scan.smem_bytes(16, n_max) <= limit \
-        < mamba2_scan.smem_bytes(16, n_max + 1)
-    assert mamba2_scan.wide_p_tile(256, n_max + 1) == 0
+    assert mamba2_scan.wide_tiling(40, 3000) == (40, False)
+    assert mamba2_scan.wide_tiling(16, 4096) == (16, False)
+    assert [mamba2_scan.n_slices(n) for n in (64, 365, 384, 512)] == [
+        1, 6, 6, 8]
+    # without the resident state the bytes do not depend on N
+    assert len({mamba2_scan.smem_bytes(16, n, False)
+                for n in (1, 365, 366, 4096, 10 ** 5)}) == 1
+    assert not hasattr(mamba2_scan, "WIDE_MAX_N")
 
 
 def test_plain_scan_at_p_n_160_matches_the_pallas_kernel():
@@ -172,7 +202,11 @@ def test_p_tiled_scan_equals_the_whole(l, p, n, with_h0):
     th0 = None if h0 is None else _t(h0)
     y, hN = ref.mamba2_scan(tx, tdt, tA, tB, tC, h0=th0)
     tile = mamba2_scan.wide_p_tile(p, n)
-    assert 0 < tile < p
+    assert 0 < tile <= p
+    if tile == p:
+        # the state of all of P fits one block now that B and C pass in
+        # slices (P = 40, N = 365); the identity is checked on 16 columns
+        tile = 16
     ys, hs = [], []
     for p0 in range(0, p, tile):
         cut = slice(p0, min(p0 + tile, p))
@@ -189,3 +223,62 @@ def test_p_tiled_scan_equals_the_whole(l, p, n, with_h0):
                                **F32_TOL)
     np.testing.assert_allclose(torch.cat(hs, 2).numpy(), np.asarray(h_ref),
                                **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# above the old limits: D > 256, groups > 8, N > 365
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("b, hkv, group, sq, extra, causal", [
+    (1, 2, 2, 70, 9, True), (1, 1, 3, 65, 0, False), (2, 1, 16, 1, 90, True)])
+def test_plain_attention_above_256(b, hkv, group, sq, extra, causal, d):
+    q, k, v = _qkv(sq + extra + d, b, hkv * group, hkv, sq, sq + extra, d)
+    want = np.asarray(jax_ref.flash_attention(q, k, v, causal=causal))
+    pallas = np.asarray(flash_attention_pallas(q, k, v, causal=causal,
+                                               bq=64, bk=64, interpret=True))
+    outs = [ref.flash_attention(_t(q), _t(k), _t(v), causal=causal),
+            ops.flash_attention(_t(q), _t(k), _t(v), causal=causal)]
+    if sq == 1:
+        outs.append(ref.flash_decode(_t(q), _t(k), _t(v), 3))
+    else:
+        outs.append(ref.flash_attention_pairs(_t(q), _t(k), _t(v),
+                                              causal=causal))
+    for out in outs:
+        assert out.shape == q.shape
+        np.testing.assert_allclose(out.numpy(), want, **F32_TOL)
+        np.testing.assert_allclose(out.numpy(), pallas, **F32_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 320])
+def test_plain_decode_at_group_16_and_bf16_above_256(d):
+    q, k, v = _qkv(d, 2, 32, 2, 1, 300, d)
+    want = np.asarray(jax_ref.flash_attention(q, k, v, causal=True))
+    for n_split in (1, 4):
+        got = ref.flash_decode(_t(q), _t(k), _t(v), n_split)
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jax_ref.flash_attention(jq, jk, jv, causal=True),
+                   np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("n", [384, 512])
+@pytest.mark.parametrize("l, p, with_h0", [(70, 16, False), (1, 8, True)])
+def test_plain_scan_above_365_matches_the_reference(l, p, n, with_h0):
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(l + p + n, 1, l, 2, p, n, with_h0)
+    tx = _t(x)
+    assert mamba2_scan.route(tx, n) == "f32_wide"
+    y, hN = ops.mamba2_scan(tx, _t(dt), _t(A), _t(Bm), _t(Cm),
+                            h0=None if h0 is None else _t(h0))
+    wants = [jax_ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)]
+    if h0 is None:
+        wants.append(mamba2_scan_pallas(x, dt, A, Bm, Cm, cs=64,
+                                        interpret=True))
+    for yw, hw in wants:
+        np.testing.assert_allclose(y.numpy(), np.asarray(yw), **F32_TOL)
+        np.testing.assert_allclose(hN.numpy(), np.asarray(hw), **F32_TOL)
