@@ -39,17 +39,18 @@ Phases, each printing its own lines:
    ``flash_attention`` on each of its three routes (``tc_prefill``, the
    bf16 prefill on the tensor cores; ``decode``, one query against a
    strided prefix of a 2048-long cache, split over the keys; ``f32``, the
-   float32 prefill) at radar-lm's, zamba2's and stablelm-3b's (head dim
-   80) prefill and decode shapes and at 32 ragged ones (D 16 to 128 in
-   steps of 16), then at head dims no configuration has (40, 72, 136,
-   200, 256: zero columns up to the kernel's width, two column groups of
-   v above 128; 288, 320, 384, 512: S summed over k-slices of 64 columns,
-   v and o in groups of 128, decode in passes of 256) at ragged shapes
-   and, from 256 up, at stablelm's B, heads and S, and a decode of 16
-   query heads on
-   each KV head (at D 64 and 320, and at radar-lm's B and D), in float32
-   and bfloat16, each call on the route its dtype and Sq choose;
-   timed beside its plain version and
+   float32 prefill) at radar-lm's, zamba2's, stablelm-3b's (head dim
+   80) and deepseek-v2-lite's (MLA: 16 heads of q/k width 192, v
+   zero-padded to it) prefill and decode shapes and at 32 ragged ones (D
+   16 to 128 in steps of 16), then at head dims no configuration has
+   (40, 72, 136, 200, 256: zero columns up to the kernel's width, two
+   column groups of v above 128; 288, 320, 384, 512: S summed over
+   k-slices of 64 columns, v and o in groups of 128, decode in passes of
+   256) at ragged shapes and, from 256 up, at stablelm's B, heads and S,
+   and a decode of 16 query heads on each KV head (at D 64 and 320, and
+   at radar-lm's B and D), in float32 and bfloat16, each call on the
+   route its dtype and Sq choose; at the serve paths' shapes timed
+   beside its plain version and
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
    tensor-core instructions of the built library (``cuobjdump -sass``);
@@ -86,8 +87,8 @@ Phases, each printing its own lines:
    its bound, and each product end to end, split into store read and
    decode, host-to-device copy, kernel, and device-to-host copy;
 6. the incremental path (it appends to the archive): incremental CAPPI,
-   column-max and QPE states built at the archive's head, then 2 scans
-   appended one commit each; after each append every state catches up
+   column-max and QPE states built at the archive's head, then 1 scan
+   appended in a commit of its own; after the append every state catches up
    and is held bitwise against the from-scratch product at that head,
    with ``grid_update``'s launches counted (one per wet scan for QPE,
    none for the grids) and ``grid_map``'s (one per grid update, none for
@@ -154,11 +155,26 @@ Phases, each printing its own lines:
    32/32 heads of 80): float32 kernel route against the blocked core,
    exactly 32 x (1 + decode steps) ``flash_attention`` launches, then
    bfloat16 timed;
+   c. the DeepSeek serve path: deepseek-v2-lite-16b at full width (MLA,
+   64 routed experts top-6 and 2 shared) in float32 at 4 layers (the
+   dense one and 3 MoE layers) the same way, exactly 4 x (1 + decode
+   steps) ``flash_attention`` launches (4 on ``f32``), greedy tokens
+   compared up to the margins of the engine's own function (a sorted
+   prefill, dropless steps); then at full depth (27 layers, its
+   parameters made in bfloat16), timed, 27 ``tc_prefill`` launches a
+   prefill and 27 ``decode`` a step, every MoE layer's prefill on the
+   sorted dispatch and every step on the dropless one, with the
+   assignments dropped at capacity;
+   d. the xLSTM serve path: xlstm-1.3b at full width in float32 at one
+   unit (7 mLSTM and 1 sLSTM layers), the recurrent prefill's
+   last-position logits within 2e-3 of the chunked cache-less forward's;
+   then bfloat16 at full depth (48 layers) timed; no hand kernel
+   launched;
 9. the train path: ``repro_torch.launch.train`` trains radar-lm-100m at
    full width with its defaults (batch 8, seq 512, bf16 compute) on
-   tokens of the ingested archive for 20 steps, a checkpoint every 10 in
-   the port's ``Repository``; rolled back to step 10, a second run
-   resumes there and its losses at steps 11-20 stay within 1e-2 relative
+   tokens of the ingested archive for 12 steps, a checkpoint every 6 in
+   the port's ``Repository``; rolled back to step 6, a second run
+   resumes there and its losses at steps 7-12 stay within 1e-2 relative
    of the first's; ms per step, tokens/s, peak memory and the first and
    last loss printed; then ``launch.serve --ckpt`` serves the newest
    checkpoint (``flash_attention`` on ``tc_prefill`` and ``decode``), its
@@ -171,6 +187,8 @@ exits non-zero; without a CUDA device it exits non-zero before any result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -181,8 +199,8 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -197,7 +215,7 @@ QPE_SWEEP, QVP_SWEEP = 0, 4
 MOMENTS = ("DBZH", "RHOHV")
 # moments kept per sweep: RHOHV only where QVP and QPE read
 SWEEP_MOMENTS = {QPE_SWEEP: MOMENTS, QVP_SWEEP: MOMENTS}
-N_APPEND = 2                      # scans the incremental path appends
+N_APPEND = 1                      # scans the incremental path appends
 T0 = 1305849600.0                 # 2011-05-20, the paper's KVNX case
 SEED = 0
 VCP_NAME = "VCP-212"
@@ -1069,6 +1087,22 @@ LM_ARCH = "radar-lm-100m"
 # 80 (2560 / 32), the head dim off the powers of two the attention
 # kernels take since their sub-tiles follow D
 STABLELM_ARCH = "stablelm-3b"
+# the DeepSeek serve path: deepseek-v2-lite-16b at full width, MLA (16
+# heads of q/k width 192, v 128, a 512 + 64 latent cache) and 64 routed
+# experts top-6 with 2 shared after a dense first layer; float32 at this
+# many layers (the dense one and 3 MoE layers, 2.3 B parameters), bfloat16
+# at full depth (27)
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+DEEPSEEK_F32_LAYERS = 4
+# the xLSTM serve path: xlstm-1.3b at full width (7 mLSTM and 1 sLSTM a
+# unit); float32 at one unit, bfloat16 at full depth (48 layers), whose
+# recurrent prefill steps token by token: timed over this many prefills
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PREFILLS = 1
+# its warm-up generate and its traced prefills take this many prompt
+# tokens: each token of its prefill is the same step, and a whole prefill
+# traced (224 120 kernels) took the profiler longer than the prefill
+XLSTM_PROFILE_LEN = 128
 LM_PROMPTS, LM_PROMPT_LEN, LM_NEW_TOKENS, LM_MAX_LEN = 8, 1024, 32, 2048
 FA_F32_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_kernels.py:281
 FA_BF16_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_kernels.py:291
@@ -1125,12 +1159,13 @@ L2_BYTES = 50e6                            # the H100's L2 cache
 # of 64 columns, v and o in groups of 128; decode in passes of 256), at
 # stablelm's B, heads and S
 FA_WIDE_DIMS = (40, 72, 136, 200, 256, 288, 320, 384, 512)
-# the ones timed at stablelm's shapes: 256 and the sliced widths (40-200
-# are checked here; PERF.md row 5a keeps their earlier times)
-FA_TIMED_DIMS = (256, 288, 320, 384, 512)
+# the ones also checked at stablelm's full shapes: 256 and the sliced
+# widths (none is timed here: PERF.md rows 5a-5c keep their earlier
+# times)
+FA_FULL_DIMS = (256, 288, 320, 384, 512)
 # a decode whose group holds more than 8 query heads (sliced over the
-# grid, 8 a block): checked at these head dims, timed at radar-lm's B and
-# head dim with 32 query heads on 2 KV heads
+# grid, 8 a block): checked at these head dims and at radar-lm's B and
+# head dim with 32 query heads on 2 KV heads (not re-timed)
 FA_GROUP = 16
 FA_GROUP_DIMS = (64, 320)
 
@@ -1147,15 +1182,26 @@ def width_note(d: int) -> str:
             f"{smem} bytes of shared memory a block; {passes} decode passes")
 
 
+def attention_width(cfg) -> int:
+    """The head dim a model's attention calls give the kernel: MLA's q/k
+    width (v is zero-padded to it), else ``cfg.head_dim``."""
+    if cfg.mla is not None:
+        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.head_dim
+
+
 def fa_shapes():
-    """{tag: (B, Hq, Hkv, D)} of the three serve paths' attention calls."""
+    """{tag: (B, Hq, Hkv, D)} of the serve paths' attention calls (MLA's
+    latent expands to one key and value head per query head)."""
     from repro_torch.configs import get_any_config
 
     out = {}
     for tag, arch in (("lm", LM_ARCH), ("zamba2", ZAMBA_ARCH),
-                      ("stablelm", STABLELM_ARCH)):
+                      ("stablelm", STABLELM_ARCH),
+                      ("deepseek", DEEPSEEK_ARCH)):
         cfg = get_any_config(arch)
-        out[tag] = (LM_PROMPTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        hkv = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
+        out[tag] = (LM_PROMPTS, cfg.n_heads, hkv, attention_width(cfg))
     return out
 
 
@@ -1506,7 +1552,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             check(f"head dim decode B={b} Hq={hq} Hkv={hkv} "
                   f"Skv={sq + extra} D={d} {dt}", q1.to(dtype), k.to(dtype),
                   v.to(dtype), causal)
-    for d in FA_TIMED_DIMS:
+    for d in FA_FULL_DIMS:
         cache = randn(2, B_s, Hkv_s, LM_MAX_LEN, d)
         for dtype in (torch.float32, torch.bfloat16):
             dt = "f32" if dtype == torch.float32 else "bf16"
@@ -1515,7 +1561,6 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 B_s, Hkv_s, S, d).to(dtype)
             check(f"head dim {d} prefill {dt} B={B_s} Hq={Hq_s} "
                   f"Hkv={Hkv_s} Sq=Skv={S}", q, k, v, True)
-            cases[(f"D{d}", "prefill", dt)] = (q, k, v)
             if dtype == torch.bfloat16:
                 q1 = randn(B_s, Hq_s, 1, d).to(dtype)
                 ck, cv = cache[0].to(dtype), cache[1].to(dtype)
@@ -1523,10 +1568,9 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                       f"{S + LM_NEW_TOKENS} of a {LM_MAX_LEN}-long cache", q1,
                       ck[:, :, :S + LM_NEW_TOKENS],
                       cv[:, :, :S + LM_NEW_TOKENS], True)
-                cases[(f"D{d}", "decode", dt)] = (q1, ck, cv)
         del cache
     # a group of FA_GROUP query heads on each KV head: ragged, both dtypes,
-    # then at radar-lm's B and head dim for the timing
+    # then at radar-lm's B and head dim
     for d in FA_GROUP_DIMS:
         for hkv in (1, 2):
             skv = int(rng.integers(70, 1200))
@@ -1545,17 +1589,12 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
           f"Hkv={Hkv_g} kv_len={S + LM_NEW_TOKENS} of a {LM_MAX_LEN}-long "
           "cache", q1, cache[0][:, :, :S + LM_NEW_TOKENS],
           cache[1][:, :, :S + LM_NEW_TOKENS], True)
-    cases[("G16", "decode", "bf16")] = (q1, cache[0], cache[1])
     del cache
 
     # times at the paths' shapes ---------------------------------------------
     rows = {}
     n_kv = S + LM_NEW_TOKENS
-    shapes = dict(fa_shapes())
-    shapes.update({f"D{d}": (B_s, Hq_s, Hkv_s, d) for d in FA_TIMED_DIMS})
-    shapes["G16"] = (B_g, Hkv_g * FA_GROUP, Hkv_g, D_g)
-    for tag, (B, Hq, Hkv, D) in shapes.items():
-        wide = tag.startswith("D") or tag == "G16"
+    for tag, (B, Hq, Hkv, D) in fa_shapes().items():
         for which, kind, dt in (("tc_prefill", "prefill", "bf16"),
                                 ("decode", "decode", "bf16"),
                                 ("f32", "prefill", "f32")):
@@ -1583,11 +1622,9 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 return sdpa(q, *next(turns), True)
 
             row = {"ms": time_cuda(call),
-                   "plain_ms": (time_cuda(plain, reps=2, inner=1) if wide
-                                else time_cuda(plain, reps=3, inner=3)),
-                   "library_ms": time_cuda(library)}
-            if not wide:
-                row["host_us"] = host_us_per_call(call)
+                   "plain_ms": time_cuda(plain, reps=3, inner=3),
+                   "library_ms": time_cuda(library),
+                   "host_us": host_us_per_call(call)}
             if kind == "decode":
                 row["device_ms"] = profiled_device_ms(call, "flash_decode")
             nbytes, nops = attention_cost(B, Hq, Hkv, q.shape[2], skv, D,
@@ -1599,8 +1636,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 peak, t_ops = peak_tc, 3 * nops / peak_tc * 1e3
                 row["cuda_core_bound_ms"] = max(t_bytes,
                                                 nops / peak_flops * 1e3)
-                row["library_kernel"] = (None if wide else
-                                         profiled_kernel_names(library))
+                row["library_kernel"] = profiled_kernel_names(library)
                 say(f"bound flash_attention [f32] {tag}: on the CUDA cores "
                     f"{row['cuda_core_bound_ms']:.4f} ms ({nops / 1e9:.2f} "
                     f"GFLOP at {peak_flops / 1e12:.0f} TFLOP/s float32, "
@@ -1631,12 +1667,9 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"{(3 if which == 'f32' else 1) * nops / 1e9:.2f} GFLOP at "
                 f"{peak / 1e12:.0f} TFLOP/s), "
                 f"{nops / row['ms'] / 1e9:.1f} TFLOP/s and "
-                f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved"
-                + (f"; wrapper host {row['host_us']:.2f} us per call "
-                   "(enqueue of 1000)" if "host_us" in row else
-                   f"; {width_note(D)}"
-                   + (", a zero-padded copy of q, k and v first"
-                      if D * q.element_size() % 16 else "")))
+                f"{nbytes / row['ms'] / 1e6:.1f} GB/s achieved; wrapper "
+                f"host {row['host_us']:.2f} us per call (enqueue of 1000); "
+                f"{width_note(D)}")
             rows[(which, tag)] = row
     if DEV == "cuda":
         say("sass flash_attention library (tc_prefill and f32 kernels, both "
@@ -1645,10 +1678,10 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
     say("check flash_attention: worst bf16 row errors "
         + ", ".join(f"{r} {row_errs[r]:.3e}" for r in FA_ROUTES
                     if r != "f32") + f" (tolerance {FA_BF16_ROW_RTOL})")
-    # the JSON rows: each route at radar-lm's shape (the zamba2 and
-    # stablelm shapes' times ride along for those paths' kernel shares),
-    # and the wrapper under its own name with the main path's prefill
-    # route's numbers
+    # the JSON rows: each route at radar-lm's shape (the zamba2, stablelm
+    # and deepseek shapes' times ride along for those paths' kernel
+    # shares), and the wrapper under its own name with the main path's
+    # prefill route's numbers
     out = {"flash_attention": dict(rows[("tc_prefill", "lm")],
                                    max_abs_err=max(errs.values()))}
     for which in FA_ROUTES:
@@ -1666,17 +1699,12 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                        zamba2_bound_ms=zrow["bound_ms"],
                        zamba2_cuda_core_bound_ms=zrow["cuda_core_bound_ms"],
                        zamba2_library_kernel=zrow["library_kernel"])
-        # the head dims no configuration has, at stablelm's B, heads and S
-        row["head_dims"] = {
-            str(d): {key: rows[(which, f"D{d}")].get(key)
-                     for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")}
-            for d in FA_TIMED_DIMS}
-        if which == "decode":
-            row["group16"] = {key: rows[("decode", "G16")].get(key)
-                              for key in ("ms", "device_ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}
+        # DeepSeek's MLA at D = 192 (16 query heads, the latent expanded
+        # to 16 KV heads, v zero-padded to 192)
+        row["deepseek"] = {key: rows[(which, "deepseek")].get(key)
+                           for key in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "host_us")}
         out[f"flash_attention:{which}"] = row
     return out
 
@@ -3295,17 +3323,18 @@ def sync() -> None:
 def path_launches(cfg):
     """Kernel launches per prefill or decode step under
     ``attn_impl="kernel"``: one ``flash_attention`` per attention layer
-    (zamba2's shared block included) and one ``mamba2_scan`` per Mamba-2
-    layer."""
+    (zamba2's shared block and DeepSeek's MLA layers included) and one
+    ``mamba2_scan`` per Mamba-2 layer; xLSTM's mixers launch none."""
     from repro_torch.models.model import layer_groups
 
     kernel = {"attn": "flash_attention", "shared_attn": "flash_attention",
-              "mamba2": "mamba2_scan"}
+              "mla": "flash_attention", "mamba2": "mamba2_scan"}
     out = {}
     for reps, unit in layer_groups(cfg):
         for spec in unit:
-            name = kernel[spec.mixer]
-            out[name] = out.get(name, 0) + reps
+            name = kernel.get(spec.mixer)
+            if name:
+                out[name] = out.get(name, 0) + reps
     return out
 
 
@@ -3316,6 +3345,9 @@ def fa_step_ms(rows, tag: str):
     pre = rows["flash_attention:tc_prefill"]
     dec = rows["flash_attention:decode"]
     if tag == "lm":
+        return pre["ms"], dec.get("device_ms") or dec["ms"]
+    if tag == "deepseek":
+        pre, dec = pre["deepseek"], dec["deepseek"]
         return pre["ms"], dec.get("device_ms") or dec["ms"]
     return (pre[f"{tag}_ms"],
             dec.get(f"{tag}_device_ms") or dec[f"{tag}_ms"])
@@ -3343,53 +3375,111 @@ def drive_zamba2_path(archive, rows) -> None:
                         dec.get("device_ms") or dec["ms"])})
 
 
-def drive_serve_path(archive, rows, arch: str, tag: str,
-                     kernel_ms) -> None:
+def drive_deepseek_path(archive, rows) -> None:
+    """deepseek-v2-lite-16b serves the archive prompts: in float32 at full
+    width and ``DEEPSEEK_F32_LAYERS`` layers (its 62.8 GB of float32
+    parameters and their bf16 copy would not fit the card), then in
+    bfloat16 at full depth, its parameters made in bfloat16."""
+    drive_serve_path(archive, rows, DEEPSEEK_ARCH, "deepseek",
+                     {"flash_attention": fa_step_ms(rows, "deepseek")},
+                     f32_layers=DEEPSEEK_F32_LAYERS, bf16_init=True,
+                     prefill_profiled=1)
+
+
+def model_line(tag: str, cfg, params, seconds: float, per_call) -> None:
+    """One line of what a serve path built: layers, widths, parameters,
+    their dtype and the device memory they hold."""
+    import torch
+    from repro_torch.models.model import layer_groups
+
+    n_params = sum(p.numel() for p in params.parameters())
+    dtype = str(next(iter(params.parameters())).dtype)[6:]
+    mixers = sorted({s.mixer for _r, u in layer_groups(cfg) for s in u})
+    ffns = sorted({s.ffn for _r, u in layer_groups(cfg) for s in u})
+    say(f"{tag}: {cfg.name}: {cfg.n_layers} layers ({', '.join(mixers)}; "
+        f"FFN {', '.join(ffns)}), d_model {cfg.d_model}, {cfg.n_heads} "
+        f"query / {cfg.n_kv_heads} KV heads, attention width "
+        f"{attention_width(cfg)}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters in {dtype} from init_params(seed=0) on {DEV} "
+        f"in {seconds:.1f} s; kernel launches per prefill or step {per_call}"
+        + (f"; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+           if DEV == "cuda" else ""))
+
+
+def expected_launches(per_call, impl: str, steps: int):
+    """Each kernel's launches in a generate of ``steps`` decode steps."""
+    return {k: per_call.get(k, 0) * (1 + steps) if impl == "kernel" else 0
+            for k in kernel_modules()}
+
+
+def expected_routes(per_call, impl: str, steps: int, dtype: str):
+    """The same by route: one prefill call per attention or Mamba-2 layer
+    on the dtype's route, then one decode call per layer and step."""
+    out = {}
+    for name, prefill_route in (
+            ("flash_attention", "f32" if dtype == "f32" else "tc_prefill"),
+            ("mamba2_scan", "f32" if dtype == "f32" else "chunk_tc")):
+        n = per_call.get(name, 0) if impl == "kernel" else 0
+        out[name] = {r: 0 for r in kernel_modules()[name].route_launches}
+        out[name].update({"decode": n * steps, prefill_route: n})
+    return out
+
+
+def step_margins(cfg, pcfg, params, toks, gen):
+    """Top-1 minus top-2 logit of each greedy step of a generate run, from
+    the function the engine computes: a prefill of the prompts (a MoE
+    layer's sorted dispatch with its drops), then the generated tokens fed
+    back one decode step at a time (dropless) -> (B, steps).  A cache-less
+    forward over prompt and tokens would be another function where a MoE
+    layer drops tokens."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode, prefill
+
+    B, S = toks.shape
+    caches = M.init_caches(cfg, pcfg, B, LM_MAX_LEN, device=DEV)
+    logits, caches = prefill(cfg, pcfg, params, caches,
+                             torch.from_numpy(toks).to(DEV), attn_impl="kernel")
+    out = []
+    for t in range(gen.shape[1]):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        out.append((top2[:, 0] - top2[:, 1]).cpu())
+        if t + 1 < gen.shape[1]:
+            step = torch.from_numpy(gen[:, t:t + 1].astype(np.int32)).to(DEV)
+            logits, caches = decode(cfg, pcfg, params, caches, step, S + t,
+                                    attn_impl="kernel")
+    return torch.stack(out, dim=1)
+
+
+def drive_serve_path(archive, rows, arch: str, tag: str, kernel_ms, *,
+                     f32_layers: int = 0, bf16_init: bool = False,
+                     prefill_profiled: int = 2) -> None:
     """``arch`` at full width from ``init_params(seed=0)`` serves the
     archive prompts through ``Engine.generate``, greedy: first in float32
     with the kernel route against the non-kernel one (JAX's blocked
     attention core, chunked SSD and sequential recurrence, in plain
-    torch), then in bfloat16 as ``launch.serve`` runs on the card, timed.
-    ``kernel_ms`` gives each kernel's (prefill, decode) ms at this path's
-    shapes, for its share of a step."""
+    torch), at ``f32_layers`` layers where given, then in bfloat16 as
+    ``launch.serve`` runs on the card, at full depth, timed (its
+    parameters made anew in bfloat16 with ``bf16_init``).  ``kernel_ms``
+    gives each kernel's (prefill, decode) ms at this path's shapes, for
+    its share of a step."""
     import torch
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, Request, prefill
 
-    cfg = get_any_config(arch)
+    full = get_any_config(arch)
+    cfg = (dataclasses.replace(full, n_layers=f32_layers) if f32_layers
+           else full)
     per_call = path_launches(cfg)
     t = time.perf_counter()
     params = M.init_params(cfg, 0, device=DEV)
     sync()
-    n_params = sum(p.numel() for p in params.parameters())
-    mixers = sorted({s.mixer for _r, u in M.layer_groups(cfg) for s in u})
-    say(f"{tag}: {cfg.name} at full width: {cfg.n_layers} layers "
-        f"({', '.join(mixers)}), d_model {cfg.d_model}, {cfg.n_heads} query "
-        f"/ {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}; {n_params} parameters from "
-        f"init_params(seed=0) on {DEV} in {time.perf_counter() - t:.1f} s; "
-        f"kernel launches per prefill or step {per_call}")
+    model_line(f"{tag} f32", cfg, params, time.perf_counter() - t, per_call)
     toks = lm_prompts(archive)
     reqs = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in toks]
     B, S = toks.shape
-
-    def expected(impl, steps):
-        return {k: per_call.get(k, 0) * (1 + steps) if impl == "kernel"
-                else 0 for k in kernel_modules()}
-
-    def expected_routes(impl, steps, dtype):
-        # one prefill call per attention or Mamba-2 layer on the dtype's
-        # route, then one decode call per layer and step
-        out = {}
-        for name, prefill_route in (
-                ("flash_attention", "f32" if dtype == "f32" else "tc_prefill"),
-                ("mamba2_scan", "f32" if dtype == "f32" else "chunk_tc")):
-            n = per_call.get(name, 0) if impl == "kernel" else 0
-            out[name] = {r: 0 for r in kernel_modules()[name].route_launches}
-            out[name].update({"decode": n * steps, prefill_route: n})
-        return out
 
     # float32: the kernel route against the non-kernel one ---------------------
     f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
@@ -3420,8 +3510,9 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         out = eng.generate(reqs, seed=SEED)
         launched, routes = read_launches(), read_routes()
         gens[impl] = np.stack([o.tokens for o in out])
-        expect = expected(impl, eng.decode_steps)
-        expect_routes = expected_routes(impl, eng.decode_steps, "f32")
+        expect = expected_launches(per_call, impl, eng.decode_steps)
+        expect_routes = expected_routes(per_call, impl, eng.decode_steps,
+                                        "f32")
         say(f"{tag} f32 generate attn_impl={impl}: {gens[impl].shape} "
             f"tokens, {eng.decode_steps} decode steps, kernel launches "
             f"{launched}, by route {routes}")
@@ -3441,15 +3532,8 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
                 o.finished == "length" for o in out):
             raise AssertionError(f"{tag} {impl}: completions "
                                  f"{gens[impl].shape}")
-    # the margins along the kernel's run: a full forward over prompt and
-    # generated tokens gives every step's logits
-    seqs = torch.from_numpy(np.concatenate([toks, gens["kernel"]], axis=1))
-    logits, _ = M.forward(cfg, f32, params, {"tokens": seqs.to(DEV)},
-                          attn_impl="kernel")
-    step_logits = logits[:, S - 1:-1]
-    margins = torch.topk(step_logits, 2, dim=-1).values
-    margins = (margins[..., 0] - margins[..., 1]).cpu()
-    del logits, step_logits
+    # the margins along the kernel's run
+    margins = step_margins(cfg, f32, params, toks, gens["kernel"])
     min_margin = float(margins.min())
     same = gens["kernel"] == gens["blocked"]
     if min_margin > LOGIT_TOL:
@@ -3472,15 +3556,56 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
             f"(smallest margin {min_margin:.4e}); {int(same.sum())} of "
             f"{same.size} equal")
 
-    # bfloat16, as launch.serve runs on the card, timed ------------------------
+    if bf16_init or cfg is not full:
+        del params, last
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = M.init_params(full, 0, device=DEV,
+                               dtype=torch.bfloat16 if bf16_init
+                               else torch.float32)
+        sync()
+        model_line(f"{tag} bf16", full, params, time.perf_counter() - t,
+                   path_launches(full))
+    serve_bf16(full, params, toks, rows, tag, kernel_ms,
+               f32_tokens=gens["kernel"] if cfg is full else None,
+               prefill_profiled=prefill_profiled)
+
+
+def serve_bf16(cfg, params, toks, rows, tag: str, kernel_ms, *,
+               f32_tokens=None, n_prefill: int = 3,
+               prefill_profiled: int = 2,
+               profile_len: Optional[int] = None) -> None:
+    """``cfg`` serves the prompts ``toks`` in bfloat16, as ``launch.serve``
+    runs on the card: one ``Engine.generate`` timed, with its launches
+    (by route), the MoE dispatches and drops, and peak memory; then the
+    split (``n_prefill`` prefills, single decode steps) with each kernel's
+    share, and ``torch.profiler`` over ``prefill_profiled`` prefills and 4
+    decode steps.  With ``profile_len`` the warm-up generate and the
+    traced prefills take the prompts' first ``profile_len`` tokens (a
+    prefill that steps token by token, traced whole, is a long trace)."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import Engine, Request
+
+    per_call = path_launches(cfg)
+    reqs = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in toks]
+    B, S = toks.shape
     bf16 = ParallelConfig(compute_dtype="bfloat16",
                           kv_cache_dtype="bfloat16", remat="none")
     eng = Engine(cfg, bf16, params, max_len=LM_MAX_LEN, device=DEV)
-    eng.generate(reqs[:1], seed=SEED)          # warm-up (allocator, cuBLAS)
+    warm = [Request(toks[0][:profile_len], max_new_tokens=LM_NEW_TOKENS)
+            if profile_len else reqs[0]]
+    eng.generate(warm, seed=SEED)              # warm-up (allocator, cuBLAS)
     sync()
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    moe.dispatches.update(dict.fromkeys(moe.dispatches, 0))
+    moe.dropped = 0
     steps0 = eng.decode_steps
     t = time.perf_counter()
     out = eng.generate(reqs, seed=SEED)
@@ -3491,21 +3616,38 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
                else float("nan"))
     steps = eng.decode_steps - steps0
     new = sum(len(o.tokens) for o in out)
-    if launched != expected("kernel", steps) or routes != expected_routes(
-            "kernel", steps, "bf16"):
+    if launched != expected_launches(per_call, "kernel", steps) or \
+            routes != expected_routes(per_call, "kernel", steps, "bf16"):
         raise AssertionError(f"{tag} bf16: launches {launched} by route "
                              f"{routes}, {steps} steps")
     gen_bf16 = np.stack([o.tokens for o in out])
     if gen_bf16.shape != (B, LM_NEW_TOKENS) or gen_bf16.min() < 0 \
             or gen_bf16.max() >= cfg.vocab_size:
         raise AssertionError(f"{tag} bf16: tokens {gen_bf16.shape}")
+    moe_note = ""
+    if cfg.moe is not None:
+        # a prefill of B x S > 64 tokens takes the sorted dispatch, each
+        # decode step the dropless one, in every MoE layer
+        n_moe = sum(reps for reps, unit in M.layer_groups(cfg)
+                    for spec in unit if spec.ffn == "moe")
+        want = {"sorted": n_moe, "dropless": n_moe * steps, "einsum": 0}
+        if moe.dispatches != want:
+            raise AssertionError(f"{tag} bf16: MoE dispatches "
+                                 f"{moe.dispatches}, expected {want}")
+        assigned = n_moe * B * S * cfg.moe.top_k
+        moe_note = (f"; MoE dispatches {moe.dispatches} (the prefill "
+                    f"sorted at capacity {moe.capacity(cfg, B * S)} a "
+                    f"layer, each step dropless), {int(moe.dropped)} of "
+                    f"{assigned} prefill assignments dropped at capacity "
+                    f"({int(moe.dropped) / assigned:.2%})")
+    same = ("" if f32_tokens is None else
+            f"; {int((gen_bf16 == f32_tokens).sum())} of {gen_bf16.size} "
+            "tokens equal to the float32 run")
     say(f"{tag} bf16 generate: {B} requests x {LM_NEW_TOKENS} new tokens "
         f"after {S}-token prompts in {wall * 1e3:.1f} ms = {new / wall:.1f} "
         f"tokens/s; kernel launches {launched}, by route "
         f"{routes}; peak device memory "
-        f"{peak_gb:.2f} GB (max_memory_allocated); "
-        f"{int((gen_bf16 == gens['kernel']).sum())} of {gen_bf16.size} "
-        "tokens equal to the float32 run")
+        f"{peak_gb:.2f} GB (max_memory_allocated){same}{moe_note}")
     add_path_launches(rows, launched, routes)
 
     prompt = torch.from_numpy(toks).to(DEV)
@@ -3513,22 +3655,85 @@ def drive_serve_path(archive, rows, arch: str, tag: str,
         check_scan_logits(cfg, bf16, eng.cparams, prompt, tag)
 
     # the split: prefill, then single decode steps, then each traced
-    pre, dec, caches, nxt = serve_split(cfg, bf16, eng.cparams, prompt)
+    pre, dec, caches, nxt = serve_split(cfg, bf16, eng.cparams, prompt,
+                                        n_prefill=n_prefill)
     pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
     shares = "; ".join(
         f"{name} {n} x {kernel_ms[name][0]:.4f} ms = "
         f"{n * kernel_ms[name][0] / pre_ms:.1%} of prefill, {n} x "
         f"{kernel_ms[name][1]:.4f} ms = "
         f"{n * kernel_ms[name][1] / dec_ms:.1%} of a decode step"
-        for name, n in per_call.items())
+        for name, n in per_call.items()) or "no hand kernel on this path"
     say(f"time {tag} bf16: prefill {pre_ms:.2f} ms ({B} x {S} tokens, "
         f"median of {len(pre)}: {', '.join(f'{x:.2f}' for x in pre)}), "
         f"decode {dec_ms:.3f} ms per step of {B} tokens "
         f"(median of {len(dec)}, {B / dec_ms * 1e3:.1f} tokens/s); "
         f"{shares}")
-    profile_prefill(cfg, bf16, eng.cparams, prompt, pre_ms, tag=tag)
+    profile_prefill(cfg, bf16, eng.cparams, prompt, pre_ms, tag=tag,
+                    n=prefill_profiled, profile_len=profile_len)
     profile_decode(cfg, bf16, eng.cparams, caches, nxt, S + len(dec),
                    dec_ms, tag=tag)
+
+
+def drive_xlstm_path(archive, rows) -> None:
+    """xlstm-1.3b serves the archive prompts: in float32 at full width and
+    one unit (7 mLSTM and 1 sLSTM layers), the recurrent prefill's
+    last-position logits within ``LOGIT_TOL`` of the chunked cache-less
+    forward's (the reference's own check, tests/test_archs.py:67, here
+    the two mLSTM forms against each other on the card); then in
+    bfloat16 at full depth, timed.  Its mixers launch no hand kernel: the
+    counts must stay 0."""
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.serve import prefill
+
+    full = get_any_config(XLSTM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.xlstm.slstm_every)
+    t = time.perf_counter()
+    params = M.init_params(cfg, 0, device=DEV)
+    sync()
+    model_line("xlstm f32", cfg, params, time.perf_counter() - t, {})
+    toks = lm_prompts(archive)
+    prompt = torch.from_numpy(toks).to(DEV)
+    f32 = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
+                         remat="none")
+    reset_launches()
+    caches = M.init_caches(cfg, f32, toks.shape[0], LM_MAX_LEN, device=DEV)
+    sync()
+    t = time.perf_counter()
+    rec, caches = prefill(cfg, f32, params, caches, prompt)
+    sync()
+    rec_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    chunked, _ = M.forward(cfg, f32, params, {"tokens": prompt},
+                           attn_impl="kernel")
+    sync()
+    fwd_ms = (time.perf_counter() - t) * 1e3
+    launched = read_launches()
+    if any(launched.values()):
+        raise AssertionError(f"xlstm f32: kernel launches {launched}")
+    err = compare("xlstm f32 prefill last-position logits, recurrent vs "
+                  "chunked", rec, chunked[:, -1], rtol=LOGIT_TOL,
+                  atol=LOGIT_TOL)
+    state = caches[0][0]["C"]
+    say(f"xlstm f32 ({cfg.n_layers} layers): the recurrent prefill "
+        f"({rec_ms:.1f} ms, {toks.shape[1]} steps a layer) against the "
+        f"chunked forward ({fwd_ms:.1f} ms, chunk {cfg.xlstm.chunk}): "
+        f"last-position logits {tuple(rec.shape)} max_abs_err {err:.3e} "
+        f"(tolerance {LOGIT_TOL}); mLSTM state {tuple(state.shape[1:])} "
+        f"float32 finite {bool(torch.isfinite(state).all())}; kernel "
+        f"launches {launched}")
+    del params, caches, rec, chunked
+    gc.collect()
+    t = time.perf_counter()
+    params = M.init_params(full, 0, device=DEV)
+    sync()
+    model_line("xlstm bf16", full, params, time.perf_counter() - t, {})
+    serve_bf16(full, params, toks, rows, "xlstm", {},
+               n_prefill=XLSTM_PREFILLS, prefill_profiled=1,
+               profile_len=XLSTM_PROFILE_LEN)
 
 
 class ScanShim:
@@ -3673,20 +3878,33 @@ def say_trace(label: str, traced, call_ms: float, what: str) -> None:
 
 
 def profile_prefill(cfg, pcfg, cparams, prompt, prefill_ms: float,
-                    n: int = 2, warmup: int = 1, tag: str = "lm"):
+                    n: int = 2, warmup: int = 1, tag: str = "lm",
+                    profile_len: Optional[int] = None):
     """``n`` prefills traced (after ``warmup``), each into caches made
-    before the trace, against ``prefill_ms``."""
+    before the trace, against ``prefill_ms``; with ``profile_len``,
+    prefills of the prompts' first ``profile_len`` tokens, against one
+    such prefill timed here without the profiler."""
     from repro_torch.models import model as M
     from repro_torch.serve import prefill
 
     if DEV != "cuda":
         return
     caches = [M.init_caches(cfg, pcfg, prompt.shape[0], LM_MAX_LEN,
-                            device=DEV) for _ in range(warmup + n)]
+                            device=DEV)
+              for _ in range(warmup + n + (2 if profile_len else 0))]
+    what = f"{n} prefills traced"
+    if profile_len:
+        prompt = prompt[:, :profile_len]
+        prefill(cfg, pcfg, cparams, caches.pop(), prompt)       # warm-up
+        sync()
+        t = time.perf_counter()
+        prefill(cfg, pcfg, cparams, caches.pop(), prompt)
+        sync()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        what += f" of the first {profile_len} tokens"
     traced = trace_device(
         lambda i: prefill(cfg, pcfg, cparams, caches[i], prompt), n, warmup)
-    say_trace(f"{tag} prefill ({n} prefills traced)", traced, prefill_ms,
-              "prefill")
+    say_trace(f"{tag} prefill ({what})", traced, prefill_ms, "prefill")
 
 
 def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
@@ -3880,8 +4098,8 @@ def drive_ingest_path(work: str, rows) -> str:
 
 # -- phase 9: training from the archive, a checkpoint, and serving it ---------
 
-TRAIN_STEPS = 20
-TRAIN_CKPT_EVERY = 10
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 6
 TRAIN_RESUME_RTOL = 1e-2
 # launch.train's own defaults: batch 8, seq 512, bf16 compute on the card;
 # the CPU rehearsal adds --reduced and smaller shapes here
@@ -4037,7 +4255,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         elapsed("4 (QVP, QPE and grid paths)")
         # 5. end-to-end times
         for workers in (1, os.cpu_count() or 1):
-            time_products(archive, workers, reps=2)
+            time_products(archive, workers, reps=1)
             time_grid_products(archive, workers, reps=1)
         time_store_layers(archive)
         elapsed("5 (times)")
@@ -4067,6 +4285,12 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 8b. the stablelm-3b serve path (head dim 80), the same prompts
         drive_stablelm_path(archive, rows)
         elapsed("8b (stablelm-3b serve path)")
+        # 8c. the DeepSeek serve path (MLA at D = 192, the MoE FFN)
+        drive_deepseek_path(archive, rows)
+        elapsed("8c (deepseek-v2-lite-16b serve path)")
+        # 8d. the xLSTM serve path (mLSTM and sLSTM, no hand kernel)
+        drive_xlstm_path(archive, rows)
+        elapsed("8d (xlstm-1.3b serve path)")
         # 9. training on the ingested archive, a checkpoint, serving it
         drive_train_path(ingested, ing, rows)
         elapsed("9 (train, checkpoint, serve path)")
@@ -4083,7 +4307,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "(Mamba-2) scan")
     say("launches: summed over the counted runs of every path that "
         "launches the kernel (the serve paths: their bfloat16 generate, of "
-        "radar-lm, zamba2 and stablelm-3b; the federated path: one launch "
+        "radar-lm, zamba2, stablelm-3b and deepseek-v2-lite; the federated "
+        "path: one launch "
         "per repository of each counted run; the HTTP path: each cold "
         "product, the 8 coalesced QVP requests counting one; the "
         "maintenance path: each QVP; the ingest path: its QVP, QPE and "
@@ -4097,9 +4322,10 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "from the float32 kernel-route generate (the bf16 path never takes "
         "them); grid_update's numbers are at the QPE fold, 89% wet; "
         "device_ms is a torch.profiler time and host_us the wrapper's host "
-        "time per call, where measured; head_dims are flash_attention's "
-        "routes at head dims no configuration has, wide_p_tiled the "
-        "P-tiled wide scan beside the prefill routes of its dtype")
+        "time per call, where measured; deepseek is each flash_attention "
+        "route at DeepSeek-V2-Lite's MLA shape (16 heads of 192), "
+        "wide_p_tiled the P-tiled wide scan beside the prefill routes of "
+        "its dtype")
     idle = [k for k, row in rows.items() if not row.get("launches")]
     if idle:
         raise AssertionError(f"no path launched {idle}")
@@ -4116,7 +4342,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
         for key in ("routes", "device_ms", "host_us", "warm_ms",
-                    "cuda_core_bound_ms", "library_kernel", "head_dims",
+                    "cuda_core_bound_ms", "library_kernel", "deepseek",
                     "wide_p_tiled"):
             if row.get(key) is not None:
                 out[-1][key] = row[key]

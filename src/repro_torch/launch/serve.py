@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch radar-lm-100m --requests 8 --prompt-len 64 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --reduced --device cpu
 
 The port of the reference package's ``launch/serve.py``: random
-parameters (``init_params(cfg, 0)``), or with ``--ckpt`` the parameters of
+parameters (``init_params(cfg, 0)``, made in the compute dtype), or with
+``--ckpt`` the parameters of
 the newest checkpoint in that repository (``launch.train --ckpt``), and
 random prompts, as there.  ``--device`` defaults to ``cuda``; ``--device
 cpu`` runs the plain PyTorch versions of the kernels.  Off the CPU the
@@ -90,8 +93,11 @@ def main(argv=None):
     dtype = "float32" if device.type == "cpu" else "bfloat16"
     pcfg = ParallelConfig(compute_dtype=dtype, kv_cache_dtype=dtype,
                           remat="none")
+    # random parameters in the compute dtype: deepseek-v2-lite-16b's 15.7 B
+    # in float32 and their bfloat16 copy would not fit an 80 GB card
     params = (load_checkpoint(cfg, args.ckpt, device) if args.ckpt
-              else M.init_params(cfg, 0, device=device))
+              else M.init_params(cfg, 0, device=device,
+                                 dtype=getattr(torch, dtype)))
 
     eng = Engine(cfg, pcfg, params, max_len=args.max_len, device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,

@@ -1,7 +1,8 @@
-"""GQA attention: the cores, the layer and its KV cache.
+"""Attention mixers: GQA (with RoPE/M-RoPE, biases) and DeepSeek's MLA, the
+cores, and their caches.
 
-The port of the GQA part of the reference package's ``models/attention.py``.
-Three interchangeable cores:
+The port of the reference package's ``models/attention.py``.  Three
+interchangeable cores:
 
 * ``impl="kernel"``  — the hand-written CUDA flash-attention kernel
                        (``kernels/csrc/flash_attention.cu``), the
@@ -20,9 +21,15 @@ blocked core computes with ``kv_len``: query i sees the keys < kv_len at
 positions <= kv_len - Sq + i.  So prefill and decode both go through the
 kernel.
 
-Not ported: DeepSeek's MLA and the mesh and costing cores
-(``_flash_decode_core``, ``_kernel_proxy_core``); they raise
-``NotImplementedError`` naming their ROADMAP item.
+MLA (:func:`apply_mla`) caches one latent of ``kv_lora_rank`` and one
+shared RoPE key per token and expands them to per-head keys and values on
+every call (the non-absorbed form), then pads v with zeros to the q/k width
+(``qk_nope_head_dim + qk_rope_head_dim``) so that one core takes it, and
+slices the output back, as the reference does.
+
+Not ported: the mesh and costing cores (``_flash_decode_core``,
+``_kernel_proxy_core``); they raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,13 +39,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import MLAConfig, ModelConfig
 from ..kernels import ops as kops
 from .layers import Params, apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
-# the unported cores and MLA, with their ROADMAP "Modules to port" items
-_MLA = "DeepSeek MLA is not ported yet: ROADMAP, 'Modules to port', item 8.2"
+# the unported cores, with their ROADMAP "Modules to port" items
 _LATER = {"flash_decode": "the mesh's flash-decode core is not ported yet: "
                           "item 8.3 (distributed)",
           "kernel_proxy": "the costing probe's core is not ported yet: "
@@ -226,11 +232,108 @@ def apply_attn(
     return o @ p["wo"], cache
 
 
-def init_mla(*_args, **_kwargs):
-    """DeepSeek multi-head latent attention: not ported."""
-    raise NotImplementedError(_MLA)
+# ---------------------------------------------------------------------------
+# DeepSeek multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the type JAX promotes the pair to (a float32 cache read
+    against bfloat16 weights is a float32 product there; PyTorch's matmul
+    refuses mixed types)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dtype) @ b.to(dtype)
 
 
-def apply_mla(*_args, **_kwargs):
-    """DeepSeek multi-head latent attention: not ported."""
-    raise NotImplementedError(_MLA)
+def init_mla(cfg: ModelConfig, gen, dtype, device) -> nn.ParameterDict:
+    """Parameters for one multi-head latent attention block: ``wq`` (D,
+    H·qd), ``w_dkv`` (D, kv_lora + rope), ``w_uk`` (kv_lora, H·nope),
+    ``w_uv`` (kv_lora, H·v) and ``wo`` (H·v, D)."""
+    m: MLAConfig = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return nn.ParameterDict({
+        "wq": dense_init(gen, D, H * qd, dtype, device),
+        "w_dkv": dense_init(gen, D, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype, device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           dtype, device),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype,
+                           device),
+        "wo": dense_init(gen, H * m.v_head_dim, D, dtype, device),
+    })
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    """Zeroed latent cache: ``latent`` (B, max_len, kv_lora) and ``k_rope``
+    (B, max_len, rope), one per token, shared across heads."""
+    m: MLAConfig = cfg.mla
+    return {
+        "latent": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                              device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def apply_mla(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                     # (B, S, D)
+    positions: torch.Tensor,             # (B, S)
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,
+    impl: str = "blocked",
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One MLA block, optionally through the latent cache.
+
+    The new latents and RoPE keys are written in place at ``cache_index``;
+    only the filled ``latent[:, :cache_index + S]`` is expanded to per-head
+    keys and values (the reference expands all ``max_len`` positions and
+    masks the tail, which adds nothing to any output)."""
+    m: MLAConfig = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    qd = nope + rope
+
+    q = (x @ p["wq"]).reshape(B, S, H, qd).transpose(1, 2)   # (B, H, S, qd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = x @ p["w_dkv"]
+    latent, k_rope_flat = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    # decoupled RoPE key: one shared "head"
+    k_rope = apply_rope(k_rope_flat[:, None], positions,
+                        cfg.rope_theta)[:, 0]                 # (B, S, rope)
+
+    kv_len = None
+    if cache is not None:
+        start = int(cache_index)
+        if start + S > cache["latent"].shape[1]:
+            raise ValueError(f"latent cache of {cache['latent'].shape[1]} "
+                             f"positions cannot take {S} tokens at {start}")
+        cache["latent"][:, start:start + S] = latent.to(
+            cache["latent"].dtype)
+        cache["k_rope"][:, start:start + S] = k_rope.to(cache["k_rope"].dtype)
+        kv_len = start + S
+        latent = cache["latent"][:, :kv_len]
+        k_rope = cache["k_rope"][:, :kv_len]
+
+    # expand the latent to per-head keys and values (non-absorbed form)
+    Skv = latent.shape[1]
+    k_nope = _matmul(latent, p["w_uk"]).reshape(B, Skv, H, nope) \
+        .transpose(1, 2)
+    vv = _matmul(latent, p["w_uv"]).reshape(B, Skv, H, m.v_head_dim) \
+        .transpose(1, 2)
+    k_rope_h = k_rope[:, None].expand(B, H, Skv, rope)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1)
+    # pad v to the q/k head dim so that one core takes it, then slice back
+    if m.v_head_dim != qd:
+        vv = nn.functional.pad(vv, (0, qd - m.v_head_dim))
+    o = attention_core(q_full, k_full, vv, causal=True, scale=1.0 / qd ** 0.5,
+                       impl=impl, kv_len=kv_len)[..., :m.v_head_dim]
+    o = o.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
+    return o @ p["wo"], cache

@@ -6,7 +6,13 @@ The reference's tree is ``{"embed": {"tokens", "head"}, "groups": [
 w_down}, "norm2"}} stacked over the group's repeats, ...], "final_norm"}``,
 and for zamba2 a Mamba-2 ``mixer`` ({w_in, conv, A_log, D, dt_bias, w_out,
 norm_scale}) and ``"shared": {"norm1", "concat_proj", "mixer", "ffn_shared"}``
-(one block, not stacked).
+(one block, not stacked).  The other mixers and FFNs carry their own
+leaves under the same paths: an MLA ``mixer`` {wq, w_dkv, w_uk, w_uv, wo},
+a MoE ``ffn`` {router, w_gate, w_up, w_down (the expert stacks, so a
+stacked leaf has the repeat axis before the expert axis), shared_gate,
+shared_up, shared_down}, an mLSTM ``mixer`` {w_up, conv, w_q, w_k, w_v,
+w_gates, gate_bias, norm_scale, w_down} and an sLSTM ``mixer`` {w_x, r_h,
+bias, norm_scale, w_up_gate, w_up, w_down}.
 The port keeps the reference's leaf names and ``(d_in, d_out)`` layouts
 (it multiplies by the kernels itself and uses no ``nn.Linear``), so each
 leaf is copied as it is, and a stacked leaf is split along its leading

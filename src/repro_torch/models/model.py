@@ -1,8 +1,7 @@
 """Model top level: init, forward, loss, KV caches and the decode step.
 
-The port of the reference package's ``models/model.py`` for the
-architectures whose layers are ported (the ``attn`` mixer with the dense
-FFN; zamba2's ``mamba2`` mixer and shared block).  The parameters are an
+The port of the reference package's ``models/model.py``, for every
+architecture of ``repro_torch.configs``.  The parameters are an
 :class:`LMParams` module (token embedding and head, one ``nn.ModuleDict``
 per layer, the final norm, zamba2's ``shared`` block) on an explicit
 device, with the reference's leaf names and ``(d_in, d_out)`` layouts;
@@ -29,9 +28,9 @@ from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
 from .layers import (apply_norm, embed_tokens, init_embeddings, init_norm,
                      unembed)
-from . import attention, ssm
+from . import attention, ssm, xlstm
 from .transformer import (LayerSpec, SharedBlock, apply_unit, init_layer,
-                          init_shared_block, layer_groups, not_ported)
+                          init_shared_block, layer_groups)
 
 Params = Any
 Caches = List[List[Dict[str, torch.Tensor]]]
@@ -104,6 +103,18 @@ def count_params(cfg: ModelConfig) -> int:
                init_params(cfg, device="meta").parameters())
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token uses: for a mixture of experts, the top-k routed
+    and the shared experts of each MoE layer only."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    expert_p = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = (cfg.n_layers - m.first_dense) // m.interleave
+    return total - n_moe_layers * (m.n_experts - m.top_k) * expert_p
+
+
 def compute_params(params: Params, compute_dtype, *,
                    detach: bool = True) -> Dict[str, Any]:
     """The reference's cast rule as a plain nested dict of tensors.
@@ -170,7 +181,7 @@ def _embed_batch(cfg: ModelConfig, cparams, batch: Dict,
 
 
 def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
-             batch: Dict, attn_impl: str, detach: bool
+             batch: Dict, attn_impl: str, detach: bool, **flags
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     compute_dtype = _dtype(pcfg.compute_dtype)
     cparams = compute_params(params, compute_dtype, detach=detach)
@@ -182,7 +193,7 @@ def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
         for r in range(reps):
             x, aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
                                    shared, x, positions, attn_impl=attn_impl,
-                                   emb0=emb0)
+                                   emb0=emb0, **flags)
             for k, v in aux.items():
                 aux_total[k] = aux_total.get(k, 0.0) + v
     x = apply_norm(cfg, cparams["final_norm"], x)
@@ -190,9 +201,10 @@ def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
 
 
 def _loss(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
-          batch: Dict, attn_impl: str, detach: bool
+          batch: Dict, attn_impl: str, detach: bool, **flags
           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = _forward(cfg, pcfg, params, batch, attn_impl, detach)
+    logits, aux = _forward(cfg, pcfg, params, batch, attn_impl, detach,
+                           **flags)
     targets = _as_tensor(batch["targets"], logits.device).long()
     lse = torch.logsumexp(logits, dim=-1)
     gathered = torch.gather(logits, -1, targets[..., None])[..., 0]
@@ -210,9 +222,16 @@ def forward(
     batch: Dict,
     *,
     attn_impl: str = "blocked",
+    slstm_cost_proxy: bool = False,
+    moe_dropless: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Cache-less forward -> (float32 logits, aux)."""
-    return _forward(cfg, pcfg, params, batch, attn_impl, True)
+    """Cache-less forward -> (float32 logits, aux).  ``moe_dropless``
+    sends MoE layers to the dense dispatch (else the sorted capacity one);
+    ``slstm_cost_proxy`` sends sLSTM layers to the dry-run's dense stand-in
+    for the recurrence (never for real outputs)."""
+    return _forward(cfg, pcfg, params, batch, attn_impl, True,
+                    slstm_cost_proxy=slstm_cost_proxy,
+                    moe_dropless=moe_dropless)
 
 
 @torch.inference_mode()
@@ -223,9 +242,15 @@ def loss_fn(
     batch: Dict,
     *,
     attn_impl: str = "blocked",
+    slstm_cost_proxy: bool = False,
+    moe_dropless: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy over one batch (forward only)."""
-    return _loss(cfg, pcfg, params, batch, attn_impl, True)
+    """Mean next-token cross-entropy over one batch (forward only), plus
+    the MoE aux losses (``moe_*``) in the total; the flags as
+    :func:`forward`'s."""
+    return _loss(cfg, pcfg, params, batch, attn_impl, True,
+                 slstm_cost_proxy=slstm_cost_proxy,
+                 moe_dropless=moe_dropless)
 
 
 def train_loss(
@@ -235,6 +260,8 @@ def train_loss(
     batch: Dict,
     *,
     attn_impl: str = "blocked",
+    slstm_cost_proxy: bool = False,
+    moe_dropless: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`loss_fn` inside the autograd graph: ``params`` (an
     :class:`LMParams` or the same tree of plain tensors, one layer per
@@ -242,7 +269,9 @@ def train_loss(
     them.  The reference's training step differentiates its ``loss_fn``
     on the ``"blocked"`` core; so does the port's
     (:func:`repro_torch.train.make_train_step`)."""
-    return _loss(cfg, pcfg, params, batch, attn_impl, False)
+    return _loss(cfg, pcfg, params, batch, attn_impl, False,
+                 slstm_cost_proxy=slstm_cost_proxy,
+                 moe_dropless=moe_dropless)
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +282,16 @@ def _init_one_cache(cfg: ModelConfig, spec: LayerSpec, reps: int, batch: int,
                     max_len: int, dtype, device) -> Dict[str, torch.Tensor]:
     if spec.mixer in ("attn", "shared_attn"):
         one = attention.init_kv_cache(cfg, batch, max_len, dtype, "meta")
+    elif spec.mixer == "mla":
+        one = attention.init_mla_cache(cfg, batch, max_len, dtype, "meta")
     elif spec.mixer == "mamba2":
         one = ssm.init_mamba2_state(cfg, batch, "meta")
+    elif spec.mixer == "mlstm":
+        one = xlstm.init_mlstm_state(cfg, batch, "meta")
+    elif spec.mixer == "slstm":
+        one = xlstm.init_slstm_state(cfg, batch, "meta")
     else:
-        raise not_ported(spec.mixer)
+        raise ValueError(spec.mixer)
     return {k: torch.zeros((reps, *v.shape), dtype=v.dtype, device=device)
             for k, v in one.items()}
 
@@ -266,9 +301,13 @@ def init_caches(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
     """Zeroed caches in the reference's layout: ``caches[group][unit_pos]``
     holds, with a leading ``reps`` axis, ``{"k", "v"}`` of shape
     ``(reps, B, Hkv, max_len, head_dim)`` in ``pcfg.kv_cache_dtype`` for an
-    attention layer (zamba2's shared block too), and ``{"ssm": (reps, B,
-    H, P, N), "conv": (reps, B, W - 1, d_inner + 2N)}`` in float32 for a
-    Mamba-2 layer.  Each step writes into them in place."""
+    attention layer (zamba2's shared block too), ``{"latent": (reps, B,
+    max_len, kv_lora), "k_rope": (reps, B, max_len, rope)}`` in that dtype
+    for an MLA layer, and in float32 ``{"ssm": (reps, B, H, P, N), "conv":
+    (reps, B, W - 1, d_inner + 2N)}`` for a Mamba-2 layer, ``{"C": (reps,
+    B, H, dh, dh + 1), "conv": (reps, B, W - 1, d_inner)}`` for an mLSTM
+    layer and ``{"c", "n", "h"}`` (reps, B, H, dh) for an sLSTM layer.
+    Each step writes into them in place."""
     dev = resolve_device(device)
     dtype = _dtype(pcfg.kv_cache_dtype)
     return [[_init_one_cache(cfg, spec, reps, batch, max_len, dtype, dev)
@@ -288,10 +327,12 @@ def decode_step(
     attn_impl: str = "blocked",
 ) -> Tuple[torch.Tensor, Caches]:
     """Run S new tokens (S = 1 decode, S > 1 prefill or a prefill chunk)
-    through the stack, writing their keys and values into ``caches`` at
-    ``cache_index``, and each Mamba-2 layer's new SSM state and conv window
-    over its old ones (``ssm.apply_mamba2`` copies them), in place ->
-    (float32 logits (B, S, V), caches)."""
+    through the stack, writing their keys and values (an MLA layer's
+    latents) into ``caches`` at ``cache_index``, and each recurrent layer's
+    new state (Mamba-2, mLSTM, sLSTM) over its old one, in place ->
+    (float32 logits (B, S, V), caches).  MoE layers dispatch densely
+    (exact, no drops) for S <= 64, as the reference serves a decode step,
+    and by sorted capacity dispatch for a longer prefill."""
     compute_dtype = _dtype(pcfg.compute_dtype)
     cparams = compute_params(params, compute_dtype)
     dev = _device(cparams)
@@ -308,6 +349,7 @@ def decode_step(
     x = x.to(compute_dtype)
     emb0 = x
     shared = cparams.get("shared")
+    dropless = S <= 64
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
         for r in range(reps):
             layer_caches = [{k: c[r] for k, c in caches[gi][i].items()}
@@ -315,6 +357,6 @@ def decode_step(
             x, _aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
                                     shared, x, positions, caches=layer_caches,
                                     cache_index=start, attn_impl=attn_impl,
-                                    emb0=emb0)
+                                    emb0=emb0, moe_dropless=dropless)
     x = apply_norm(cfg, cparams["final_norm"], x)
     return unembed(cfg, cparams["embed"], x), caches

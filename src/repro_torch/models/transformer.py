@@ -1,19 +1,18 @@
 """Block assembly: layer specs, layer groups, one block's forward pass.
 
-The port of the reference package's ``models/transformer.py`` for the
-``attn`` mixer with the ``dense`` FFN, and zamba2's ``mamba2`` mixer with
-its weight-shared ``shared_attn`` block (attention + MLP over
-``concat(h, embedding)``).  An architecture is a list of
-``(repeats, [LayerSpec, ...])`` groups (``layer_groups``, copied as it
-is); the reference stacks a group's parameters over the repeat dimension
-and runs it under ``lax.scan``, the port keeps one ``nn.ModuleDict`` per
-repeat in an ``nn.ModuleList`` and loops over them in Python (no remat: the
-port runs forward only).  As in the reference, a group's parameters skip
-its ``shared_attn`` positions: the shared block's parameters live once,
-outside the groups (:func:`init_shared_block`).
-
-The other mixers (``mla``, ``mlstm``, ``slstm``) and the ``moe`` FFN raise
-``NotImplementedError`` naming their ROADMAP item.
+The port of the reference package's ``models/transformer.py``: the
+``attn`` (GQA) and ``mla`` (DeepSeek) attention mixers, zamba2's
+``mamba2`` mixer with its weight-shared ``shared_attn`` block (attention +
+MLP over ``concat(h, embedding)``), xLSTM's ``mlstm`` and ``slstm``
+mixers, and the ``dense``, ``moe`` and ``none`` FFNs.  An architecture is
+a list of ``(repeats, [LayerSpec, ...])`` groups (``layer_groups``, copied
+as it is); the reference stacks a group's parameters over the repeat
+dimension and runs it under ``lax.scan``, the port keeps one
+``nn.ModuleDict`` per repeat in an ``nn.ModuleList`` and loops over them
+in Python (no remat).  As in the reference, a group's parameters skip its
+``shared_attn`` positions: the shared block's parameters live once,
+outside the groups (:func:`init_shared_block`).  A ``moe`` FFN returns its
+aux losses, which :func:`apply_unit` sums over the unit.
 """
 
 from __future__ import annotations
@@ -26,26 +25,10 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from . import attention, ssm
+from . import attention, moe as moe_mod, ssm, xlstm
 from .layers import apply_mlp, apply_norm, dense_init, init_mlp, init_norm
 
 Params = Any
-
-# what each unported mixer or FFN is, and its ROADMAP "Modules to port" item
-_LATER = {
-    "mla": ("DeepSeek MLA", "8.2"),
-    "moe": ("the mixture-of-experts FFN (models.moe)", "8.2"),
-    "mlstm": ("the mLSTM mixer (models.xlstm)", "8.2"),
-    "slstm": ("the sLSTM mixer (models.xlstm)", "8.2"),
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a mixer or FFN that the port does not have yet."""
-    name, item = _LATER.get(what, (what, "8"))
-    return NotImplementedError(f"{name} is not ported yet: ROADMAP, "
-                               f"'Modules to port', item {item}")
-
 
 @dataclass(frozen=True)
 class LayerSpec:
@@ -102,17 +85,18 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[int, List[LayerSpec]]]:
 # per-spec init / apply
 # ---------------------------------------------------------------------------
 
+# each mixer's initializer (zamba2's shared block lives outside the groups)
+_MIXERS = {"attn": attention.init_attn, "mla": attention.init_mla,
+           "mamba2": ssm.init_mamba2, "mlstm": xlstm.init_mlstm,
+           "slstm": xlstm.init_slstm}
+
+
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dtype,
                device) -> nn.ModuleDict:
     """One layer's parameters: ``mixer``, ``norm1``, ``ffn``, ``norm2``."""
-    if spec.mixer == "attn":
-        mixer = attention.init_attn(cfg, gen, dtype, device)
-    elif spec.mixer == "mamba2":
-        mixer = ssm.init_mamba2(cfg, gen, dtype, device)
-    else:
-        raise not_ported(spec.mixer)
-    if spec.ffn not in ("dense", "none"):
-        raise not_ported(spec.ffn)
+    if spec.mixer not in _MIXERS:
+        raise ValueError(spec.mixer)
+    mixer = _MIXERS[spec.mixer](cfg, gen, dtype, device)
     p = nn.ModuleDict({
         "mixer": mixer,
         "norm1": init_norm(cfg, cfg.d_model, dtype, device),
@@ -120,6 +104,9 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dtype,
     if spec.ffn == "dense":
         p["ffn"] = init_mlp(cfg, gen, cfg.d_model, spec.d_ff or cfg.d_ff,
                             dtype, device)
+        p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(cfg, gen, dtype, device)
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
     return p
 
@@ -134,12 +121,16 @@ def apply_layer(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
     attn_impl: str = "blocked",
+    slstm_cost_proxy: bool = False,
     emb0: Optional[torch.Tensor] = None,
+    moe_dropless: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Dict]]:
     """One block: pre-norm mixer + residual (+ pre-norm FFN + residual).
     ``attn_impl="kernel"`` (the reference's ``"pallas"``) also sends a
     ``mamba2`` mixer to its kernel; any other impl sends it to the plain
-    chunked SSD, as in the reference."""
+    chunked SSD, as in the reference.  The ``moe`` FFN dispatches densely
+    with ``moe_dropless``, else by sorted capacity dispatch."""
+    aux: Dict[str, torch.Tensor] = {}
     h = apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "shared_attn":
         # zamba2: shared weights, input concat(h, embedding stream)
@@ -155,21 +146,33 @@ def apply_layer(
             cfg, p["mixer"], h, positions, cache=cache,
             cache_index=cache_index, impl=attn_impl,
         )
+    elif spec.mixer == "mla":
+        o, new_cache = attention.apply_mla(
+            cfg, p["mixer"], h, positions, cache=cache,
+            cache_index=cache_index, impl=attn_impl,
+        )
     elif spec.mixer == "mamba2":
         o, new_cache = ssm.apply_mamba2(
             cfg, p["mixer"], h, state=cache,
             impl="kernel" if attn_impl == "kernel" else "chunked",
         )
+    elif spec.mixer == "mlstm":
+        o, new_cache = xlstm.apply_mlstm(cfg, p["mixer"], h, state=cache)
+    elif spec.mixer == "slstm":
+        o, new_cache = xlstm.apply_slstm(cfg, p["mixer"], h, state=cache,
+                                         cost_proxy=slstm_cost_proxy)
     else:
-        raise not_ported(spec.mixer)
+        raise ValueError(spec.mixer)
     x = x + o
     if spec.ffn == "dense":
         h = apply_norm(cfg, p["norm2"], x)
         x = x + apply_mlp(dataclasses.replace(cfg, d_ff=spec.d_ff or cfg.d_ff),
                           p["ffn"], h)
-    elif spec.ffn != "none":
-        raise not_ported(spec.ffn)
-    return x, {}, new_cache
+    elif spec.ffn == "moe":
+        h = apply_norm(cfg, p["norm2"], x)
+        y, aux = moe_mod.apply_moe(cfg, p["ffn"], h, dropless=moe_dropless)
+        x = x + y
+    return x, aux, new_cache
 
 
 class SharedBlock(nn.Module):
@@ -222,7 +225,9 @@ def apply_unit(
     caches: Optional[List] = None,
     cache_index: Optional[int] = None,
     attn_impl: str = "blocked",
+    slstm_cost_proxy: bool = False,
     emb0: Optional[torch.Tensor] = None,
+    moe_dropless: bool = False,
 ):
     """Apply one repeat unit (its list of layers, ``layer_{i}`` each, the
     shared block woven in at its ``shared_attn`` positions)."""
@@ -234,7 +239,9 @@ def apply_unit(
         x, aux, nc = apply_layer(
             cfg, spec, p, x, positions,
             cache=caches[i] if caches is not None else None,
-            cache_index=cache_index, attn_impl=attn_impl, emb0=emb0,
+            cache_index=cache_index, attn_impl=attn_impl,
+            slstm_cost_proxy=slstm_cost_proxy, emb0=emb0,
+            moe_dropless=moe_dropless,
         )
         for k, v in aux.items():
             aux_total[k] = aux_total.get(k, 0.0) + v

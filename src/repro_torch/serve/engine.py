@@ -12,9 +12,13 @@ The port of the reference package's ``serve/engine.py``.  Two layers:
 PyTorch runs eagerly, so ``cache_index`` is a Python int and every
 attention call, prefill and decode, goes through the hand-written
 flash-attention kernel under ``attn_impl="kernel"`` (the default here;
-the reference's steps default to its non-kernel ``"blocked"`` core), and
-every Mamba-2 call (zamba2) through the ``mamba2_scan`` kernel from the
-cached SSM state.
+the reference's steps default to its non-kernel ``"blocked"`` core): GQA
+layers, and DeepSeek's MLA layers over the latent cache at the q/k width
+(192 at full width); every Mamba-2 call (zamba2) goes through the
+``mamba2_scan`` kernel from the cached SSM state.  xLSTM's mLSTM and sLSTM
+layers step their float32 states token by token in plain PyTorch, as the
+reference does; a MoE FFN dispatches densely at decode and by sorted
+capacity dispatch on a prefill longer than 64 tokens.
 Temperature sampling draws from a ``torch.Generator`` seeded per batch
 with ``seed + batch index``: deterministic, but not the reference's
 ``jax.random`` numbers.  Greedy decoding is the same function.

@@ -8,8 +8,10 @@ and the checkpoints' leaf paths are the reference's.  The forward pass
 reads that tree one layer per repeat (``convert.unstack``, views of the
 stacked leaves) and ``torch.autograd`` differentiates the model's loss on
 the ``"blocked"`` attention core, as the reference's ``jax.value_and_grad``
-does; no kernel needs a backward pass.  Microbatches accumulate their
-gradients in float32, each divided by their number.
+does; no kernel needs a backward pass.  As there, an sLSTM layer trains
+on the cost proxy (``slstm_cost_proxy=True``: the recurrence's dense
+stand-in), and MoE layers on the sorted capacity dispatch.  Microbatches
+accumulate their gradients in float32, each divided by their number.
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def make_train_step(
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, metrics = M.train_loss(cfg, pcfg, unstack(ps), mb,
-                                         attn_impl=attn_impl)
+                                         attn_impl=attn_impl,
+                                         slstm_cost_proxy=True)
             grads = torch.autograd.grad(loss, leaves(ps))
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}

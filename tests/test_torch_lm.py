@@ -121,7 +121,13 @@ def _cast_leaf(cp, path, rep):
     return node
 
 
-@pytest.mark.parametrize("arch", ["radar-lm-100m", "zamba2-1.2b"])
+# the architectures of other mixers and FFNs (tests/test_torch_archs.py)
+OTHER_ARCHS = ["deepseek-v2-lite-16b", "xlstm-1.3b",
+               "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("arch", ["radar-lm-100m", "zamba2-1.2b"]
+                         + OTHER_ARCHS)
 def test_bf16_cast_tree_equals_the_reference_leaf_by_leaf(arch):
     from repro_torch.models.convert import _flatten, _port_leaves
 
@@ -146,6 +152,20 @@ def test_bf16_cast_tree_equals_the_reference_leaf_by_leaf(arch):
             assert mixer[name].dtype == torch.bfloat16, name
         assert cp["shared"]["norm1"]["scale"].dtype == torch.float32
         assert cp["shared"]["concat_proj"].dtype == torch.bfloat16
+    # float32 leaves of the new mixers and FFNs, stacked in the reference,
+    # go to bf16 in the compute tree, exactly as there
+    f32_leaves = {
+        "deepseek-v2-lite-16b": [(1, "layer_0", "ffn", "router")],
+        "llama4-maverick-400b-a17b": [(0, "layer_1", "ffn", "router")],
+        "xlstm-1.3b": [(0, "layer_0", "mixer", "gate_bias"),
+                       (0, "layer_0", "mixer", "norm_scale"),
+                       (0, "layer_1", "mixer", "bias"),
+                       (0, "layer_1", "mixer", "norm_scale")]}.get(arch, [])
+    for g, layer, part, name in f32_leaves:
+        assert tparams["groups"][g][0][layer][part][name].dtype == \
+            torch.float32
+        assert cp["groups"][g][0][layer][part][name].dtype == \
+            torch.bfloat16, (layer, name)
 
 
 # ---------------------------------------------------------------------------
@@ -285,15 +305,22 @@ def test_engine_runs_on_the_gpu_unless_told_otherwise(radar_lm, monkeypatch):
 # parameter count, converter, token batches, command line
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + ["zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-1.2b"] + OTHER_ARCHS)
 def test_count_params_matches_reference_at_full_width(arch):
     tcfg = get_any_config(arch)
     want = JM.count_params(jax_config(arch))
     assert M.count_params(tcfg) == want == tcfg.param_count()
+    assert M.active_param_count(tcfg) == JM.active_param_count(
+        jax_config(arch))
     if arch == "radar-lm-100m":
         assert 100e6 < want < 110e6
     if arch == "zamba2-1.2b":
         assert want == 1_178_699_904
+    if arch == "deepseek-v2-lite-16b":
+        assert want == 15_706_470_400
+        assert M.active_param_count(tcfg) == 2_661_136_384
+    if arch == "xlstm-1.3b":
+        assert want == 1_524_347_216
 
 
 def test_init_params_shapes_follow_reference(radar_lm):
@@ -343,13 +370,6 @@ def test_converter_raises_on_a_wrong_shape_or_repeat_count(radar_lm):
     tree["groups"][0]["layer_0"]["mixer"]["wq"] = wq[:1]
     with pytest.raises(ValueError, match="stacked repeats"):
         from_reference(radar_lm[1], tree, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
-                                  "deepseek-v2-lite-16b", "xlstm-1.3b"])
-def test_unported_architectures_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(get_any_config(arch).reduced(), 0, device="meta")
 
 
 @pytest.fixture(scope="module")
