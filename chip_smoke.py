@@ -84,8 +84,9 @@ Phases, each printing its own lines:
       request with ``mode="ref"`` on the card, one ``grid_map`` launch
       each; column-max traced, no ``torch.fmax`` pass;
 5. times: each kernel (CUDA events, median) beside its plain version and
-   its bound, and each product end to end, split into store read and
-   decode, host-to-device copy, kernel, and device-to-host copy;
+   its bound, and each product end to end (QVP and QPE at read_workers 1
+   and the host's cores, the grids at the cores), split into store read
+   and decode, host-to-device copy, kernel, and device-to-host copy;
 6. the incremental path (it appends to the archive): incremental CAPPI,
    column-max and QPE states built at the archive's head, then 1 scan
    appended in a commit of its own; after the append every state catches up
@@ -124,8 +125,9 @@ Phases, each printing its own lines:
    e. Raw2Zarr: 16 raw VCP-212 volumes at full width (sweeps 0-4, the
       format's 7 moments) from ``repro_torch.etl.generate_raw_archive``,
       ingested by ``repro_torch.etl.ingest`` at workers 8 (registered in a
-      ``Catalog`` from its report) and 1 into fresh repositories, their
-      snapshot ids equal, stage seconds and MB printed; the DataTree view
+      ``Catalog`` from its report), then the first 4 volumes at workers 8
+      and 1, each into a fresh repository, their snapshot ids equal, stage
+      seconds and MB printed; the DataTree view
       of the result; QVP and QPE through ``compute_product`` on it, one
       launch each, against ``mode="ref"``; then a ``LiveFeed`` of 2
       ``live_scan_feed`` scans, the catalog's head advancing with each,
@@ -178,7 +180,33 @@ Phases, each printing its own lines:
    of the first's; ms per step, tokens/s, peak memory and the first and
    last loss printed; then ``launch.serve --ckpt`` serves the newest
    checkpoint (``flash_attention`` on ``tc_prefill`` and ``decode``), its
-   greedy tokens equal to an engine on the trained parameters in memory.
+   greedy tokens equal to an engine on the trained parameters in memory;
+10. the mesh and the launch tooling:
+   a. an NCCL process group of one and a ``(data, model) = (1, 1)`` mesh:
+      ``launch.train --model-axis 1`` trains radar-lm-100m at full width
+      (phase 9's data and seed, 6 steps) with its state as DTensors laid
+      out by ``param_shardings``, its losses within 1e-3 of the same
+      steps with no mesh, ms per step beside the unmeshed step; the
+      archive prompts served with DTensor parameters through the kernel
+      route, greedy tokens and launches equal to plain parameters;
+   b. gradient compression over a float32 tree shaped like zamba2-1.2b's
+      parameters (1 178 699 904 values): int8 and bf16 encode and decode
+      and ``compress_with_feedback`` timed with the on-wire MB;
+      ``compressed_psum`` through the NCCL group bitwise the codec's round
+      trip; the int8 codec on the card bitwise the CPU's;
+   c. ``attention_core(impl="flash_decode", n_chunks=4)`` at the decode
+      shapes of deepseek-v2-lite's MLA and radar-lm against the kernel
+      route's ``decode`` (its launches counted) and the blocked core, in
+      float32 within 2e-5, timed;
+   d. ``repro_torch.launch.dryrun`` on the H100 production meshes (fake
+      process groups of 256 and 512, one process per cell, beside 10c)
+      for llama3.2-1b ``train_4k``, deepseek-v2-lite-16b ``prefill_32k``
+      and ``decode_32k`` and zamba2-1.2b ``long_500k``: peak bytes per
+      device, FLOPs, collective bytes by kind and the roofline's dominant
+      term; then llama3.2-1b ``train_4k`` at world 1, its global batch
+      cut to 2: the dry run's predicted peak bytes beside
+      ``torch.cuda.max_memory_allocated`` and its FLOPs over the measured
+      step time.
 
 It prints a JSON line of per-kernel numbers, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -3929,20 +3957,23 @@ def profile_decode(cfg, pcfg, cparams, caches, nxt, start, step_ms: float,
 # -- phase 6e: Raw2Zarr ingest, the DataTree view and the live feed -------------
 
 # raw VCP-212 volumes at full width (720 x 1192), sweeps 0-4 of 14, every
-# moment the format carries (7); ingested at INGEST_WORKERS, the ids held
-# equal; then FEED_SCANS live scans appended one commit each
+# moment the format carries (7); ingested at the first of INGEST_WORKERS,
+# then the first INGEST_SERIAL_SCANS of them at each, the ids held equal;
+# then FEED_SCANS live scans appended one commit each
 INGEST_SCANS = 16
 INGEST_SWEEPS = 5
 INGEST_T0 = 1305849600.0          # generate_raw_archive's and the feed's t0
 INGEST_WORKERS = (8, 1)
+INGEST_SERIAL_SCANS = 4           # the serial run's depth, cut for time
 FEED_SCANS = 2
 
 
 def drive_ingest_path(work: str, rows) -> str:
     """Raw files from ``generate_raw_archive``, ingested by
-    ``repro_torch.etl.ingest`` at each of ``INGEST_WORKERS`` into a fresh
-    repository (equal snapshot ids), the first run registered in a
-    ``Catalog`` from its report; the DataTree view of the result; QVP and
+    ``repro_torch.etl.ingest`` at the first of ``INGEST_WORKERS`` into a
+    fresh repository registered in a ``Catalog`` from its report, then the
+    first ``INGEST_SERIAL_SCANS`` volumes at each of ``INGEST_WORKERS``
+    (equal snapshot ids); the DataTree view of the result; QVP and
     QPE through ``compute_product`` on the card, one launch each, held
     against ``mode="ref"``; then a ``LiveFeed`` of ``FEED_SCANS`` scans of
     ``live_scan_feed`` with the catalog: its head advances per scan and an
@@ -3965,28 +3996,27 @@ def drive_ingest_path(work: str, rows) -> str:
     # function of (seed, time, geometry): one call a scan, on 8 threads,
     # writes the files of one call for all of them
     with ThreadPoolExecutor(max_workers=8) as pool:
-        keys = [k for ks in pool.map(
+        per_scan = list(pool.map(
             lambda i: etl.generate_raw_archive(
                 raw, n_scans=1, t0=INGEST_T0 + i * full.interval_s,
                 n_sweeps=INGEST_SWEEPS, seed=SEED),
-            range(INGEST_SCANS)) for k in ks]
+            range(INGEST_SCANS)))
+    keys = [k for ks in per_scan for k in ks]
     say(f"ingest: {len(keys)} raw {VCP_NAME} volumes ({shape[1]} x "
         f"{shape[2]}, sweeps 0-{INGEST_SWEEPS - 1}, {len(full.moments)} "
         "moments) written in "
         f"{time.perf_counter() - t:.1f} s")
     cat = Catalog.create(os.path.join(work, "catalog"))
-    reports, paths = {}, {}
-    for w in INGEST_WORKERS:
-        paths[w] = os.path.join(work, f"ingest-w{w}")
-        repo = Repository.create(paths[w])
+
+    def run(w, tag, run_keys=None, catalog=None):
+        path = os.path.join(work, f"ingest-{tag}")
+        repo = Repository.create(path)
         reset_launches()
-        rep = etl.ingest(raw, repo, workers=w,
-                         catalog=cat if w == INGEST_WORKERS[0] else None)
+        rep = etl.ingest(raw, repo, keys=run_keys, workers=w, catalog=catalog)
         launched = read_launches()
         if any(launched.values()):
             raise AssertionError(f"ingest launched kernels: {launched}")
-        reports[w] = rep
-        objs, size = store_bytes(paths[w])
+        objs, size = store_bytes(path)
         st = rep.stage_seconds
         say(f"ingest workers={w}: {rep.n_files} files, "
             f"{rep.bytes_read / 1e6:.1f} MB raw read, {rep.n_volumes} volumes "
@@ -3994,13 +4024,17 @@ def drive_ingest_path(work: str, rows) -> str:
             f"{st['extract_s']:.3f}, decode {st['decode_s']:.3f}, load "
             f"{st['load_s']:.3f}, wall {st['wall_s']:.3f}; archive "
             f"{size / 1e6:.1f} MB in {objs} objects")
-    first, last = (reports[w] for w in INGEST_WORKERS)
+        return path, rep
+
+    ingested, _rep = run(INGEST_WORKERS[0], "all", catalog=cat)
+    sub = sorted(k for ks in per_scan[:INGEST_SERIAL_SCANS] for k in ks)
+    first, last = (run(w, f"w{w}", sub)[1] for w in INGEST_WORKERS)
     if first.snapshot_ids != last.snapshot_ids or not first.snapshot_ids:
         raise AssertionError(f"ingest snapshot ids differ between workers: "
                              f"{first.snapshot_ids} vs {last.snapshot_ids}")
-    say(f"ingest: snapshot ids equal at workers {INGEST_WORKERS}: "
-        f"{first.snapshot_ids}")
-    repo = Repository.open(paths[INGEST_WORKERS[0]])
+    say(f"ingest: snapshot ids equal at workers {INGEST_WORKERS} over the "
+        f"first {INGEST_SERIAL_SCANS} volumes: {first.snapshot_ids}")
+    repo = Repository.open(ingested)
     entry = cat.entry("KVNX")
     if (entry.snapshot_id != repo.branch_head()
             or entry.vcps[VCP_NAME]["n_times"] != INGEST_SCANS):
@@ -4093,7 +4127,7 @@ def drive_ingest_path(work: str, rows) -> str:
     n_times = cat.entry("KVNX").vcps[VCP_NAME]["n_times"]
     if n_times != INGEST_SCANS + FEED_SCANS:
         raise AssertionError(f"catalog n_times {n_times}")
-    return paths[INGEST_WORKERS[0]]
+    return ingested
 
 
 # -- phase 9: training from the archive, a checkpoint, and serving it ---------
@@ -4211,6 +4245,417 @@ def drive_train_path(data: str, work: str, rows) -> None:
         f"trained parameters in memory; launches {routes}")
 
 
+# -- phase 10: the mesh, compression, the sequence-sharded decode core and
+# the dry run ------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 6
+MESH_LOSS_TOL = 1e-3              # bf16: the meshed losses against unmeshed
+# 10b: a float32 gradient tree shaped like zamba2-1.2b's parameters
+COMPRESS_ARCH = ZAMBA_ARCH
+COMPRESS_VALUES = 1178699904
+# 10c: (tag, B, query heads, KV heads, head dim, keys) of the decode step
+# after a 1024-token prompt and 32 new tokens: deepseek-v2-lite's MLA (16
+# heads of q/k width 192) and radar-lm's (12 / 4 of 64)
+DECODE_CORE_SHAPES = (("deepseek", 8, 16, 16, 192, 1056),
+                      ("lm", 8, 12, 4, 64, 1056))
+DECODE_CORE_CHUNKS = 4
+DECODE_CORE_TOL = 2e-5
+# 10d: the dry run's cells on the H100 production meshes (fake groups of
+# 256 and 512), then one cell for real at world 1, its global batch cut
+# from 256 to what fits one card
+DRY_CELLS = (("llama3.2-1b", "train_4k"),
+             ("deepseek-v2-lite-16b", "prefill_32k"),
+             ("deepseek-v2-lite-16b", "decode_32k"),
+             ("zamba2-1.2b", "long_500k"))
+DRY_REAL = ("llama3.2-1b", "train_4k")
+DRY_REAL_BATCH = 2
+DRY_REAL_STEPS = 3
+DRY_TIMEOUT_S = 400
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_group(backend: str) -> None:
+    """A process group of one on this process (NCCL on the card): a
+    failure to start raises, nothing falls back."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    if dist.get_backend() != backend:
+        raise AssertionError(f"process group backend {dist.get_backend()}, "
+                             f"asked for {backend}")
+
+
+def drive_mesh_path(archive, data: str, rows) -> None:
+    """10a: ``launch.train --model-axis 1`` on a ``(data, model) = (1, 1)``
+    mesh over an NCCL group of one, radar-lm-100m at full width on phase
+    9's data and seed, its losses within ``MESH_LOSS_TOL`` of the same
+    steps with no mesh and the same kernel launches (none: training runs
+    the blocked core); then the archive prompts served through the kernel
+    route with DTensor parameters laid out by ``param_shardings``, greedy
+    tokens and launches equal to the same engine on plain parameters."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference, unstack
+    from repro_torch.serve import Engine, Request
+
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    start_group(backend)
+    try:
+        argv = ["--arch", LM_ARCH, "--steps", str(MESH_TRAIN_STEPS),
+                "--data", data, "--device", DEV, "--log-every", "5",
+                *TRAIN_EXTRA_ARGS]
+        runs, launched = {}, {}
+        for tag, extra in (("unmeshed", []), ("mesh (1, 1)",
+                                              ["--model-axis", "1"])):
+            reset_launches()
+            runs[tag] = train.main(argv + extra)
+            launched[tag] = read_launches()
+        a, b = runs["unmeshed"], runs["mesh (1, 1)"]
+        worst = max(abs(a["losses"][s] - b["losses"][s])
+                    for s in range(1, MESH_TRAIN_STEPS + 1))
+        if worst > MESH_LOSS_TOL or launched["unmeshed"] != \
+                launched["mesh (1, 1)"]:
+            raise AssertionError(f"mesh train: losses differ by {worst} "
+                                 f"(tolerance {MESH_LOSS_TOL}); launches "
+                                 f"{launched}")
+        leaf = b["state"].params["final_norm"]["scale"]
+        if type(leaf).__name__ != "DTensor":
+            raise AssertionError("the meshed run's state is not DTensors")
+        ms = {tag: statistics.median(r["step_s"][2:]) * 1e3
+              for tag, r in runs.items()}
+        say(f"mesh train {LM_ARCH} (--model-axis 1, {backend} group of 1, "
+            f"mesh {b['state'].params['final_norm']['scale'].device_mesh}):"
+            f" {MESH_TRAIN_STEPS} steps, losses within {worst:.3e} of the "
+            f"unmeshed run (tolerance {MESH_LOSS_TOL}); median step "
+            f"{ms['mesh (1, 1)']:.1f} ms against {ms['unmeshed']:.1f} "
+            f"unmeshed (steps 3 on): DTensor host cost "
+            f"{ms['mesh (1, 1)'] - ms['unmeshed']:.1f} ms a step; kernel "
+            f"launches {launched['mesh (1, 1)']} both (blocked core)")
+        del runs, a, b, leaf
+        gc.collect()
+
+        # serving with DTensor parameters: the kernels see local tensors
+        cfg = get_any_config(LM_ARCH)
+        mesh = make_host_mesh(1, device_type=DEV)
+        dtype = torch.bfloat16 if DEV == "cuda" else torch.float32
+        name = "bfloat16" if DEV == "cuda" else "float32"
+        pcfg = ParallelConfig(compute_dtype=name, kv_cache_dtype=name,
+                              remat="none", param_dtype=name)
+        params = M.init_params(cfg, 0, device=DEV, dtype=dtype)
+        ref = to_reference(params)
+        dparams = unstack(distribute(
+            ref, param_shardings(cfg, pcfg, ref, mesh), mesh))
+        toks = lm_prompts(archive)
+        reqs = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in toks]
+        per_call = path_launches(cfg)
+        outs, counts = {}, {}
+        for tag, p in (("plain", params), ("DTensor", dparams)):
+            eng = Engine(cfg, pcfg, p, max_len=LM_MAX_LEN, device=DEV)
+            reset_launches()
+            sync()
+            t = time.perf_counter()
+            out = eng.generate(reqs, seed=SEED)
+            sync()
+            wall = (time.perf_counter() - t) * 1e3
+            counts[tag] = (read_launches(), read_routes())
+            outs[tag] = np.stack([o.tokens for o in out])
+            expect = expected_launches(per_call, "kernel", eng.decode_steps)
+            if counts[tag][0] != expect:
+                raise AssertionError(f"mesh serve {tag}: launches "
+                                     f"{counts[tag][0]}, expected {expect}")
+            say(f"mesh serve {LM_ARCH} {name} ({tag} parameters): "
+                f"{len(reqs)} requests x {LM_NEW_TOKENS} tokens in "
+                f"{wall:.1f} ms; launches by route {counts[tag][1]}")
+        if not np.array_equal(outs["plain"], outs["DTensor"]) or \
+                counts["plain"] != counts["DTensor"]:
+            raise AssertionError("mesh serve: tokens or launches differ "
+                                 "between DTensor and plain parameters")
+        add_path_launches(rows, *counts["DTensor"])
+        say(f"mesh serve: greedy tokens equal ({outs['plain'].size}), "
+            f"launches equal; the kernels took the local shards (a DTensor "
+            f"reaching a wrapper raises)")
+        del params, ref, dparams, eng
+        gc.collect()
+        drive_compression()
+    finally:
+        dist.destroy_process_group()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
+def drive_compression() -> None:
+    """10b: the codecs over a float32 gradient tree shaped like
+    zamba2-1.2b's parameters: encode and decode for int8 and bf16, and
+    ``compress_with_feedback``, timed, on-wire MB; ``compressed_psum``
+    through the process group (NCCL on the card) bitwise the codec round
+    trip; the int8 codec on the card bitwise the same call on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_any_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.models.model import param_specs
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = get_any_config(COMPRESS_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    grads = [(p, torch.randn(t.shape, generator=gen, device=DEV) * 1e-3)
+             for p, t in leaves_with_paths(param_specs(cfg,
+                                                           torch.float32))]
+    n = sum(g.numel() for _p, g in grads)
+    if DEV == "cuda" and n != COMPRESS_VALUES:
+        raise AssertionError(f"{COMPRESS_ARCH} gradient tree: {n} values")
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    parts = []
+    for codec in ("int8", "bf16"):
+        enc, t_enc = timed(lambda: [C.encode(g, codec) for _p, g in grads])
+        dec, t_dec = timed(lambda: [C.decode(e, codec) for e in enc])
+        wire = sum(C.wire_bytes(e, codec) for e in enc)
+        parts.append(f"{codec} encode {t_enc:.1f} ms, decode {t_dec:.1f} "
+                     f"ms, {wire / 1e6:.1f} MB on the wire")
+        # through the group: bitwise the round trip
+        for (p, g), d in zip(grads, dec):
+            got = C.compressed_psum(g, dist.group.WORLD, codec)
+            if not torch.equal(got.view(torch.int32), d.view(torch.int32)):
+                raise AssertionError(f"compressed_psum {codec} {p}: not "
+                                     "the codec's round trip")
+        del enc, dec
+    tree = {p: g for p, g in grads}
+    res = C.init_error_feedback(tree)
+    (comp, res), t_fb = timed(lambda: C.compress_with_feedback(tree, res,
+                                                               "int8"))
+    (comp, res), t_fb2 = timed(lambda: C.compress_with_feedback(tree, res,
+                                                                "int8"))
+    finite = all(bool(torch.isfinite(r).all()) for r in res.values())
+    del comp, res
+    # the int8 codec on the card against the CPU, at the largest leaves
+    big = sorted(grads, key=lambda pg: -pg[1].numel())[:3]
+    for p, g in big:
+        a, b = C.encode(g, "int8"), C.encode(g.cpu(), "int8")
+        if not (torch.equal(a["q"].cpu(), b["q"]) and torch.equal(
+                a["scale"].cpu().view(torch.int32),
+                b["scale"].view(torch.int32))):
+            raise AssertionError(f"int8 codec {p}: the card's bits differ "
+                                 "from the CPU's")
+    say(f"compression over a float32 gradient tree shaped like "
+        f"{cfg.name}'s parameters ({n} values, {n * 4 / 1e9:.2f} GB, "
+        f"{len(grads)} leaves) on {DEV}: " + "; ".join(parts)
+        + f"; compress_with_feedback int8 {t_fb:.1f} ms, again with the "
+        f"residual {t_fb2:.1f} ms (residual finite {finite}); "
+        f"compressed_psum through the {dist.get_backend()} group of 1 "
+        f"bitwise the codec round trip at every leaf (int8, bf16); the "
+        f"int8 codec bitwise the CPU's at the {len(big)} largest leaves "
+        f"({', '.join(p for p, _g in big)})")
+    del grads, tree
+    gc.collect()
+
+
+def drive_decode_core(rows, peak_bw: float, card: str) -> None:
+    """10c: ``attention_core(impl="flash_decode", n_chunks=4)`` at the
+    decode shapes of deepseek-v2-lite's MLA and radar-lm, against the
+    kernel route's ``decode`` (``csrc/flash_decode.cu``, its launches
+    counted) and the blocked core, in float32 within ``DECODE_CORE_TOL``,
+    at a full and a partly filled cache; each timed."""
+    import torch
+    from repro_torch.models.attention import attention_core
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for tag, B, hq, hkv, d, keys in DECODE_CORE_SHAPES:
+        q = torch.randn(B, hq, 1, d, generator=gen, device=DEV)
+        k = torch.randn(B, hkv, keys, d, generator=gen, device=DEV)
+        v = torch.randn(B, hkv, keys, d, generator=gen, device=DEV)
+        errs = []
+        for kv_len in (keys, keys - 15):
+            def core(impl, kv_len=kv_len):
+                return attention_core(q, k, v, causal=True, impl=impl,
+                                      kv_len=kv_len,
+                                      n_chunks=DECODE_CORE_CHUNKS)
+            fd = core("flash_decode")
+            reset_launches()
+            kern = core("kernel")
+            launched, routes = read_launches(), read_routes()
+            if routes["flash_attention"]["decode"] != 1 or \
+                    launched["flash_attention"] != 1:
+                raise AssertionError(f"decode core {tag}: launches "
+                                     f"{routes}")
+            add_path_launches(rows, launched, routes)
+            blocked = core("blocked")
+            errs.append(compare(f"flash_decode {tag} vs kernel", fd, kern,
+                                rtol=DECODE_CORE_TOL, atol=DECODE_CORE_TOL))
+            errs.append(compare(f"flash_decode {tag} vs blocked", fd,
+                                blocked, rtol=DECODE_CORE_TOL,
+                                atol=DECODE_CORE_TOL))
+        ms = {impl: time_cuda(lambda impl=impl: attention_core(
+            q, k, v, causal=True, impl=impl, kv_len=keys,
+            n_chunks=DECODE_CORE_CHUNKS)) if DEV == "cuda" else float("nan")
+            for impl in ("flash_decode", "kernel", "blocked")}
+        bound = (q.numel() * 2 + k.numel() + v.numel()) * 4 / peak_bw * 1e3
+        say(f"decode core {tag} (B {B}, {hq}/{hkv} heads of {d}, {keys} "
+            f"keys, float32, {card}): flash_decode n_chunks="
+            f"{DECODE_CORE_CHUNKS} against the kernel's decode and the "
+            f"blocked core max_abs_err {max(errs):.3e} (tolerance "
+            f"{DECODE_CORE_TOL}, kv_len {keys} and {keys - 15}); ms "
+            f"flash_decode {ms['flash_decode']:.4f}, kernel "
+            f"{ms['kernel']:.4f}, blocked {ms['blocked']:.4f} (CUDA "
+            f"events, median of 7 x 10); byte bound {bound:.4f}")
+
+
+def start_dry_runs(work: str):
+    """10d, host only: each of ``DRY_CELLS`` in a process of its own (its
+    own fake process group; all four at once)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"
+    env["CUDA_VISIBLE_DEVICES"] = ""           # the dry run touches no GPU
+    procs = []
+    for arch, shape in DRY_CELLS:
+        log = open(os.path.join(work, f"dry-{arch}-{shape}.log"), "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "both", "--out", work],
+            env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dry_runs(procs, work: str) -> None:
+    """Wait for the dry runs (killing any left at ``DRY_TIMEOUT_S``) and
+    print each cell: peak bytes per device on both meshes, FLOPs,
+    collective bytes by kind, the roofline's dominant term."""
+    deadline = time.monotonic() + DRY_TIMEOUT_S
+    failed = []
+    for arch, shape, log, proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        path = os.path.join(work, f"{arch}__{shape}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            failed.append(f"{arch} {shape} (exit {proc.returncode})")
+            continue
+        rec = json.loads(open(path).read())
+        if rec["status"] != "ok":
+            failed.append(f"{arch} {shape}: {rec.get('error')}")
+            continue
+        pod, multi = rec["meshes"]["pod"], rec["meshes"]["multipod"]
+        cost, roof = pod["cost"], pod["roofline"]
+        coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                         cost["per_collective"].items() if v)
+        say(f"dry run {arch} {shape}: peak per device "
+            f"{pod['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB on "
+            f"(32, 8) (parameters {pod['memory']['param_bytes_per_device'] / 2**30:.3f},"
+            f" arguments {pod['memory']['argument_bytes_per_device'] / 2**30:.3f}), "
+            f"{multi['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB on "
+            f"(2, 32, 8); traced in {pod['trace_s']} and {multi['trace_s']} "
+            f"s; FLOPs {cost['flops']:.4e} (model {pod['model_flops']:.4e},"
+            f" useful {pod['useful_flops_ratio']:.3f}), HBM bytes "
+            f"{cost['bytes_accessed']:.4e}, collective GB by kind "
+            f"{{{coll}}}; roofline on 256 H100s: compute "
+            f"{roof['t_compute_s'] * 1e3:.2f} ms, memory "
+            f"{roof['t_memory_s'] * 1e3:.2f} ms, collective "
+            f"{roof['t_collective_s'] * 1e3:.2f} ms, dominant "
+            f"{roof['dominant']} (predictions, not measurements)")
+    if failed:
+        raise AssertionError(f"dry run cells failed: {failed}; logs in "
+                             f"{work}")
+
+
+def drive_dry_real(card: str) -> None:
+    """10d on the card: ``DRY_REAL`` at world 1, its global batch cut to
+    ``DRY_REAL_BATCH``: the dry run's trace of that cut cell (a fake group
+    of one) predicts the peak bytes and the FLOPs of a step; then the
+    same step runs for real on a mesh of one over an NCCL group of one,
+    ``torch.cuda.max_memory_allocated`` and the step time measured."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_batch
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import build_cell, trace_cell
+    from repro_torch.train import init_train_state
+
+    arch, shape_name = DRY_REAL
+    shape = dataclasses.replace(SHAPES[shape_name],
+                                global_batch=DRY_REAL_BATCH)
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()        # the earlier phases' cached blocks
+    with dryrun.fake_group(1):
+        mesh = make_host_mesh(1, device_type="cpu")
+        tr = trace_cell(build_cell(arch, shape, mesh), mesh)
+    start_group("nccl" if DEV == "cuda" else "gloo")
+    try:
+        mesh = make_host_mesh(1, device_type=DEV)
+        prog = build_cell(arch, shape, mesh)
+        cfg, pcfg, ocfg = (prog.static[k] for k in ("cfg", "pcfg", "ocfg"))
+        state = distribute(init_train_state(cfg, ocfg, pcfg, seed=SEED,
+                                            device=DEV),
+                           prog.in_shardings[0], mesh)
+        batch = make_batch(cfg, shape.global_batch, shape.seq_len,
+                           seed=1000, device=DEV)
+        batch = distribute(batch, prog.in_shardings[1], mesh)
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = [], []
+        with set_mesh(mesh):
+            for _ in range(DRY_REAL_STEPS):
+                sync()
+                t = time.perf_counter()
+                state, metrics = prog.fn(state, batch)
+                losses.append(float(metrics["loss_total"]))
+                step_ms.append((time.perf_counter() - t) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() if DEV == "cuda"
+                else float("nan"))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"dry-run cell for real: losses {losses}")
+        ms = statistics.median(step_ms[1:])
+        say(f"dry run against the card ({card}): {arch} {shape_name} at "
+            f"world 1, global batch cut from {SHAPES[shape_name].global_batch}"
+            f" to {shape.global_batch} x {shape.seq_len} "
+            f"({pcfg.n_microbatches} microbatch, remat {pcfg.remat}, "
+            f"{pcfg.compute_dtype} compute): predicted peak "
+            f"{tr.peak_bytes_per_device / 2**30:.2f} GiB (arguments "
+            f"{tr.argument_bytes_per_device / 2**30:.2f}, step "
+            f"{tr.temp_bytes_per_device / 2**30:.2f}) against "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; step "
+            f"{ms:.1f} ms (median of steps 2-{DRY_REAL_STEPS}: "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)}), "
+            f"{tr.flops:.4e} traced FLOPs a step = "
+            f"{tr.flops / ms / 1e9:.1f} TFLOP/s; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        del state, batch
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
 # the TPU kernel each hand-written kernel replaces (wrapper function)
 REPLACES = {
     "qvp_reduce": "src/repro/kernels/qvp_reduce.py:43",
@@ -4227,7 +4672,7 @@ SOURCES = {"flash_attention:decode": "flash_decode",
 
 
 def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
-    """Phases 3 to 9; returns the per-kernel rows of the JSON line."""
+    """Phases 3 to 10; returns the per-kernel rows of the JSON line."""
     t_start = time.perf_counter()
 
     def elapsed(phase: str) -> None:
@@ -4246,6 +4691,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
     tmp = tempfile.mkdtemp(prefix="archive-", dir=work)
     fed = tempfile.mkdtemp(prefix="federation-", dir=work)
     ing = tempfile.mkdtemp(prefix="ingest-", dir=work)
+    dry = None
     try:
         archive, vcp, volumes, sim, site = build_archive(tmp)
         elapsed("4 (archive)")
@@ -4254,9 +4700,11 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         drive_grid_path(archive, rows)
         elapsed("4 (QVP, QPE and grid paths)")
         # 5. end-to-end times
+        # the grids at the host's cores only (their read at one reader is
+        # QVP's and QPE's, cut for time)
         for workers in (1, os.cpu_count() or 1):
             time_products(archive, workers, reps=1)
-            time_grid_products(archive, workers, reps=1)
+        time_grid_products(archive, os.cpu_count() or 1, reps=1)
         time_store_layers(archive)
         elapsed("5 (times)")
         # 6. the incremental path, which appends to the archive
@@ -4294,10 +4742,32 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 9. training on the ingested archive, a checkpoint, serving it
         drive_train_path(ingested, ing, rows)
         elapsed("9 (train, checkpoint, serve path)")
+        # 10a-b. the mesh at world 1: training and serving through it;
+        # gradient compression through the group
+        drive_mesh_path(archive, ingested, rows)
+        elapsed("10a-b (mesh train and serve, compression)")
+        # 10d's dry runs (host only) beside 10c on the card
+        dry = tempfile.mkdtemp(prefix="dryrun-", dir=work)
+        procs = start_dry_runs(dry)
+        try:
+            drive_decode_core(rows, peak_bw, card_line())
+        except BaseException:
+            for *_cell, log, proc in procs:
+                proc.kill()
+                proc.wait()
+                log.close()
+            raise
+        elapsed("10c (sequence-sharded decode core)")
+        finish_dry_runs(procs, dry)
+        elapsed("10d (dry run of 4 cells)")
+        drive_dry_real(card_line())
+        elapsed("10d (the cut cell on the card)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(fed, ignore_errors=True)
         shutil.rmtree(ing, ignore_errors=True)
+        if dry is not None:
+            shutil.rmtree(dry, ignore_errors=True)
 
     say("library_ms: F.scaled_dot_product_attention for flash_attention, "
         "Tensor.index_add_ for grid_update at the QPE fold (timed beside "

@@ -25,6 +25,11 @@ from .zr_accum import zr_accum_cuda
 
 
 def _use_kernel(x: torch.Tensor, mode: str) -> bool:
+    if type(x).__name__ == "DTensor":
+        # the kernels read data_ptr() through ctypes: a mesh's caller
+        # passes its local shard (distributed.sharding.gather_for_compute)
+        raise TypeError("a DTensor reached a kernel wrapper; pass the "
+                        "local shard (DTensor.to_local())")
     if mode == "ref":
         return False
     if mode == "kernel":

@@ -15,28 +15,51 @@ moments), on the CPU in float32, as the reference does on its backends.
 the path of an archive (``data.RadarTokenDataset``: sweep 0 of ``--vcp``,
 one scan a sequence).  With ``--ckpt`` every run opens (or creates) the
 checkpoint repository and resumes from its newest step, saving every
-``--ckpt-every`` steps and at the end; the batches resume with it.  The
-port trains on one device: ``--model-axis`` other than 1 needs the
-sharding of ROADMAP item 8.3 and raises.
+``--ckpt-every`` steps and at the end; the batches resume with it.
+
+On a mesh: ``--model-axis N`` lays the run out on a ``("data", "model")``
+mesh of ``world / N`` by ``N`` over a process group (``launch.mesh.
+make_host_mesh``): the state as DTensors by ``distributed.sharding.
+param_shardings`` (the moments likewise, ``launch.steps.
+opt_shardings_like``), each batch's rows over ``data`` by
+``batch_shardings``.  Rank and world come from ``torchrun``'s environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``; NCCL on the
+card, gloo on the CPU); with none set the script starts a group of one
+itself, and tears down whatever group it started.  Every rank makes the
+same batches and the same initial state from the same seeds and keeps
+its own shards; rank 0 writes the checkpoints, gathered whole, and a run
+resumes onto any mesh (each rank reads the chunks under its shards).
+Without ``--model-axis`` (and outside ``torchrun``) the run is on one
+device with no mesh, as before.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --model-axis 2 --reduced --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
 import time
 from typing import Any, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_any_config
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.data import RadarTokenDataset, make_batch
-from repro_torch.distributed import Supervisor
+from repro_torch.distributed import (Supervisor, batch_shardings,
+                                     param_shardings)
+from repro_torch.distributed.sharding import distribute, gather_full
+from repro_torch.launch.mesh import axis_sizes, make_host_mesh, set_mesh
+from repro_torch.launch.steps import opt_shardings_like
 from repro_torch.models.model import count_params
 from repro_torch.radar._device import resolve_device
 from repro_torch.store import ObjectStore, Repository
 from repro_torch.store.icechunk import NotFound
-from repro_torch.train import (AdamWConfig, CheckpointManager,
+from repro_torch.train import (AdamWConfig, CheckpointManager, TrainState,
                                init_train_state, make_train_step,
                                train_state_specs)
 
@@ -55,7 +78,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--vcp", default="VCP-212")
     ap.add_argument("--ckpt", default=None, help="checkpoint store path")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="lay the run out on a (data, model) mesh with "
+                         "this many ranks on 'model' (default: no mesh, "
+                         "or 1 under torchrun)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--reduced", action="store_true",
                     help="use the arch's reduced smoke config")
@@ -91,12 +117,46 @@ def main(argv=None) -> Dict[str, Any]:
     seconds of each step, synchronised), ``peak_bytes`` (on the GPU) and
     the final ``state``."""
     args = _parser().parse_args(argv)
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis other than 1 needs tensor-parallel sharding, not "
-            "ported yet: ROADMAP, 'Modules to port', item 8.3")
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
+    if args.model_axis is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        args.model_axis = 1
+    if args.model_axis is None:
+        return _run(args, device, None)
+    started = _start_group(device)
+    try:
+        if cuda:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             "0")))
+            torch.cuda.set_device(device)
+        mesh = make_host_mesh(args.model_axis, device_type=device.type)
+        with set_mesh(mesh):
+            return _run(args, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _start_group(device: torch.device) -> bool:
+    """Join ``torchrun``'s process group, or start a group of one; returns
+    whether this call started it (a group the caller set up is kept)."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    return True
+
+
+def _run(args, device: torch.device, mesh) -> Dict[str, Any]:
+    cuda = device.type == "cuda"
+    rank = dist.get_rank() if mesh is not None else 0
     cfg = get_any_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -104,33 +164,38 @@ def main(argv=None) -> Dict[str, Any]:
                           compute_dtype="bfloat16" if cuda else "float32")
     ocfg = AdamWConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                        total_steps=args.steps)
-    print(f"arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
-          f"device={device}")
+    if rank == 0:
+        print(f"arch={cfg.name} params={count_params(cfg) / 1e6:.1f}M "
+              f"device={device}"
+              + (f" mesh={axis_sizes(mesh)}" if mesh is not None else ""))
     batch_iter = _batches(args, cfg, device)
+    specs = train_state_specs(cfg, ocfg, pcfg)
+    sshard = bshard = None
+    if mesh is not None:
+        pshard = param_shardings(cfg, pcfg, specs.params, mesh)
+        sshard = TrainState(params=pshard,
+                            opt=opt_shardings_like(pshard, mesh))
 
     # -- state: fresh init or checkpoint resume -----------------------------
     mgr: Optional[CheckpointManager] = None
     start_step = 0
     state = None
     if args.ckpt:
-        store = ObjectStore(args.ckpt)
-        try:
-            repo = Repository.open(store)
-            repo.branch_head("main")
-        except NotFound:
-            repo = Repository.create(store)
-        mgr = CheckpointManager(repo)
+        mgr = CheckpointManager(_open_repo(args.ckpt, rank, mesh))
         latest = mgr.latest_step()
         if latest is not None:
-            print(f"resuming from checkpoint step {latest}")
-            state = mgr.restore(train_state_specs(cfg, ocfg, pcfg),
-                                step=latest, device=device)
+            if rank == 0:
+                print(f"resuming from checkpoint step {latest}")
+            state = mgr.restore(specs, step=latest, device=device,
+                                shardings=sshard, mesh=mesh)
             start_step = latest
     if state is None:
         state = init_train_state(cfg, ocfg, pcfg, seed=0, device=device)
+        if mesh is not None:
+            state = distribute(state, sshard, mesh)
 
     step_fn = make_train_step(cfg, ocfg, pcfg)
-    sup = Supervisor(model_parallel=1,
+    sup = Supervisor(model_parallel=args.model_axis or 1,
                      devices_per_host=torch.cuda.device_count() if cuda else 1)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -140,12 +205,17 @@ def main(argv=None) -> Dict[str, Any]:
     t_last = time.time()
     for step in range(start_step, args.steps):
         batch = next(it)
+        if mesh is not None:
+            if bshard is None:
+                bshard = batch_shardings(mesh, batch)
+            batch = distribute(batch, bshard, mesh)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss_total"])        # synchronises
         step_s.append(time.perf_counter() - t0)
         losses[step + 1] = loss
-        if (step + 1) % args.log_every == 0 or step == start_step:
+        if rank == 0 and ((step + 1) % args.log_every == 0
+                          or step == start_step):
             dt = time.time() - t_last
             t_last = time.time()
             print(f"step {step + 1:5d}  loss {loss:.4f}  "
@@ -157,16 +227,46 @@ def main(argv=None) -> Dict[str, Any]:
             if action.kind != "none":
                 print(f"supervisor: {action.kind} ({action.reason})")
         if mgr and (step + 1) % args.ckpt_every == 0:
-            sid = mgr.save(step + 1, state, message=f"train step {step + 1}")
-            print(f"checkpoint @ step {step + 1} -> snapshot {sid[:12]}")
+            sid = _save(mgr, step + 1, state, rank, mesh,
+                        message=f"train step {step + 1}")
+            if rank == 0:
+                print(f"checkpoint @ step {step + 1} -> snapshot {sid[:12]}")
     if mgr and args.steps not in mgr.steps():
-        mgr.save(args.steps, state, message="final")
-        print(f"final checkpoint @ step {args.steps}")
-    print("done.")
+        _save(mgr, args.steps, state, rank, mesh, message="final")
+        if rank == 0:
+            print(f"final checkpoint @ step {args.steps}")
+    if rank == 0:
+        print("done.")
     return {"start_step": start_step, "losses": losses, "step_s": step_s,
             "peak_bytes": (torch.cuda.max_memory_allocated(device) if cuda
                            else None),
             "state": state}
+
+
+def _open_repo(path: str, rank: int, mesh) -> Repository:
+    """Open (or, on rank 0, create) the checkpoint repository."""
+    if rank == 0:
+        store = ObjectStore(path)
+        try:
+            repo = Repository.open(store)
+            repo.branch_head("main")
+        except NotFound:
+            repo = Repository.create(store)
+    if mesh is not None:
+        dist.barrier()
+    return repo if rank == 0 else Repository.open(ObjectStore(path))
+
+
+def _save(mgr: CheckpointManager, step: int, state, rank: int, mesh,
+          *, message: str) -> str:
+    """One checkpoint commit: on a mesh every rank gathers the state
+    whole and rank 0 writes it; the others wait for the commit."""
+    if mesh is None:
+        return mgr.save(step, state, message=message)
+    full = gather_full(state)
+    sid = mgr.save(step, full, message=message) if rank == 0 else ""
+    dist.barrier()
+    return sid
 
 
 if __name__ == "__main__":

@@ -27,9 +27,12 @@ every call (the non-absorbed form), then pads v with zeros to the q/k width
 (``qk_nope_head_dim + qk_rope_head_dim``) so that one core takes it, and
 slices the output back, as the reference does.
 
-Not ported: the mesh and costing cores (``_flash_decode_core``,
-``_kernel_proxy_core``); they raise ``NotImplementedError`` naming their
-ROADMAP item.
+Two more cores, as in the reference: ``impl="flash_decode"``
+(:func:`_flash_decode_core`), decode attention over a cache whose sequence
+dim is split in chunks (over the mesh's ``model`` axis: each rank reduces
+its own keys and only ``(B, H, 1, D)`` partials cross the links), and
+``impl="kernel_proxy"`` (:func:`_kernel_proxy_core`), the costing probe's
+byte model of the fused kernel.
 """
 
 from __future__ import annotations
@@ -40,15 +43,12 @@ import torch
 from torch import nn
 
 from ..configs.base import MLAConfig, ModelConfig
+from ..distributed.sharding import is_dtensor
 from ..kernels import ops as kops
-from .layers import Params, apply_mrope, apply_rope, dense_init
+from .layers import (Params, apply_mrope, apply_rope, copy_to_model,
+                     dense_init, reduce_from_model)
 
 NEG_INF = -1e30
-# the unported cores, with their ROADMAP "Modules to port" items
-_LATER = {"flash_decode": "the mesh's flash-decode core is not ported yet: "
-                          "item 8.3 (distributed)",
-          "kernel_proxy": "the costing probe's core is not ported yet: "
-                          "item 8.4 (launch tooling)"}
 
 
 # ---------------------------------------------------------------------------
@@ -119,16 +119,197 @@ def _blocked_core(q, k, v, *, causal: bool, scale: float, bk: int = 1024,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def _flash_decode_core(q, k, v, *, scale: float, kv_len=None,
+                       n_chunks: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a cache split in chunks along its sequence
+    dim, without gathering it.
+
+    Each chunk computes a *local* online softmax (max ``m_c``, sum
+    ``l_c``, weighted values ``o_c``) over its own keys, masked with
+    ``-1e30`` beyond ``kv_len``; the combine weights each chunk by ``w =
+    exp(m_c - m)`` against the max ``m`` over chunks — the flash-decoding
+    algorithm.  A chunk whose keys all lie beyond ``kv_len`` contributes
+    ``w = 0``.
+
+    * ``n_chunks`` given, or no ambient mesh: the chunks are reshaped
+      from the cache on this device, as the reference computes them.
+      ``n_chunks`` is the ambient mesh's ``model`` size when not given.
+      With ``n_chunks <= 1``, ``Sq > 1``, or an S or B that does not
+      divide, the blocked core runs instead, as in the reference.
+    * ``k`` and ``v`` DTensors whose sequence dim (2) is sharded over
+      mesh dims (the serving cache laid out by ``distributed.sharding.
+      cache_shardings``): each rank's shard is its chunk, and the combine
+      is one ``all_reduce(MAX)`` of ``m`` and one ``all_reduce(SUM)`` of
+      ``l·w`` and ``o·w`` over those dims: only ``(B, H, 1, D)`` partials
+      cross the links.  ``q`` and the output are this rank's batch rows.
+    """
+    if is_dtensor(k) and any(getattr(p, "dim", None) == 2
+                              for p in k.placements):
+        return _sharded_flash_decode(q, k, v, scale=scale, kv_len=kv_len)
+    from ..distributed.axes import axis_names, axis_sizes, current_mesh
+    B, Hq, Sq, D = q.shape
+    _, Hkv, S, _ = k.shape
+    G = Hq // Hkv
+    dp_size = 1
+    if n_chunks is None:
+        mesh = current_mesh()
+        if mesh is not None and axis_names(mesh):
+            sizes = axis_sizes(mesh)
+            n_chunks = sizes.get("model", 1)
+            for a in ("pod", "data"):
+                dp_size *= sizes.get(a, 1)
+        else:
+            n_chunks = 1
+    # Sq > 1 needs intra-block causal masking, B=1 cells shard the seq dim
+    # over the data axes instead: both defer to the blocked core
+    if n_chunks <= 1 or S % n_chunks or Sq > 1 or B % dp_size:
+        return _blocked_core(q, k, v, causal=True, scale=scale,
+                             kv_len=kv_len)
+    Sl = S // n_chunks
+    kc = k.reshape(B, Hkv, n_chunks, Sl, D)
+    vc = v.reshape(B, Hkv, n_chunks, Sl, D)
+    qg = (q.reshape(B, Hkv, G, Sq, D) * scale).to(torch.float32)
+    kpos = (torch.arange(n_chunks, device=q.device)[:, None] * Sl
+            + torch.arange(Sl, device=q.device)[None, :])     # (nc, Sl)
+    out = _combine_chunks(*_chunk_partials(
+        qg, kc, vc, kpos, S if kv_len is None else int(kv_len)))
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _chunk_partials(qg, kc, vc, kpos, limit: int):
+    """Each chunk's local online softmax: ``qg`` (B, Hkv, G, Sq, D) the
+    scaled float32 queries, ``kc``/``vc`` (B, Hkv, nc, Sl, D) the chunks,
+    ``kpos`` (nc, Sl) their keys' global positions, masked with ``-1e30``
+    from ``limit`` on.  Returns ``(m_c, l_c, o_c)``: the max and the sum
+    of exponentials (B, Hkv, G, nc, Sq) and the weighted values
+    (B, Hkv, G, nc, Sq, D)."""
+    s = torch.einsum("bhgqd,bhckd->bhgcqk", qg, kc.to(torch.float32))
+    valid = kpos < limit
+    s = torch.where(valid[None, None, None, :, None, :], s, NEG_INF)
+    m_c = torch.amax(s, dim=-1)                         # (B,Hkv,G,nc,Sq)
+    p = torch.exp(s - m_c[..., None])
+    l_c = torch.sum(p, dim=-1)
+    o_c = torch.einsum("bhgcqk,bhckd->bhgcqd", p, vc.to(torch.float32))
+    return m_c, l_c, o_c
+
+
+def _combine_chunks(m_c, l_c, o_c, all_max=None, all_sum=None):
+    """The flash-decoding combine of :func:`_chunk_partials`' partials:
+    the max ``m`` over the chunks (dim 3) and, on a mesh, over the ranks
+    (``all_max``); each chunk weighted by ``w = exp(m_c - m)``; ``l·w``
+    and ``o·w`` summed over the chunks and the ranks (``all_sum``, one
+    reduction); ``o / l`` (B, Hkv, G, Sq, D)."""
+    m = torch.amax(m_c, dim=3)                          # (B,Hkv,G,Sq)
+    if all_max is not None:
+        m = all_max(m)
+    w = torch.exp(m_c - m[..., None, :])                # (B,Hkv,G,nc,Sq)
+    lo = torch.sum(torch.cat([(l_c * w)[..., None], o_c * w[..., None]],
+                             dim=-1), dim=3)
+    if all_sum is not None:
+        lo = all_sum(lo)
+    return lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
+
+
+def _sharded_flash_decode(q, k, v, *, scale: float, kv_len=None):
+    """:func:`_flash_decode_core` on DTensor ``k``/``v`` whose sequence
+    dim is sharded (see there).  ``q`` is this rank's batch rows (as the
+    cache's batch dim is laid out; a DTensor is taken by its local shard)
+    and so is the output."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = k.device_mesh
+    if tuple(v.placements) != tuple(k.placements):
+        raise ValueError(f"k {k.placements} and v {v.placements} must be "
+                         "laid out alike")
+    if any(isinstance(p, Shard) and p.dim not in (0, 2)
+           for p in k.placements):
+        raise ValueError(f"the cache is sharded off its batch and sequence "
+                         f"dims: {k.placements}")
+    seq_dims = [i for i, p in enumerate(k.placements)
+                if isinstance(p, Shard) and p.dim == 2]
+    ql = q.to_local() if is_dtensor(q) else q
+    kl, vl = k.to_local(), v.to_local()
+    _shape, offset = compute_local_shape_and_global_offset(
+        k.shape, mesh, k.placements)
+    B, Hq, Sq, D = ql.shape
+    _, Hkv, Sl, _ = kl.shape
+    if Sq > 1:
+        raise ValueError("the sequence-sharded decode core takes one query "
+                         "token a step")
+    G = Hq // Hkv
+    qg = (ql.reshape(B, Hkv, G, Sq, D) * scale).to(torch.float32)
+    kpos = offset[2] + torch.arange(Sl, device=ql.device)[None, :]
+
+    def all_reduce(x, op):
+        for d in seq_dims:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
+        return x
+
+    # this rank's shard is its one chunk
+    out = _combine_chunks(
+        *_chunk_partials(qg, kl[:, :, None], vl[:, :, None], kpos,
+                         k.shape[2] if kv_len is None else int(kv_len)),
+        all_max=lambda m: all_reduce(m, "max"),
+        all_sum=lambda lo: all_reduce(lo, "sum"))
+    return out.reshape(B, Hq, Sq, D).to(ql.dtype)
+
+
+def write_rows(cache, rows: torch.Tensor, start: int, dim: int) -> None:
+    """Write ``rows`` (this rank's batch rows) at positions ``start ...``
+    of ``cache``'s dim ``dim``: in place into a plain tensor, or, for a
+    DTensor sharded along ``dim``, into the part of this rank's shard
+    those positions fall in."""
+    n = rows.shape[dim]
+    if not is_dtensor(cache):
+        cache.narrow(dim, start, n).copy_(rows.to(cache.dtype))
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local = cache.to_local()
+    lshape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    lo = max(start, offset[dim])
+    hi = min(start + n, offset[dim] + lshape[dim])
+    if hi > lo:
+        local.narrow(dim, lo - offset[dim], hi - lo).copy_(
+            rows.narrow(dim, lo - start, hi - lo).to(local.dtype))
+
+
+def _kernel_proxy_core(q, k, v, *, scale: float, kv_len=None) -> torch.Tensor:
+    """HBM-traffic model of the fused flash kernel, for the bytes costing
+    probe ONLY: reads q, k, v once and writes one q-shaped output — the S²
+    score/softmax arithmetic stays on chip and never round-trips.  (FLOPs
+    come from the separate naive probe; this core's arithmetic is a
+    placeholder with the right data movement, not the right math.)"""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, _, _ = k.shape
+    o = (q.reshape(B, Hkv, Hq // Hkv, Sq, D)
+         + torch.mean(k.to(torch.float32), dim=2)[:, :, None, None, :]
+         .to(q.dtype)
+         + torch.mean(v.to(torch.float32), dim=2)[:, :, None, None, :]
+         .to(q.dtype))
+    return o.reshape(B, Hq, Sq, D) * scale
+
+
 def attention_core(q, k, v, *, causal: bool, scale: Optional[float] = None,
-                   impl: str = "blocked",
-                   kv_len: Optional[int] = None) -> torch.Tensor:
+                   impl: str = "blocked", kv_len: Optional[int] = None,
+                   n_chunks: Optional[int] = None) -> torch.Tensor:
     """Masked scaled-dot-product attention over projected q/k/v.
 
     ``impl="kernel"`` is the counterpart of the reference's ``"pallas"``:
     the hand-written kernel for CUDA tensors (its plain version for CPU
     ones), over ``k[:, :, :kv_len]`` when ``kv_len`` is given.
+    ``n_chunks`` is ``impl="flash_decode"``'s (see
+    :func:`_flash_decode_core`).
     """
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if impl == "kernel_proxy":
+        return _kernel_proxy_core(q, k, v, scale=scale, kv_len=kv_len)
+    if impl == "flash_decode":
+        return _flash_decode_core(q, k, v, scale=scale, kv_len=kv_len,
+                                  n_chunks=n_chunks)
     if impl == "kernel":
         if kv_len is not None:
             kv_len = int(kv_len)
@@ -142,9 +323,6 @@ def attention_core(q, k, v, *, causal: bool, scale: Optional[float] = None,
     if impl == "pallas":
         raise NotImplementedError("attention impl 'pallas': the port's "
                                   "kernel core is impl='kernel'")
-    if impl in _LATER:
-        raise NotImplementedError(f"attention impl {impl!r}: {_LATER[impl]} "
-                                  "(ROADMAP, 'Modules to port')")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -199,7 +377,11 @@ def apply_attn(
     returns a new array); the returned cache is the same dict.
     """
     B, S, D = x.shape
-    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    # under a mesh wq/wk/wv (and wo's rows) may be this rank's model shard
+    # of whole heads (distributed.sharding.gather_for_compute)
+    Hq, Hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+    x = copy_to_model(x, Hq, cfg.n_heads)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -222,14 +404,14 @@ def apply_attn(
         if start + S > cache["k"].shape[2]:
             raise ValueError(f"KV cache of {cache['k'].shape[2]} positions "
                              f"cannot take {S} tokens at {start}")
-        cache["k"][:, :, start:start + S] = k.to(cache["k"].dtype)
-        cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
+        write_rows(cache["k"], k, start, 2)
+        write_rows(cache["v"], v, start, 2)
         k, v = cache["k"], cache["v"]
         kv_len = start + S
 
     o = attention_core(q, k, v, causal=True, impl=impl, kv_len=kv_len)
     o = o.transpose(1, 2).reshape(B, S, Hq * dh)
-    return o @ p["wo"], cache
+    return reduce_from_model(o @ p["wo"], Hq, cfg.n_heads), cache
 
 
 # ---------------------------------------------------------------------------

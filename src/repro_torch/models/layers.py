@@ -6,8 +6,11 @@ kernels are ``(d_in, d_out)``), and every ``apply_*`` takes any mapping of
 name to tensor, so one function serves a module's parameters and a plain
 dict of their compute-dtype copies.  Initializers draw from a
 ``torch.Generator`` with the reference's distributions (not its numbers).
-The reference's ``constrain`` (GSPMD sharding hints) has no counterpart:
-the port has no mesh.
+Under a mesh (``distributed.axes.set_mesh``) :func:`constrain` is the
+reference's sharding hint on a DTensor, and :func:`copy_to_model` /
+:func:`reduce_from_model` are the two collectives around a
+tensor-parallel block whose weights arrive as this rank's ``model`` shard
+(``distributed.sharding.gather_for_compute``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.axes import axis_names, current_mesh
+from ..distributed.sharding import clean_spec, constrain_to, is_dtensor
 
 Params = Mapping[str, torch.Tensor]
 
@@ -160,13 +165,16 @@ def init_mlp(cfg: ModelConfig, gen, d: int, d_ff: int, dtype,
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """One MLP block forward pass."""
+    # under a mesh the hidden dim may be this rank's model shard
+    width, full = p["w_up"].shape[-1], cfg.d_ff
+    x = copy_to_model(x, width, full)
     if cfg.mlp == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
-        return (F.silu(g) * u) @ p["w_down"]
+        return reduce_from_model((F.silu(g) * u) @ p["w_down"], width, full)
     # the reference's jax.nn.gelu is the tanh approximation
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    return reduce_from_model(h @ p["w_down"], width, full) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +212,135 @@ def embed_tokens(cfg: ModelConfig, p: Params,
         for kbook in range(cfg.n_codebooks):
             out = out + p["tokens"][kbook][tokens[:, kbook]]
         return out
-    return p["tokens"][tokens]
+    rows = p["tokens"].shape[0]
+    if rows == cfg.vocab_size:
+        return p["tokens"][tokens]
+    # on a mesh: this rank's rows of the vocabulary, the others' looked up
+    # there and summed over the model group
+    local = tokens - model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    out = p["tokens"][local.clamp(0, rows - 1)] \
+        * inside[..., None].to(p["tokens"].dtype)
+    return reduce_from_model(out, rows, cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# sharding hints and the tensor-parallel collectives
+# ---------------------------------------------------------------------------
+
+DP = ("pod", "data")  # every data-parallel axis that may exist
+
+
+def constrain(x, *axes):
+    """The reference's ``with_sharding_constraint`` against the ambient
+    mesh: a no-op with no mesh or on a tensor that is not a DTensor;
+    otherwise ``x`` is redistributed to the cleaned spec."""
+    mesh = current_mesh()
+    if mesh is None or not axis_names(mesh) or not is_dtensor(x):
+        return x
+    return constrain_to(x, clean_spec(tuple(x.shape), axes, mesh))
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the ambient mesh's ``model`` axis."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in axis_names(mesh):
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def vocab_parallel_terms(logits: torch.Tensor, targets: torch.Tensor,
+                         vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logsumexp, target logit)`` over the whole vocabulary from this
+    rank's columns of it (``logits[..., :V / m]`` of the model group's
+    ``m`` ranks, in rank order): one max, one sum of exponentials and one
+    target sum over the model group, never the full logits."""
+    rows = logits.shape[-1]
+    group = model_group()
+    from torch.distributed import _functional_collectives as funcol
+    m = funcol.wait_tensor(funcol.all_reduce(
+        torch.amax(logits.detach(), dim=-1).contiguous(), "max", group))
+    sum_exp = _ReduceFromModel.apply(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1), group)
+    lse = torch.log(sum_exp) + m
+    local = targets - model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    picked = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])
+    picked = _ReduceFromModel.apply(picked[..., 0] * inside, group)
+    del vocab
+    return lse, picked
+
+
+def model_group():
+    """The ambient mesh's ``model`` process group, or ``None``."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in axis_names(mesh) \
+            or not hasattr(mesh, "get_group"):
+        return None
+    return mesh.get_group("model")
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum", group))
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the ``model`` group
+    (the input of a column-parallel block)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial outputs of a row-parallel block summed over the
+    ``model`` group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, shard_width: int,
+                  full_width: int) -> torch.Tensor:
+    """``x`` entering a block whose weights are this rank's ``model``
+    shard (``shard_width`` columns of ``full_width``); unchanged when the
+    weights are whole."""
+    group = model_group()
+    if shard_width == full_width or group is None:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(y: torch.Tensor, shard_width: int,
+                      full_width: int) -> torch.Tensor:
+    """A row-parallel block's partial output summed over ``model``;
+    unchanged when the weights are whole."""
+    group = model_group()
+    if shard_width == full_width or group is None:
+        return y
+    return _ReduceFromModel.apply(y, group)
 
 
 def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """-> (B, S, V) or (B, K, S, V) logits, float32."""
+    if cfg.n_codebooks == 1:
+        # on a mesh the table's rows / the head's columns may be this
+        # rank's vocabulary shard (the loss reduces over the model group)
+        cols = (p["tokens"].shape[0] if cfg.tie_embeddings
+                else p["head"].shape[-1])
+        x = copy_to_model(x, cols, cfg.vocab_size)
     if cfg.tie_embeddings:
         logits = x @ p["tokens"].to(x.dtype).T
     elif cfg.n_codebooks > 1:
@@ -218,4 +350,6 @@ def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    if cfg.n_codebooks > 1:
+        return constrain(logits, DP, None, None, "model")
+    return constrain(logits, DP, None, "model")

@@ -23,11 +23,15 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
-from .layers import (apply_norm, embed_tokens, init_embeddings, init_norm,
-                     unembed)
+from ..distributed.sharding import (constrain_like_params,
+                                    gather_for_compute, is_dtensor, to_local)
+from .layers import (DP, apply_norm, constrain, embed_tokens,
+                     init_embeddings, init_norm, unembed,
+                     vocab_parallel_terms)
 from . import attention, ssm, xlstm
 from .transformer import (LayerSpec, SharedBlock, apply_unit, init_layer,
                           init_shared_block, layer_groups)
@@ -97,6 +101,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                     shared)
 
 
+def param_specs(cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    """The parameters in the reference's pytree layout (every leaf under
+    ``groups`` stacked over its group's repeats) as meta tensors: shapes
+    and dtypes, no storage (the dry run's and the sharding rules' input)."""
+    from .convert import to_reference
+    return to_reference(init_params(cfg, device="meta", dtype=dtype))
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Analytic parameter count for ``cfg`` (shapes only, no allocation)."""
     return sum(p.numel() for p in
@@ -116,7 +128,8 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 def compute_params(params: Params, compute_dtype, *,
-                   detach: bool = True) -> Dict[str, Any]:
+                   detach: bool = True, gather: bool = True
+                   ) -> Dict[str, Any]:
     """The reference's cast rule as a plain nested dict of tensors.
 
     The reference casts float32 leaves with ``ndim > 1`` to
@@ -127,7 +140,13 @@ def compute_params(params: Params, compute_dtype, *,
     (``embed``, ``final_norm``, ``shared``) the ``ndim > 1`` rule holds as
     written.  Idempotent, so its result can be passed wherever ``params``
     is.  ``detach=False`` keeps the leaves in the autograd graph (the
-    training step's path, :func:`train_loss`)."""
+    training step's path, :func:`train_loss`).
+
+    DTensor leaves (parameters laid out on a mesh by
+    ``distributed.sharding``) are cast shard by shard and, with
+    ``gather``, gathered whole onto every rank (the serving path, which
+    then computes on plain tensors); without it they stay DTensors for
+    :func:`_forward`'s per-layer gather."""
     dtype = _dtype(compute_dtype)
 
     def cast(node, stacked: bool):
@@ -139,7 +158,32 @@ def compute_params(params: Params, compute_dtype, *,
             return [cast(n, stacked) for n in node]
         return {k: cast(v, stacked) for k, v in node.items()}
 
-    return {k: cast(v, k == "groups") for k, v in params.items()}
+    out = {k: cast(v, k == "groups") for k, v in params.items()}
+    if gather and any(is_dtensor(t) for t in _tree_leaves(out)):
+        out = gather_for_compute(None, out, tp=False, grads=not detach)
+    return out
+
+
+def _tree_leaves(node) -> List[Any]:
+    if isinstance(node, dict):
+        return [t for v in node.values() for t in _tree_leaves(v)]
+    if isinstance(node, (list, tuple)):
+        return [t for v in node for t in _tree_leaves(v)]
+    return [node]
+
+
+def _no_grad(fn):
+    """``torch.inference_mode`` around a forward-only entry point, or
+    ``torch.no_grad`` where the parameters are DTensors (a mesh's: they
+    refuse inference mode)."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(cfg, pcfg, params, *args, **kwargs):
+        sharded = is_dtensor(params["final_norm"]["scale"])
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(cfg, pcfg, params, *args, **kwargs)
+    return run
 
 
 def _dtype(name) -> torch.dtype:
@@ -181,21 +225,43 @@ def _embed_batch(cfg: ModelConfig, cparams, batch: Dict,
 
 
 def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
-             batch: Dict, attn_impl: str, detach: bool, **flags
+             batch: Dict, attn_impl: str, detach: bool,
+             vocab_parallel: bool = False, **flags
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     compute_dtype = _dtype(pcfg.compute_dtype)
-    cparams = compute_params(params, compute_dtype, detach=detach)
-    x, positions = _embed_batch(cfg, cparams, batch, compute_dtype)
+    cparams = compute_params(params, compute_dtype, detach=detach,
+                             gather=False)
+    # on a mesh: the boundary gathered whole, each layer just before it
+    # runs (the reference's per-layer constraint keeps its FSDP gather
+    # transient), tensor-parallel blocks kept as this rank's model shard
+    grads = not detach
+    boundary = {k: gather_for_compute(
+        cfg, v, tp=k == "shared" or (k == "embed" and vocab_parallel),
+        grads=grads) for k, v in cparams.items() if k != "groups"}
+    x, positions = _embed_batch(cfg, boundary, batch, compute_dtype)
+    x = constrain(x, DP, None, None)
     emb0 = x
-    shared = cparams.get("shared")
+    shared = boundary.get("shared")
     aux_total: Dict[str, torch.Tensor] = {}
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
+        def layer(up, x, unit=unit):
+            up = constrain_like_params(cfg, pcfg, up)
+            up = gather_for_compute(cfg, up, grads=grads)
+            return apply_unit(cfg, unit, up, shared, x, positions,
+                              attn_impl=attn_impl, emb0=emb0, **flags)[:2]
         for r in range(reps):
-            x, aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
-                                   shared, x, positions, attn_impl=attn_impl,
-                                   emb0=emb0, **flags)
+            if grads and pcfg.remat != "none":
+                # the reference's per-layer remat: keep each layer's input,
+                # recompute its activations (and re-gather its weights on
+                # a mesh) in the backward pass
+                x, aux = checkpoint(layer, cparams["groups"][gi][r], x,
+                                    use_reentrant=False)
+            else:
+                x, aux = layer(cparams["groups"][gi][r], x)
+            x = constrain(x, DP, None, None)
             for k, v in aux.items():
                 aux_total[k] = aux_total.get(k, 0.0) + v
+    cparams = boundary
     x = apply_norm(cfg, cparams["final_norm"], x)
     return unembed(cfg, cparams["embed"], x), aux_total
 
@@ -204,17 +270,28 @@ def _loss(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
           batch: Dict, attn_impl: str, detach: bool, **flags
           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logits, aux = _forward(cfg, pcfg, params, batch, attn_impl, detach,
-                           **flags)
+                           vocab_parallel=True, **flags)
     targets = _as_tensor(batch["targets"], logits.device).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gathered = torch.gather(logits, -1, targets[..., None])[..., 0]
-    loss = torch.mean(lse - gathered)
+    loss = lm_loss(cfg, logits, targets)
     metrics = {"loss": loss, **aux}
     total = loss + sum(v for k, v in aux.items() if k.startswith("moe_"))
     return total, metrics
 
 
-@torch.inference_mode()
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy; ``logits`` may be this rank's
+    columns of the vocabulary (a vocabulary-parallel unembedding on a
+    mesh, :func:`layers.vocab_parallel_terms`)."""
+    if logits.shape[-1] < cfg.vocab_size:
+        lse, gathered = vocab_parallel_terms(logits, targets, cfg.vocab_size)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gathered = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - gathered)
+
+
+@_no_grad
 def forward(
     cfg: ModelConfig,
     pcfg: ParallelConfig,
@@ -234,7 +311,7 @@ def forward(
                     moe_dropless=moe_dropless)
 
 
-@torch.inference_mode()
+@_no_grad
 def loss_fn(
     cfg: ModelConfig,
     pcfg: ParallelConfig,
@@ -315,7 +392,7 @@ def init_caches(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
             for reps, unit in layer_groups(cfg)]
 
 
-@torch.inference_mode()
+@_no_grad
 def decode_step(
     cfg: ModelConfig,
     pcfg: ParallelConfig,
@@ -334,7 +411,15 @@ def decode_step(
     (exact, no drops) for S <= 64, as the reference serves a decode step,
     and by sorted capacity dispatch for a longer prefill."""
     compute_dtype = _dtype(pcfg.compute_dtype)
-    cparams = compute_params(params, compute_dtype)
+    # on a mesh: the parameters gathered layer by layer (attention whole,
+    # MLPs tensor-parallel), the caches as laid out by cache_shardings
+    cparams = compute_params(params, compute_dtype, gather=False)
+    sharded = is_dtensor(cparams["final_norm"]["scale"])
+    if sharded:
+        cparams = {k: v if k == "groups" else
+                   gather_for_compute(cfg, v, tp=False)
+                   for k, v in cparams.items()}
+        tokens_or_embeds = to_local(tokens_or_embeds)
     dev = _device(cparams)
     x = _as_tensor(tokens_or_embeds, dev)
     if not x.is_floating_point():
@@ -349,14 +434,62 @@ def decode_step(
     x = x.to(compute_dtype)
     emb0 = x
     shared = cparams.get("shared")
+    if sharded and shared is not None:
+        shared = gather_for_compute(cfg, shared, attention=False)
     dropless = S <= 64
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
         for r in range(reps):
             layer_caches = [{k: c[r] for k, c in caches[gi][i].items()}
                             for i in range(len(unit))]
-            x, _aux, _ = apply_unit(cfg, unit, cparams["groups"][gi][r],
-                                    shared, x, positions, caches=layer_caches,
-                                    cache_index=start, attn_impl=attn_impl,
-                                    emb0=emb0, moe_dropless=dropless)
+            up = cparams["groups"][gi][r]
+            if sharded:
+                up = gather_for_compute(cfg, up, attention=False)
+                layer_caches, write_back = _local_caches(
+                    layer_caches, attn_impl == "flash_decode" and S == 1)
+            x, _aux, _ = apply_unit(cfg, unit, up, shared, x, positions,
+                                    caches=layer_caches, cache_index=start,
+                                    attn_impl=attn_impl, emb0=emb0,
+                                    moe_dropless=dropless)
+            if sharded:
+                write_back()
     x = apply_norm(cfg, cparams["final_norm"], x)
     return unembed(cfg, cparams["embed"], x), caches
+
+
+def _local_caches(layer_caches, keep_kv: bool):
+    """One layer's DTensor caches as the tensors its mixer updates in
+    place: each leaf gathered to this rank's batch rows whole along its
+    other dims (a view, where it is sharded on the batch alone), and a
+    function that writes the updated rows back into the stored shards.
+    With ``keep_kv`` (a flash-decode step) attention's ``k`` and ``v``
+    stay DTensors: the decode core reduces each rank's own keys."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    backs = []
+
+    def local(name, c):
+        if not is_dtensor(c) or (keep_kv and name in ("k", "v")):
+            return c
+        mesh = c.device_mesh
+        rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in c.placements]
+        if list(c.placements) == rows:
+            return c.to_local()
+        full = c.redistribute(mesh, rows).to_local()
+        backs.append((c, full, rows))
+        return full
+
+    out = [{k: local(k, c) for k, c in lc.items()} for lc in layer_caches]
+
+    def write_back():
+        for c, full, rows in backs:
+            lshape, off = compute_local_shape_and_global_offset(
+                c.shape, c.device_mesh, c.placements)
+            _ls, off_full = compute_local_shape_and_global_offset(
+                c.shape, c.device_mesh, rows)
+            part = full
+            for d in range(full.ndim):
+                part = part.narrow(d, off[d] - off_full[d], lshape[d])
+            c.to_local().copy_(part)
+    return out, write_back

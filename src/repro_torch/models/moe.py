@@ -6,7 +6,11 @@ The port of the reference package's ``models/moe.py``.
   are stably sorted by expert id, truncated at per-expert capacity,
   scattered into an ``(E, C, D)`` buffer, pushed through batched expert
   GEMMs and combined.  The reference sorts per data shard under its mesh;
-  the port has no mesh, so it runs as one shard.  The reference combines
+  on a mesh each of the port's data-parallel ranks computes its own rows,
+  so it sorts them alone, at the same per-shard capacity.  The aux
+  losses are the whole batch's, as the reference's: the per-expert
+  fractions and mean router probabilities are averaged over the data
+  axes before their product is formed.  The reference combines
   with a scatter-add over token ids; on the card ``index_add_`` uses
   atomics, whose order (and so whose bits) varies from run to run, so the
   port un-permutes instead: ``order`` is a permutation of the T·K
@@ -34,6 +38,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..distributed.axes import current_mesh
+from ..distributed.sharding import data_mean
 from .layers import Params, _normal, dense_init
 
 
@@ -134,6 +140,15 @@ def _aux(m: MoEConfig, logits: torch.Tensor, probs: torch.Tensor,
     exp_oh = F.one_hot(expert_idx, E).to(torch.float32)
     me = torch.mean(probs, dim=0)
     fe = torch.sum(exp_oh, dim=(0, 1)) / (T * K)
+    mesh = current_mesh()
+    if mesh is not None:
+        # a mesh's data ranks each hold T of the batch's rows: the whole
+        # batch's fractions and means are the ranks' averages.  ``fe`` has
+        # no gradient; ``me`` keeps its own rows' (each rank's loss counts
+        # 1 / dp and the gradients are summed over the data axes, which
+        # makes it the gradient of the whole batch's mean)
+        fe = data_mean(fe, mesh)
+        me = me + (data_mean(me, mesh) - me).detach()
     ce = E * torch.sum(fe * me)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"moe_load_balance": m.load_balance_coef * ce,

@@ -127,13 +127,21 @@ class CheckpointManager:
     # -- restore -----------------------------------------------------------
     def restore(self, specs: Any, *, step: Optional[int] = None,
                 snapshot_id: Optional[str] = None,
-                device: DeviceLike = None, subtree: str = "") -> Any:
+                device: DeviceLike = None, subtree: str = "",
+                shardings: Optional[Any] = None, mesh=None) -> Any:
         """Rebuild the state tree shaped like ``specs`` (a tree of
         :class:`~repro_torch.train.step.TensorSpec`, e.g.
         ``train_state_specs(...)``) from checkpoint ``step`` (default the
         newest) on ``device`` (``None`` means ``"cuda"``).  ``subtree``
         restores one part of the state, ``specs`` being that part's
-        (``"params"``: the parameters alone, for serving)."""
+        (``"params"``: the parameters alone, for serving).
+
+        With ``shardings`` (a tree of ``distributed.sharding`` specs
+        shaped like ``specs``) and ``mesh``, each leaf becomes a DTensor
+        and this rank reads only the chunks under its own shard: the mesh
+        may differ from the one that saved (an elastic rescale is another
+        set of chunk-aligned partial reads).  A 0-d leaf stays a plain
+        tensor."""
         dev = resolve_device(device)
         if step is None:
             ss = self.steps(snapshot_id=snapshot_id)
@@ -143,22 +151,36 @@ class CheckpointManager:
         root = f"{self.prefix}/step-{step:010d}"
         if subtree:
             root = f"{root}/{subtree}"
+        spec_leaves = leaves_with_paths(specs)
+        if shardings is None:
+            layouts = [None] * len(spec_leaves)
+        else:
+            from ..distributed.sharding import spec_leaves as _specs
+            layouts = _specs(shardings)
         out = []
         with self.repo.readonly_session(
                 branch=self.branch, snapshot_id=snapshot_id,
                 read_workers=_IO_WORKERS) as sess:
-            for name, spec in leaves_with_paths(specs):
+            for (name, spec), layout in zip(spec_leaves, layouts):
                 arr = sess.array(f"{root}/{name}")
                 logical = arr.attrs.get("logical_dtype", arr.dtype.name)
+                region, offset = tuple(slice(None) for _ in spec.shape), None
+                if layout is not None and len(spec.shape):
+                    from ..distributed.sharding import shard_region
+                    region = shard_region(tuple(spec.shape), layout, mesh)
                 if arr.attrs.get("scalar", 0):
                     data = arr[(slice(0, 1),)][0]
                 else:
-                    data = arr[tuple(slice(None) for _ in spec.shape)]
+                    data = arr[region]
                 t = _to_tensor(np.asarray(data), logical, spec.dtype, dev)
-                if tuple(t.shape) != tuple(spec.shape):
+                want = tuple(s.stop - s.start if s.stop is not None
+                             else n for s, n in zip(region, spec.shape))
+                if tuple(t.shape) != want:
                     raise ValueError(f"checkpoint leaf {name}: shape "
-                                     f"{tuple(t.shape)}, expected "
-                                     f"{spec.shape}")
+                                     f"{tuple(t.shape)}, expected {want}")
+                if layout is not None and len(spec.shape):
+                    from ..distributed.sharding import as_dtensor
+                    t = as_dtensor(t, tuple(spec.shape), layout, mesh)
                 out.append(t)
         return unflatten(specs, out)
 

@@ -122,8 +122,7 @@ def make_adamw(ocfg: AdamWConfig, pcfg: ParallelConfig):
                                      device=p.device),
                     "scale": torch.zeros((nb, 1), dtype=_F32,
                                          device=p.device)}
-        return torch.zeros(p.shape, dtype=getattr(torch, mdt),
-                           device=p.device)
+        return torch.zeros_like(p, dtype=getattr(torch, mdt))
 
     def init(params: Params) -> OptState:
         device = leaves(params)[0].device
@@ -146,6 +145,23 @@ def make_adamw(ocfg: AdamWConfig, pcfg: ParallelConfig):
     @torch.no_grad()
     def update(grads: Params, state: OptState, params: Params
                ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
+        if not any(type(p).__name__ == "DTensor" for p in leaves(params)):
+            return _update(grads, state, params)
+        if mdt == "int8":
+            raise ValueError("int8 moments are blocks of the flattened "
+                             "parameter and have no layout on a mesh; use "
+                             "float32 or bfloat16 moments there")
+        # DTensor leaves: the step, the learning rate and the clip factor
+        # are plain scalars, replicated on every rank
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            new_params, new_opt, metrics = _update(grads, state, params)
+        return new_params, new_opt, {
+            k: v.full_tensor() if type(v).__name__ == "DTensor" else v
+            for k, v in metrics.items()}
+
+    def _update(grads: Params, state: OptState, params: Params
+                ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
         step = state.step + 1
         gnorm = torch.sqrt(sum(torch.sum(g.to(_F32) ** 2)
                                for g in leaves(grads)))

@@ -12,6 +12,12 @@ does; no kernel needs a backward pass.  As there, an sLSTM layer trains
 on the cost proxy (``slstm_cost_proxy=True``: the recurrence's dense
 stand-in), and MoE layers on the sorted capacity dispatch.  Microbatches
 accumulate their gradients in float32, each divided by their number.
+
+On a mesh the state's leaves are DTensors laid out by
+``distributed.sharding.param_shardings`` and the batch's rows are split
+over the data axes: each rank computes its rows on parameters gathered
+layer by layer (``models.model._forward``), and the gradients come back
+as DTensors in the parameters' layout.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ParallelConfig
+from ..distributed.sharding import (data_parallel_size, mean_over_data,
+                                    to_local)
 from ..models import model as M
 from ..models.convert import to_reference, unstack
 from ..radar._device import DeviceLike
@@ -91,22 +99,37 @@ def make_train_step(
 
     def loss_and_grads(params: Params, mb: Dict[str, Any]):
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        # on a mesh each data-parallel rank's loss is over its own rows;
+        # the gradients are summed over the data axes (the reduce-scatter
+        # into the stored shards), so each rank's loss counts 1 / dp
+        first = leaves(ps)[0]
+        dp = data_parallel_size(first)
+        mesh = first.device_mesh if dp > 1 else None
         with torch.enable_grad():
             loss, metrics = M.train_loss(cfg, pcfg, unstack(ps), mb,
                                          attn_impl=attn_impl,
                                          slstm_cost_proxy=True)
-            grads = torch.autograd.grad(loss, leaves(ps))
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+            grads = torch.autograd.grad(loss / dp if dp > 1 else loss,
+                                        leaves(ps), allow_unused=True)
+        # a parameter the loss does not read (qwen2-vl's token table: its
+        # batches carry embeddings) gets a zero gradient, as jax.grad
+        # gives it
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves(ps), grads)]
+        metrics = {k: mean_over_data(v.detach(), mesh)
+                   if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
-        return loss.detach(), metrics, unflatten(params, list(grads))
+        return (mean_over_data(loss.detach(), mesh), metrics,
+                unflatten(params, list(grads)))
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = to_local(batch)         # this rank's rows, on a mesh
         n = pcfg.n_microbatches
         if n <= 1:
             loss, metrics, grads = loss_and_grads(state.params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device),
+            grads = tree_map(lambda p: torch.zeros_like(p,
+                                                        dtype=torch.float32),
                              state.params)
             losses, ms = [], []
             for mb in _split_microbatches(batch, n):

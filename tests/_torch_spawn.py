@@ -1,0 +1,195 @@
+"""Multi-process runs for the port's mesh tests, on the CPU under gloo.
+
+``run_ranks(worker, world, tmp_path, *args)`` spawns ``world`` processes
+that join one gloo process group through a ``FileStore`` under
+``tmp_path``, runs ``worker(rank, world, *args)`` in each, and returns
+what each returned (pickled through a file).  The run has a time limit of
+its own: on expiry every child is killed and the test fails.  The workers
+live here, not in the test modules, so a child imports torch and the port
+only (never jax).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import pickle
+import sys
+import traceback
+
+LIMIT_S = 150.0
+
+
+def _child(rank, world, store_path, out_dir, worker, args):
+    import torch.distributed as dist
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    import torch
+    torch.set_num_threads(1)
+    result = None
+    try:
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world)
+        try:
+            result = ("ok", worker(rank, world, *args))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:                      # reported to the parent
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(worker, world: int, tmp_path, *args, limit_s: float = LIMIT_S):
+    """``[worker(rank, world, *args) for each rank]``, each in its own
+    process of one gloo group."""
+    import multiprocessing as mp
+    import time
+    ctx = mp.get_context("spawn")
+    out_dir = str(tmp_path / f"ranks-{world}-{time.monotonic_ns()}")
+    os.makedirs(out_dir)
+    store_path = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_child, args=(r, world, store_path, out_dir,
+                                              worker, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive:
+        raise AssertionError(f"{len(alive)} of {world} ranks still running "
+                             f"after {limit_s} s: killed")
+    out = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            raise AssertionError(f"rank {r} exited with code "
+                                 f"{procs[r].exitcode} and no result")
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            raise AssertionError(f"rank {r} failed:\n{value}")
+        out.append(value)
+    return out
+
+
+# -- workers ------------------------------------------------------------------
+
+def _src():
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+
+
+def compressed_psum_worker(rank, world, sets, codec):
+    """The port's compressed_psum of ``xs[rank]`` over the whole group,
+    for each ``xs`` of ``sets``."""
+    _src()
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compressed_psum
+    return [compressed_psum(torch.from_numpy(xs[rank]), dist.group.WORLD,
+                            codec).numpy() for xs in sets]
+
+
+def flash_decode_worker(rank, world, q, k, v, kv_lens, data):
+    """``_flash_decode_core`` on a cache sharded over a ``(data, model)``
+    mesh: the sequence over ``model``, the batch over ``data``; returns
+    the global offset of this rank's batch rows and its output rows at
+    each of ``kv_lens``."""
+    _src()
+    import torch
+    from repro_torch.distributed.sharding import distribute, shard_region
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import _flash_decode_core
+    mesh = make_host_mesh(world // data, device_type="cpu")
+    spec = ("data", None, "model", None)
+    kd, vd = (distribute({"t": torch.from_numpy(a)}, {"t": spec}, mesh)["t"]
+              for a in (k, v))
+    rows = shard_region(q.shape, ("data", None, None, None), mesh)[0]
+    ql = torch.from_numpy(q)[rows]
+    return rows.start, [_flash_decode_core(ql, kd, vd, scale=0.25,
+                                           kv_len=n).numpy()
+                        for n in kv_lens]
+
+
+@contextlib.contextmanager
+def with_capacity(train, capacity_factor):
+    """A context in which ``train`` (``repro_torch.launch.train``) builds
+    its configuration with the MoE capacity factor ``capacity_factor``
+    (unchanged with ``None``)."""
+    orig = train.get_any_config
+    if capacity_factor is not None:
+        def get_any_config(name):
+            cfg = orig(name)
+            return dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=capacity_factor))
+        train.get_any_config = get_any_config
+    try:
+        yield
+    finally:
+        train.get_any_config = orig
+
+
+def train_worker(rank, world, argv, capacity_factor=None):
+    """``launch.train.main(argv)`` on this rank (at the MoE capacity
+    factor ``capacity_factor`` where given); rank 0's losses and the
+    final parameters gathered whole."""
+    _src()
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.launch import train
+    from repro_torch.train.tree import leaves_with_paths
+    with with_capacity(train, capacity_factor):
+        rec = train.main(argv)
+    params = gather_full(rec["state"].params)
+    if rank:
+        return None
+    return rec["losses"], {p: t.numpy() for p, t in leaves_with_paths(params)}
+
+
+def serve_worker(rank, world, arch, seed, steps):
+    """Prefill and greedy decode steps of a reduced ``arch`` with DTensor
+    parameters and caches on a ``(1, world)`` mesh (the caches' sequence
+    over ``model``, ``flash_decode`` steps); returns the logits of every
+    step."""
+    _src()
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference, unstack
+    cfg = get_any_config(arch).reduced()
+    pcfg = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
+                          remat="none")
+    mesh = make_host_mesh(world, device_type="cpu")
+    ref = to_reference(M.init_params(cfg, seed, device="cpu"))
+    params = unstack(distribute(ref, param_shardings(cfg, pcfg, ref, mesh),
+                                mesh))
+    B, S = 2, 16
+    caches = M.init_caches(cfg, pcfg, B, S + steps, device="cpu")
+    caches = distribute(caches, cache_shardings(mesh, caches), mesh)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    out = []
+    with set_mesh(mesh):
+        logits, caches = M.decode_step(cfg, pcfg, params, caches, toks, 0,
+                                       attn_impl="blocked")
+        out.append(logits[:, -1].numpy())
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        for i in range(steps):
+            logits, caches = M.decode_step(cfg, pcfg, params, caches, nxt,
+                                           S + i, attn_impl="flash_decode")
+            out.append(logits[:, -1].numpy())
+            nxt = logits[:, -1].argmax(-1)[:, None]
+    return out

@@ -173,7 +173,18 @@ def test_kernel_core_reads_the_cache_prefix_only():
 @pytest.mark.parametrize("impl", ["pallas", "flash_decode", "kernel_proxy",
                                   "bogus"])
 def test_unported_attention_cores_raise(impl):
-    q, k, v = (_t(x) for x in _qkv(0, 1, 2, 1, 4, 4, 16))
+    """``pallas`` (the port's kernel core is ``kernel``) and unknown
+    impls raise; the mesh's ``flash_decode`` and the costing probe's
+    ``kernel_proxy`` cores, ported since, compute as the reference's."""
+    arrays = _qkv(0, 1, 2, 1, 4, 4, 16)
+    q, k, v = (_t(x) for x in arrays)
+    if impl in ("flash_decode", "kernel_proxy"):
+        got = torch_attn.attention_core(q, k, v, causal=True, impl=impl)
+        want = jax_attn.attention_core(*(jnp.asarray(x) for x in arrays),
+                                       causal=True, impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+        return
     err = ValueError if impl == "bogus" else NotImplementedError
     with pytest.raises(err):
         torch_attn.attention_core(q, k, v, causal=True, impl=impl)

@@ -58,3 +58,46 @@ def test_scanner_catches_forbidden_imports():
     roots = {root for _, root in _imported_roots(ast.parse(src))}
     assert FORBIDDEN <= roots
     assert "repro_torch" in roots
+
+
+# -- layering: the models and the distributed layer import nothing of launch
+
+LOWER = sorted((REPO / "src" / "repro_torch" / "models").glob("*.py")) \
+    + sorted((REPO / "src" / "repro_torch" / "distributed").glob("*.py"))
+
+
+def _imported_modules(path: Path, tree: ast.AST):
+    """Every module an import names, made absolute against ``path``'s
+    package (``from .. import launch`` names ``repro_torch.launch``)."""
+    package = list(path.relative_to(REPO / "src").with_suffix("").parts[:-1])
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            base = (package[:len(package) - node.level + 1] if node.level
+                    else [])
+            mod = base + (node.module.split(".") if node.module else [])
+            for alias in node.names:
+                yield node.lineno, ".".join(mod + [alias.name])
+
+
+@pytest.mark.parametrize("path", LOWER,
+                         ids=[p.relative_to(REPO).as_posix() for p in LOWER])
+def test_models_and_distributed_import_nothing_of_launch(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    up = [(line, mod) for line, mod in _imported_modules(path, tree)
+          if mod.startswith("repro_torch.launch")]
+    assert not up, f"{path.relative_to(REPO)} imports {up}"
+
+
+def test_layering_scanner_resolves_relative_imports():
+    path = REPO / "src" / "repro_torch" / "models" / "layers.py"
+    src = ("from ..launch.mesh import set_mesh\n"
+           "def f():\n    from .. import launch\n"
+           "from .attention import x\nimport repro_torch.launch.train\n")
+    mods = {m for _, m in _imported_modules(path, ast.parse(src))}
+    assert mods == {"repro_torch.launch.mesh.set_mesh",
+                    "repro_torch.launch",
+                    "repro_torch.models.attention.x",
+                    "repro_torch.launch.train"}
