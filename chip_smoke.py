@@ -1246,9 +1246,17 @@ def host_us_per_call(fn, n: int = 1000) -> float:
     return us
 
 
+def fmt_ms(ms) -> str:
+    """A time in ms to 4 places, or 'not measured' for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def profiled_device_ms(fn, name: str, n: int = 20):
-    """Device time per call of the kernels whose name holds ``name``, from
-    ``torch.profiler`` over ``n`` calls (None when it saw none)."""
+    """Device time per kernel whose name holds ``name``, from
+    ``torch.profiler`` over ``n`` calls of one such kernel each: the mean
+    over the kernels it kept (None when it kept none; a window that kept
+    fewer than ``n`` is said, as an earlier mean over ``n`` read too low
+    then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1263,7 +1271,9 @@ def profiled_device_ms(fn, name: str, n: int = 20):
     times = [e.device_time for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and name in e.name]
-    return sum(times) / 1e3 / n if times else None
+    if times and len(times) != n:
+        say(f"profiler: {len(times)} {name} kernels kept of {n} calls")
+    return sum(times) / 1e3 / len(times) if times else None
 
 
 def profiled_kernel_names(fn, tries: int = 3) -> str:
@@ -2067,8 +2077,15 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
             "library_ms": None,
         }
         if which == "decode":
-            row["device_ms"] = profiled_device_ms(call, "mamba2_decode")
+            # L2 cold: 1 GiB written before each call; the states in turn
+            # beside it (each call's output lands in L2 for the next)
+            flush = flush_l2()
+            row["device_ms"] = profiled_device_ms(
+                lambda: (flush(), call()), "mamba2_decode")
+            row["warm_device_ms"] = profiled_device_ms(call, "mamba2_decode")
+            row["cold_ms"] = time_cuda_cold(call, flush)
             row["host_us"] = host_us_per_call(call)
+            del flush
         nbytes, nops = ssd_cost(*x.shape, N, x.element_size(), h0 is not None)
         t_bytes = nbytes / peak_bw * 1e3
         if which == "f32":
@@ -2092,7 +2109,11 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
             + (f", {len(states)} states in turn" if len(states) > 1 else "")
             + f"): kernel {row['ms']:.4f} ms (CUDA events, calls back to "
             "back), "
-            + (f"device {dev_ms:.4f} ms (torch.profiler), "
+            + (f"device {dev_ms:.4f} ms (torch.profiler"
+               + (f", L2 cold; {fmt_ms(row['warm_device_ms'])} with the "
+                  f"states in turn; events around one cold call "
+                  f"{row['cold_ms']:.4f} ms" if which == "decode" else "")
+               + "), "
                if dev_ms is not None else
                ("device not measured (the profiler saw no kernel), "
                 if which == "decode" else ""))
@@ -4135,6 +4156,9 @@ def drive_ingest_path(work: str, rows) -> str:
 TRAIN_STEPS = 12
 TRAIN_CKPT_EVERY = 6
 TRAIN_RESUME_RTOL = 1e-2
+# the remat policies beside the checkpointed run's "block" (its first
+# steps): steps of each, the losses held to TRAIN_RESUME_RTOL
+REMAT_STEPS = 6
 # launch.train's own defaults: batch 8, seq 512, bf16 compute on the card;
 # the CPU rehearsal adds --reduced and smaller shapes here
 TRAIN_EXTRA_ARGS: list = []
@@ -4148,9 +4172,10 @@ def drive_train_path(data: str, work: str, rows) -> None:
     ``TRAIN_CKPT_EVERY`` in the port's ``Repository``; the repository
     rolled back to the first checkpoint and a second run resumed from it,
     its losses within ``TRAIN_RESUME_RTOL`` of the uninterrupted run's;
-    then ``launch.serve --ckpt`` on the newest checkpoint, its greedy
-    tokens equal to an engine serving the trained parameters held in
-    memory."""
+    the cell under ``--remat none`` and ``--remat dots`` beside it
+    (:func:`drive_remat_policies`); then ``launch.serve --ckpt`` on the
+    newest checkpoint, its greedy tokens equal to an engine serving the
+    trained parameters held in memory."""
     import torch
     from repro_torch.configs import get_any_config
     from repro_torch.configs.base import ParallelConfig
@@ -4204,6 +4229,7 @@ def drive_train_path(data: str, work: str, rows) -> None:
     say(f"train resumed from step {TRAIN_CKPT_EVERY} in {t_resumed:.1f} s: "
         f"steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} within {worst:.3e} "
         f"relative of the uninterrupted run (tolerance {TRAIN_RESUME_RTOL})")
+    drive_remat_policies(data)
 
     # serve the newest checkpoint; the same requests on the trained
     # parameters held in memory
@@ -4243,6 +4269,95 @@ def drive_train_path(data: str, work: str, rows) -> None:
     say(f"serve --ckpt {LM_ARCH} (step {TRAIN_STEPS}): {len(outs)} requests "
         f"in {t_serve:.1f} s with the restore, greedy tokens equal to the "
         f"trained parameters in memory; launches {routes}")
+
+
+def drive_remat_policies(data: str) -> None:
+    """``launch.train --remat none``, ``block`` and ``dots``,
+    ``REMAT_STEPS`` steps each of phase 9's cell: ms a step and the peak
+    of ``max_memory_allocated`` above what was allocated before the run
+    (the run's own state and step), the losses held to
+    ``TRAIN_RESUME_RTOL`` of ``block``'s; then the forward and backward
+    passes alone under each policy (:func:`passes_memory`)."""
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.launch import train
+
+    argv = ["--arch", LM_ARCH, "--steps", str(REMAT_STEPS), "--data", data,
+            "--device", DEV, "--log-every", "5", *TRAIN_EXTRA_ARGS]
+    runs, peaks = {}, {}
+    for remat in ("none", "block", "dots"):
+        gc.collect()
+        base = None
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+        runs[remat] = train.main(argv + ["--remat", remat])
+        if base is not None:
+            peaks[remat] = runs[remat]["peak_bytes"] - base
+        state = runs[remat].pop("state")
+        if remat == "block":
+            params = state.params
+        del state
+    block = runs["block"]
+    worst = max(abs(runs[r]["losses"][s] - block["losses"][s])
+                / abs(block["losses"][s])
+                for r in ("none", "dots") for s in range(1, REMAT_STEPS + 1))
+    if worst > TRAIN_RESUME_RTOL or not all(
+            np.isfinite(runs[r]["losses"][s]) for r in runs
+            for s in range(1, REMAT_STEPS + 1)):
+        raise AssertionError(f"remat policies: losses differ by {worst:.3e}"
+                             f" relative (tolerance {TRAIN_RESUME_RTOL})")
+    # the forward and backward passes alone, on the trained parameters and
+    # the cell's first batch: a step's peak may be the optimizer's
+    args = train._parser().parse_args(argv)
+    cfg = get_any_config(LM_ARCH)
+    if "--reduced" in TRAIN_EXTRA_ARGS:
+        cfg = cfg.reduced()
+    batch = next(train._batches(args, cfg, torch.device(DEV))(0))
+    parts = []
+    for remat in ("none", "block", "dots"):
+        ms = statistics.median(runs[remat]["step_s"][2:]) * 1e3
+        kept, peak = passes_memory(cfg, params, batch, remat)
+        parts.append(f"{remat} {ms:.1f} ms a step, max_memory_allocated "
+                     f"{gb(peaks.get(remat))} above the run's start; the "
+                     f"passes alone keep {gb(kept)} from forward to "
+                     f"backward, peak {gb(peak)} above the parameters")
+    say(f"train {LM_ARCH} by remat policy (steps 3-{REMAT_STEPS}, median, "
+        "synchronised): " + "; ".join(parts) + f"; losses within "
+        f"{worst:.3e} relative of block's (tolerance {TRAIN_RESUME_RTOL})")
+
+
+def gb(n) -> str:
+    return "not measured" if n is None else f"{n / 1e9:.3f} GB"
+
+
+def passes_memory(cfg, params, batch, remat: str):
+    """(bytes the forward pass keeps for the backward pass, the peak of
+    both) of the training loss under ``remat``, above what was allocated
+    before; ``(None, None)`` off the card."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import unstack
+    from repro_torch.train.tree import leaves, tree_map
+
+    if DEV != "cuda":
+        return None, None
+    pcfg = ParallelConfig(compute_dtype="bfloat16", remat=remat)
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss, _ = M.train_loss(cfg, pcfg, unstack(ps), batch)
+    sync()
+    kept = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(loss, leaves(ps))
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    del loss, grads, ps
+    return kept, peak
 
 
 # -- phase 10: the mesh, compression, the sequence-sharded decode core and
@@ -4298,7 +4413,9 @@ def drive_mesh_path(archive, data: str, rows) -> None:
     mesh over an NCCL group of one, radar-lm-100m at full width on phase
     9's data and seed, its losses within ``MESH_LOSS_TOL`` of the same
     steps with no mesh and the same kernel launches (none: training runs
-    the blocked core); then the archive prompts served through the kernel
+    the blocked core); the same with ``--microbatches 2`` (each cut from
+    the global rows, then shared out over the data ranks), its losses
+    bitwise the unmeshed run's; then the archive prompts served through the kernel
     route with DTensor parameters laid out by ``param_shardings``, greedy
     tokens and launches equal to the same engine on plain parameters."""
     import torch
@@ -4319,35 +4436,44 @@ def drive_mesh_path(archive, data: str, rows) -> None:
         argv = ["--arch", LM_ARCH, "--steps", str(MESH_TRAIN_STEPS),
                 "--data", data, "--device", DEV, "--log-every", "5",
                 *TRAIN_EXTRA_ARGS]
-        runs, launched = {}, {}
-        for tag, extra in (("unmeshed", []), ("mesh (1, 1)",
-                                              ["--model-axis", "1"])):
-            reset_launches()
-            runs[tag] = train.main(argv + extra)
-            launched[tag] = read_launches()
-        a, b = runs["unmeshed"], runs["mesh (1, 1)"]
-        worst = max(abs(a["losses"][s] - b["losses"][s])
-                    for s in range(1, MESH_TRAIN_STEPS + 1))
-        if worst > MESH_LOSS_TOL or launched["unmeshed"] != \
-                launched["mesh (1, 1)"]:
-            raise AssertionError(f"mesh train: losses differ by {worst} "
-                                 f"(tolerance {MESH_LOSS_TOL}); launches "
-                                 f"{launched}")
-        leaf = b["state"].params["final_norm"]["scale"]
-        if type(leaf).__name__ != "DTensor":
-            raise AssertionError("the meshed run's state is not DTensors")
-        ms = {tag: statistics.median(r["step_s"][2:]) * 1e3
-              for tag, r in runs.items()}
-        say(f"mesh train {LM_ARCH} (--model-axis 1, {backend} group of 1, "
-            f"mesh {b['state'].params['final_norm']['scale'].device_mesh}):"
-            f" {MESH_TRAIN_STEPS} steps, losses within {worst:.3e} of the "
-            f"unmeshed run (tolerance {MESH_LOSS_TOL}); median step "
-            f"{ms['mesh (1, 1)']:.1f} ms against {ms['unmeshed']:.1f} "
-            f"unmeshed (steps 3 on): DTensor host cost "
-            f"{ms['mesh (1, 1)'] - ms['unmeshed']:.1f} ms a step; kernel "
-            f"launches {launched['mesh (1, 1)']} both (blocked core)")
-        del runs, a, b, leaf
-        gc.collect()
+        # one microbatch, then two: the microbatches cut from the global
+        # rows before the data ranks share them (at world 1 the meshed
+        # run takes that path and must give the unmeshed bits)
+        for n_mb in (1, 2):
+            runs, launched = {}, {}
+            mb = ["--microbatches", str(n_mb)] if n_mb > 1 else []
+            for tag, extra in (("unmeshed", []), ("mesh (1, 1)",
+                                                  ["--model-axis", "1"])):
+                reset_launches()
+                runs[tag] = train.main(argv + mb + extra)
+                launched[tag] = read_launches()
+            a, b = runs["unmeshed"], runs["mesh (1, 1)"]
+            worst = max(abs(a["losses"][s] - b["losses"][s])
+                        for s in range(1, MESH_TRAIN_STEPS + 1))
+            tol = MESH_LOSS_TOL if n_mb == 1 else 0.0
+            if worst > tol or launched["unmeshed"] != \
+                    launched["mesh (1, 1)"]:
+                raise AssertionError(
+                    f"mesh train, {n_mb} microbatch(es): losses differ by "
+                    f"{worst} (tolerance {tol}); launches {launched}")
+            leaf = b["state"].params["final_norm"]["scale"]
+            if type(leaf).__name__ != "DTensor":
+                raise AssertionError("the meshed run's state is not "
+                                     "DTensors")
+            ms = {tag: statistics.median(r["step_s"][2:]) * 1e3
+                  for tag, r in runs.items()}
+            say(f"mesh train {LM_ARCH} (--model-axis 1, {backend} group of "
+                f"1, mesh {leaf.device_mesh}, {n_mb} microbatch"
+                f"{'es' if n_mb > 1 else ''}): {MESH_TRAIN_STEPS} steps, "
+                f"losses within {worst:.3e} of the unmeshed run (tolerance "
+                f"{tol}{', bitwise' if n_mb > 1 else ''}); median step "
+                f"{ms['mesh (1, 1)']:.1f} ms against {ms['unmeshed']:.1f} "
+                f"unmeshed (steps 3 on): DTensor host cost "
+                f"{ms['mesh (1, 1)'] - ms['unmeshed']:.1f} ms a step; "
+                f"kernel launches {launched['mesh (1, 1)']} both (blocked "
+                "core)")
+            del runs, a, b, leaf
+            gc.collect()
 
         # serving with DTensor parameters: the kernels see local tensors
         cfg = get_any_config(LM_ARCH)
@@ -4569,7 +4695,13 @@ def finish_dry_runs(procs, work: str) -> None:
             f"(32, 8) (parameters {pod['memory']['param_bytes_per_device'] / 2**30:.3f},"
             f" arguments {pod['memory']['argument_bytes_per_device'] / 2**30:.3f}), "
             f"{multi['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB on "
-            f"(2, 32, 8); traced in {pod['trace_s']} and {multi['trace_s']} "
+            f"(2, 32, 8)"
+            + (f"; its layers keep "
+               f"{pod['memory']['remat_kept_bytes_per_device'] / 2**30:.3f}"
+               " GiB beyond their inputs from forward to backward on "
+               "(32, 8)"
+               if "remat_kept_bytes_per_device" in pod["memory"] else "")
+            + f"; traced in {pod['trace_s']} and {multi['trace_s']} "
             f"s; FLOPs {cost['flops']:.4e} (model {pod['model_flops']:.4e},"
             f" useful {pod['useful_flops_ratio']:.3f}), HBM bytes "
             f"{cost['bytes_accessed']:.4e}, collective GB by kind "
@@ -4811,7 +4943,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
-        for key in ("routes", "device_ms", "host_us", "warm_ms",
+        for key in ("routes", "device_ms", "warm_device_ms", "cold_ms",
+                    "host_us", "warm_ms",
                     "cuda_core_bound_ms", "library_kernel", "deepseek",
                     "wide_p_tiled"):
             if row.get(key) is not None:

@@ -510,9 +510,7 @@ def to_local(tree: Any) -> Any:
 def data_parallel_size(leaf) -> int:
     """The product of the data axes' sizes on ``leaf``'s mesh (1 for a
     plain tensor)."""
-    if not is_dtensor(leaf):
-        return 1
-    return _dp(leaf.device_mesh)[1]
+    return data_size(leaf.device_mesh) if is_dtensor(leaf) else 1
 
 
 def mean_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -538,3 +536,80 @@ def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
         total = funcol.wait_tensor(funcol.all_reduce(
             total, "sum", (mesh, axis_names(mesh).index(a))))
     return (total / size).reshape(x.shape).to(x.dtype)
+
+
+# -- a batch's rows over the data axes ------------------------------------------
+
+def data_size(mesh) -> int:
+    """The number of data-parallel ranks of ``mesh``: the product of its
+    data axes' sizes (1 with no mesh)."""
+    return 1 if mesh is None else _dp(mesh)[1]
+
+
+def data_rank(mesh) -> int:
+    """This rank's index among the data-parallel ranks of ``mesh``: its
+    coordinates on the data axes read row-major in mesh-dim order, the
+    order in which :func:`batch_shardings` splits a batch's rows."""
+    sizes = axis_sizes(mesh)
+    r = 0
+    for a in fsdp_axes(mesh):
+        r = r * sizes[a] + mesh.get_local_rank(a)
+    return r
+
+
+def rows_sharded(tree: Any) -> bool:
+    """Whether a batch ``tree`` holds this rank's rows only: its leaves
+    are DTensors whose first dim is split over a data axis (plain tensors
+    hold every row)."""
+    from torch.distributed.tensor import Shard
+    from ..train.tree import leaves
+    for leaf in leaves(tree):
+        if is_dtensor(leaf):
+            dp = fsdp_axes(leaf.device_mesh)
+            return any(name in dp and isinstance(pl, Shard) and pl.dim == 0
+                       for name, pl in zip(axis_names(leaf.device_mesh),
+                                           leaf.placements))
+    return False
+
+
+def _over_data(x: torch.Tensor, mesh, gather: bool) -> torch.Tensor:
+    """``x``'s rows all-gathered (``gather``) or summed and scattered over
+    ``mesh``'s data axes, by the functional collectives."""
+    ops = torch.ops._c10d_functional
+    sizes = axis_sizes(mesh)
+    axes = [a for a in fsdp_axes(mesh) if sizes[a] > 1]
+    x = x.contiguous()
+    # gathered, the innermost axis first: a block of the outer axis is the
+    # inner ranks' rows in order; scattered, the outermost first
+    for a in (reversed(axes) if gather else axes):
+        name = mesh.get_group(a).group_name
+        x = ops.wait_tensor(
+            ops.all_gather_into_tensor(x, sizes[a], name) if gather
+            else ops.reduce_scatter_tensor(x, "sum", sizes[a], name))
+    return x
+
+
+class _GatherRows(torch.autograd.Function):
+    """Each data rank's rows gathered in data-rank order; the gradient
+    summed over the data ranks and scattered back to each rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _over_data(x, mesh, gather=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _over_data(g, ctx.mesh, gather=False), None
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rows (dim 0) each data rank of ``mesh`` computed, gathered
+    whole on every rank in data-rank order (:func:`data_rank`): an
+    all-gather over the data axes whose backward is the reduce-scatter
+    (a sum over the data ranks).  Where every rank's loss counts 1 / dp
+    of the same whole-batch loss, that sum gives each rank's rows their
+    whole gradient."""
+    if data_size(mesh) == 1:
+        return x
+    return _GatherRows.apply(x, mesh)

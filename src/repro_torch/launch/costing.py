@@ -104,7 +104,8 @@ def _nbytes(t: torch.Tensor) -> int:
 class CostCounter(TorchDispatchMode):
     """Per-device HBM bytes, collective bytes per kind, and the peak of
     live bytes allocated while the mode is on (storages made by the traced
-    ops, each freed when its last reference dies)."""
+    ops, each freed when its last reference dies); ``kept``, the live bytes
+    when the traced function last called :func:`note_kept`."""
 
     def __init__(self):
         super().__init__()
@@ -112,6 +113,7 @@ class CostCounter(TorchDispatchMode):
         self.per_collective: Dict[str, int] = {k: 0 for k in _COLLECTIVES}
         self.live = 0
         self.peak = 0
+        self.kept = 0
         self._seen: set = set()
 
     def _track(self, out) -> None:
@@ -202,12 +204,15 @@ class CostTerms:
 @dataclass
 class Traced:
     """What one traced call leaves: its per-device cost counts, the peak
-    of bytes its ops kept live, and its result."""
+    of bytes its ops kept live, the bytes live at its :func:`note_kept`
+    (a forward pass's activations kept for the backward pass), and its
+    result."""
     flops: float
     hbm_bytes: float
     per_collective: Dict[str, float]
     peak_bytes: int
     result: Any = None
+    kept_bytes: int = 0
 
     def global_cost(self, n_devices: int) -> CostTerms:
         per = {k: float(v) * n_devices for k, v in self.per_collective.items()}
@@ -218,16 +223,32 @@ class Traced:
                          raw_bytes=self.hbm_bytes * n_devices)
 
 
+# the counters of the traces running, innermost last
+_COUNTERS: list = []
+
+
 def trace(fn: Callable, *args, **kwargs) -> Traced:
     """Run ``fn`` once with the counters on (inputs on the meta device
     allocate and compute nothing)."""
     from torch.utils.flop_counter import FlopCounterMode
     flops = FlopCounterMode(display=False)
     counter = CostCounter()
-    with flops, counter:
-        result = fn(*args, **kwargs)
+    _COUNTERS.append(counter)
+    try:
+        with flops, counter:
+            result = fn(*args, **kwargs)
+    finally:
+        _COUNTERS.pop()
     return Traced(float(flops.get_total_flops()), float(counter.hbm_bytes),
-                  dict(counter.per_collective), counter.peak, result)
+                  dict(counter.per_collective), counter.peak, result,
+                  counter.kept)
+
+
+def note_kept() -> None:
+    """Record the live bytes of the innermost running :func:`trace` as
+    its ``kept_bytes``."""
+    if _COUNTERS:
+        _COUNTERS[-1].kept = _COUNTERS[-1].live
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +299,8 @@ def _unit_probe(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
         shared = distribute(full["shared"], param_shardings(
             cfg, pcfg, {"shared": full["shared"]}, mesh)["shared"], mesh)
     cd = getattr(torch, pcfg.compute_dtype)
+    # rows that do not divide the data ranks are whole on every rank
+    replicated_rows = _act_spec(mesh, (B, S))[0] is None
     x = _act(mesh, (B, S, cfg.d_model), cd)
     pos_shape = (B, 3, S) if cfg.mrope else (B, S)
     positions = _act(mesh, pos_shape, torch.int32)
@@ -295,7 +318,7 @@ def _unit_probe(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
               if shared is not None else None)
         y, _aux, _ = apply_unit(cfg, unit, u0, sh, x, positions,
                                 attn_impl=attn_impl, slstm_cost_proxy=True,
-                                emb0=x)
+                                emb0=x, moe_replicated_rows=replicated_rows)
         return torch.sum(y.to(torch.float32))
 
     def probe():
@@ -304,11 +327,10 @@ def _unit_probe(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
                 with torch.no_grad():
                     return fwd(up, x)
             with torch.enable_grad():
-                if pcfg.remat != "none":
-                    from torch.utils.checkpoint import checkpoint
-                    loss = checkpoint(fwd, up, x, use_reentrant=False)
-                else:
-                    loss = fwd(up, x)
+                # the model's own remat policy (models.model.remat_call);
+                # what the forward pass leaves live is what it keeps
+                loss = M.remat_call(pcfg.remat, fwd, up, x)
+                note_kept()
                 return _grad(loss, [up, x])
 
     return trace(probe)
@@ -383,20 +405,25 @@ def probed_cost(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
     probe: ``"blocked"`` (the plain runtime — float32 score blocks hit
     HBM) or ``"kernel_proxy"`` (the fused kernel — q/k/v/o streams
     only)."""
-    total, parts, _peaks = _probe_all(cfg, pcfg, mesh, shape, ocfg=ocfg,
-                                      attn_bytes_impl=attn_bytes_impl)
-    return total, parts
+    return probe_cell(cfg, pcfg, mesh, shape, ocfg=ocfg,
+                      attn_bytes_impl=attn_bytes_impl)[:2]
 
 
-def _probe_all(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
+def probe_cell(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
                shape: ShapeConfig, *, ocfg: Optional[AdamWConfig] = None,
                attn_bytes_impl: str = "blocked"):
-    """:func:`probed_cost`, plus each probe's peak of live bytes."""
+    """:func:`probed_cost`'s (total, parts), and the probes' live bytes
+    per device: ``peak`` (each probe's peak), ``kept`` (each group's
+    repeat unit: the bytes its forward pass keeps for its backward pass
+    under ``pcfg.remat``) and ``stored`` (the step's, Σ_g reps_g · kept_g:
+    what the forward passes of every layer keep at once)."""
     with_grad = shape.kind == "train"
     B, S = shape.global_batch, shape.seq_len
     n = mesh_size(mesh)
     parts: Dict[str, CostTerms] = {}
     peaks: Dict[str, int] = {}
+    kept: Dict[str, int] = {}
+    stored = 0
     total = CostTerms()
     attn = ("attn", "shared_attn", "mla")
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
@@ -418,6 +445,8 @@ def _probe_all(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
                       per_collective=g_mem.per_collective)
         parts[f"group{gi}_x{reps}"] = u.scaled(reps)
         peaks[f"group{gi}"] = u_mem.peak_bytes
+        kept[f"group{gi}"] = u_mem.kept_bytes
+        stored += reps * u_mem.kept_bytes
         total = total + u.scaled(reps)
     b = _boundary_probe(cfg, pcfg, mesh, shape, with_grad=with_grad)
     parts["boundary"] = b.global_cost(n)
@@ -428,7 +457,7 @@ def _probe_all(cfg: ModelConfig, pcfg: ParallelConfig, mesh,
         parts["optimizer"] = o.global_cost(n)
         peaks["optimizer"] = o.peak_bytes
         total = total + parts["optimizer"]
-    return total, parts, peaks
+    return total, parts, {"peak": peaks, "kept": kept, "stored": stored}
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:

@@ -17,7 +17,10 @@ Per cell the dry run:
   2. records the memory per device: the bytes of the arguments one device
      holds (``argument_bytes_per_device``, the rules' arithmetic), the
      peak of bytes the step's ops kept live at once
-     (``temp_bytes_per_device``) and their sum;
+     (``temp_bytes_per_device``) and their sum; for a train cell also
+     what its layers keep beyond their inputs from the forward to the
+     backward pass under its remat policy
+     (``remat_kept_bytes_per_device``, from the probes);
   3. costs the step: FLOPs, HBM bytes and collective bytes by kind
      (``launch.costing``; train and prefill cells from the probes, decode
      cells from the traced step) and the three roofline terms on the
@@ -132,11 +135,16 @@ def run_cell(arch: str, shape: str, *, meshes=("pod", "multipod"),
                             total, bytes_accessed=kc.bytes_accessed,
                             raw_bytes=kc.raw_bytes)
                 else:
-                    total, parts = costing.probed_cost(
+                    total, parts, live = costing.probe_cell(
                         get_config(arch), prog.static["pcfg"], mesh,
                         SHAPES[shape],
                         attn_bytes_impl=("kernel_proxy" if kernel_bytes
                                          else "blocked"))
+                    if kind == "train":
+                        # what the layers' forward passes keep beyond
+                        # their inputs for the backward pass
+                        rec["memory"]["remat_kept_bytes_per_device"] = \
+                            live["stored"]
                 mf = costing.model_flops(get_config(arch), SHAPES[shape])
                 rec["cost"] = dataclasses.asdict(total)
                 rec["cost_parts"] = {k: dataclasses.asdict(v)

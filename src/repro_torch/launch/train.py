@@ -11,7 +11,10 @@ The port of the reference package's ``launch/train.py``, with its flags.
 ``--device`` defaults to ``cuda``; ``--device cpu`` trains on the CPU.
 Off the CPU the model computes in bfloat16 (float32 master parameters and
 moments), on the CPU in float32, as the reference does on its backends.
-``--data`` is ``synthetic`` (``data.make_batch``, seed ``1000 + step``) or
+``--remat`` picks the per-layer rematerialization (``block``, the
+default, keeps each layer's input and recomputes the rest; ``dots`` also
+keeps the matmul outputs; ``none`` keeps every activation).  ``--data`` is
+``synthetic`` (``data.make_batch``, seed ``1000 + step``) or
 the path of an archive (``data.RadarTokenDataset``: sweep 0 of ``--vcp``,
 one scan a sequence).  With ``--ckpt`` every run opens (or creates) the
 checkpoint repository and resumes from its newest step, saving every
@@ -55,7 +58,7 @@ from repro_torch.distributed import (Supervisor, batch_shardings,
 from repro_torch.distributed.sharding import distribute, gather_full
 from repro_torch.launch.mesh import axis_sizes, make_host_mesh, set_mesh
 from repro_torch.launch.steps import opt_shardings_like
-from repro_torch.models.model import count_params
+from repro_torch.models.model import REMAT, count_params
 from repro_torch.radar._device import resolve_device
 from repro_torch.store import ObjectStore, Repository
 from repro_torch.store.icechunk import NotFound
@@ -73,6 +76,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", choices=REMAT,
+                    default="block",
+                    help="per-layer rematerialization: none, block (keep "
+                         "each layer's input) or dots (also keep the "
+                         "matmul outputs with no batch dims)")
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' or a radar archive store path")
     ap.add_argument("--vcp", default="VCP-212")
@@ -161,6 +169,7 @@ def _run(args, device: torch.device, mesh) -> Dict[str, Any]:
     if args.reduced:
         cfg = cfg.reduced()
     pcfg = ParallelConfig(n_microbatches=args.microbatches,
+                          remat=args.remat,
                           compute_dtype="bfloat16" if cuda else "float32")
     ocfg = AdamWConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                        total_steps=args.steps)

@@ -18,17 +18,20 @@ Batch formats by family:
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
 from ..distributed.sharding import (constrain_like_params,
-                                    gather_for_compute, is_dtensor, to_local)
+                                    gather_for_compute, is_dtensor,
+                                    rows_sharded, to_local)
 from .layers import (DP, apply_norm, constrain, embed_tokens,
                      init_embeddings, init_norm, unembed,
                      vocab_parallel_terms)
@@ -197,6 +200,43 @@ def _device(cparams) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "block", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    output of a matrix product with no batch dims, recompute every other
+    op (collectives too, so no gathered weight is kept).  ``torch.einsum``
+    lowers a contraction with no batch dims to a ``bmm`` of batch 1, while
+    attention's scores and the expert GEMMs are ``bmm``s of batch > 1."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the reference's rematerialization policy
+    ``remat`` (``ParallelConfig.remat``): ``"none"`` keeps every
+    activation for the backward pass, ``"block"`` keeps ``fn``'s inputs
+    alone and recomputes the rest, ``"dots"`` also keeps the outputs of
+    the matrix products with no batch dims (:func:`_dots_policy`).  The
+    values are the same under each; memory and recompute are not."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}: one of {REMAT}")
+    if remat == "none":
+        return fn(*args)
+    if remat == "block":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, _dots_policy))
+
+
+# ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
@@ -250,14 +290,11 @@ def _forward(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
             return apply_unit(cfg, unit, up, shared, x, positions,
                               attn_impl=attn_impl, emb0=emb0, **flags)[:2]
         for r in range(reps):
-            if grads and pcfg.remat != "none":
-                # the reference's per-layer remat: keep each layer's input,
-                # recompute its activations (and re-gather its weights on
-                # a mesh) in the backward pass
-                x, aux = checkpoint(layer, cparams["groups"][gi][r], x,
-                                    use_reentrant=False)
-            else:
-                x, aux = layer(cparams["groups"][gi][r], x)
+            # the reference's per-layer remat: recompute a layer's
+            # activations (and re-gather its weights on a mesh) in the
+            # backward pass, keeping what the policy keeps
+            x, aux = remat_call(pcfg.remat if grads else "none", layer,
+                                cparams["groups"][gi][r], x)
             x = constrain(x, DP, None, None)
             for k, v in aux.items():
                 aux_total[k] = aux_total.get(k, 0.0) + v
@@ -339,16 +376,21 @@ def train_loss(
     attn_impl: str = "blocked",
     slstm_cost_proxy: bool = False,
     moe_dropless: bool = False,
+    replicated_rows: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`loss_fn` inside the autograd graph: ``params`` (an
     :class:`LMParams` or the same tree of plain tensors, one layer per
     repeat) may hold leaves that require gradients, and the loss carries
     them.  The reference's training step differentiates its ``loss_fn``
     on the ``"blocked"`` core; so does the port's
-    (:func:`repro_torch.train.make_train_step`)."""
+    (:func:`repro_torch.train.make_train_step`).  ``replicated_rows``: on
+    a mesh, ``batch`` is the whole batch on every data rank, not this
+    rank's rows (``moe.apply_moe``).  Each layer is rematerialized as
+    ``pcfg.remat`` says (:func:`remat_call`)."""
     return _loss(cfg, pcfg, params, batch, attn_impl, False,
                  slstm_cost_proxy=slstm_cost_proxy,
-                 moe_dropless=moe_dropless)
+                 moe_dropless=moe_dropless,
+                 moe_replicated_rows=replicated_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -415,10 +457,13 @@ def decode_step(
     # MLPs tensor-parallel), the caches as laid out by cache_shardings
     cparams = compute_params(params, compute_dtype, gather=False)
     sharded = is_dtensor(cparams["final_norm"]["scale"])
+    # a batch whose rows do not divide the data ranks is whole on each
+    replicated_rows = False
     if sharded:
         cparams = {k: v if k == "groups" else
                    gather_for_compute(cfg, v, tp=False)
                    for k, v in cparams.items()}
+        replicated_rows = not rows_sharded(tokens_or_embeds)
         tokens_or_embeds = to_local(tokens_or_embeds)
     dev = _device(cparams)
     x = _as_tensor(tokens_or_embeds, dev)
@@ -449,7 +494,8 @@ def decode_step(
             x, _aux, _ = apply_unit(cfg, unit, up, shared, x, positions,
                                     caches=layer_caches, cache_index=start,
                                     attn_impl=attn_impl, emb0=emb0,
-                                    moe_dropless=dropless)
+                                    moe_dropless=dropless,
+                                    moe_replicated_rows=replicated_rows)
             if sharded:
                 write_back()
     x = apply_norm(cfg, cparams["final_norm"], x)

@@ -5,9 +5,15 @@ The port of the reference package's ``models/moe.py``.
 * ``sorted`` (default) — sort-based dispatch: the (token, k) assignments
   are stably sorted by expert id, truncated at per-expert capacity,
   scattered into an ``(E, C, D)`` buffer, pushed through batched expert
-  GEMMs and combined.  The reference sorts per data shard under its mesh;
-  on a mesh each of the port's data-parallel ranks computes its own rows,
-  so it sorts them alone, at the same per-shard capacity.  The aux
+  GEMMs and combined.  Under a mesh of dp data ranks the reference sorts
+  and truncates each of dp contiguous token shards alone, whenever the
+  tokens divide the ranks.  The port does the same: where the batch's
+  rows are split over the data axes each rank holds its own shard and
+  sorts it alone; where they are not (the rows do not divide the ranks,
+  every rank holds them all), each rank dispatches its own contiguous
+  shard of the tokens and the shards' outputs are all-gathered
+  (``distributed.sharding.gather_rows``, whose backward is the
+  reduce-scatter).  Each shard's capacity is the shard's own.  The aux
   losses are the whole batch's, as the reference's: the per-expert
   fractions and mean router probabilities are averaged over the data
   axes before their product is formed.  The reference combines
@@ -39,7 +45,8 @@ from torch.nn import functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
 from ..distributed.axes import current_mesh
-from ..distributed.sharding import data_mean
+from ..distributed.sharding import (data_mean, data_rank, data_size,
+                                    gather_rows)
 from .layers import Params, _normal, dense_init
 
 
@@ -126,6 +133,49 @@ def _dispatch_sorted(xt: torch.Tensor, gate_vals: torch.Tensor,
     return y, TK - keep.sum()
 
 
+def _shard_drops(expert_idx: torch.Tensor, n_shards: int, n_experts: int,
+                 cap: int) -> torch.Tensor:
+    """The assignments dropped at capacity ``cap`` in each of ``n_shards``
+    contiguous token shards, summed (a 0-d tensor): per shard and expert,
+    the assignments past the first ``cap``, from the routing alone."""
+    TK = expert_idx.numel()
+    dev = expert_idx.device
+    shard = torch.arange(n_shards, device=dev).repeat_interleave(
+        TK // n_shards)
+    key = shard * n_experts + expert_idx.reshape(TK)
+    counts = torch.zeros(n_shards * n_experts, dtype=torch.long,
+                         device=dev).index_add_(0, key, torch.ones_like(key))
+    return torch.clamp(counts - cap, min=0).sum()
+
+
+def _dispatch_shards(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+                     gate_vals: torch.Tensor, expert_idx: torch.Tensor,
+                     replicated_rows: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sorted dispatch of this call's T tokens as the reference lays
+    it out on the ambient mesh's dp data ranks -> (y, dropped).  With
+    ``replicated_rows`` (every rank holds the whole batch) and T % dp ==
+    0, rank r dispatches tokens [r·T/dp, (r+1)·T/dp) at that shard's
+    capacity and the shards' outputs are gathered; otherwise the T tokens
+    (this rank's own rows, or a batch that does not divide) are one
+    dispatch."""
+    m: MoEConfig = cfg.moe
+    mesh = current_mesh()
+    T = xt.shape[0]
+    dp = data_size(mesh)
+    if not replicated_rows or dp == 1 or T % dp:
+        return _dispatch_sorted(xt, gate_vals, expert_idx, p,
+                                n_experts=m.n_experts, cap=capacity(cfg, T))
+    Tl = T // dp
+    cap = capacity(cfg, Tl)
+    r = data_rank(mesh)
+    mine = slice(r * Tl, (r + 1) * Tl)
+    y, _ = _dispatch_sorted(xt[mine], gate_vals[mine], expert_idx[mine], p,
+                            n_experts=m.n_experts, cap=cap)
+    return (gather_rows(y, mesh),
+            _shard_drops(expert_idx, dp, m.n_experts, cap))
+
+
 def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
     hs = F.silu(xt @ p["shared_gate"]) * (xt @ p["shared_up"])
     return hs @ p["shared_down"]
@@ -157,20 +207,26 @@ def _aux(m: MoEConfig, logits: torch.Tensor, probs: torch.Tensor,
 
 #: calls of :func:`apply_moe` by dispatch since import (or since a caller
 #: reset them to 0), and the assignments the ``sorted`` calls dropped at
-#: capacity (0, or a 0-d tensor on the device, so counting adds no host
+#: capacity, every data shard's where a call splits its tokens into
+#: shards (0, or a 0-d tensor on the device, so counting adds no host
 #: synchronisation); counts for whoever reads them, nothing depends on them
 dispatches = {"dropless": 0, "sorted": 0, "einsum": 0}
 dropped = 0
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-              dropless: bool = False, dispatch: str = "sorted"
+              dropless: bool = False, dispatch: str = "sorted",
+              replicated_rows: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux losses).
 
     ``dropless=True`` (serving, decode): dense masked product over all
     experts, no drops.  ``dropless=False`` (training, a long prefill):
     capacity dispatch, ``dispatch="sorted"`` (default) or ``"einsum"``.
+    ``replicated_rows``: on a mesh, ``x`` is the whole batch on every data
+    rank (its rows did not divide the ranks), not this rank's rows; the
+    sorted dispatch then splits the tokens into the reference's data
+    shards (:func:`_dispatch_shards`).
     """
     global dropped
     m: MoEConfig = cfg.moe
@@ -197,8 +253,8 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         h = h * gates.T[:, :, None]
         y = torch.bmm(h, p["w_down"]).sum(dim=0)            # (T, D)
     elif dispatch == "sorted":
-        y, n_dropped = _dispatch_sorted(
-            xt, gate_vals, expert_idx, p, n_experts=E, cap=capacity(cfg, T))
+        y, n_dropped = _dispatch_shards(cfg, p, xt, gate_vals, expert_idx,
+                                        replicated_rows)
         dropped = dropped + n_dropped
     else:
         y = _dispatch_einsum(cfg, p, xt, gate_vals, expert_idx)

@@ -124,12 +124,15 @@ def apply_layer(
     slstm_cost_proxy: bool = False,
     emb0: Optional[torch.Tensor] = None,
     moe_dropless: bool = False,
+    moe_replicated_rows: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Dict]]:
     """One block: pre-norm mixer + residual (+ pre-norm FFN + residual).
     ``attn_impl="kernel"`` (the reference's ``"pallas"``) also sends a
     ``mamba2`` mixer to its kernel; any other impl sends it to the plain
     chunked SSD, as in the reference.  The ``moe`` FFN dispatches densely
-    with ``moe_dropless``, else by sorted capacity dispatch."""
+    with ``moe_dropless``, else by sorted capacity dispatch
+    (``moe_replicated_rows``: ``x`` holds the whole batch on every data
+    rank of the ambient mesh, ``moe.apply_moe``'s ``replicated_rows``)."""
     aux: Dict[str, torch.Tensor] = {}
     h = apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "shared_attn":
@@ -170,7 +173,8 @@ def apply_layer(
                           p["ffn"], h)
     elif spec.ffn == "moe":
         h = apply_norm(cfg, p["norm2"], x)
-        y, aux = moe_mod.apply_moe(cfg, p["ffn"], h, dropless=moe_dropless)
+        y, aux = moe_mod.apply_moe(cfg, p["ffn"], h, dropless=moe_dropless,
+                                   replicated_rows=moe_replicated_rows)
         x = x + y
     return x, aux, new_cache
 
@@ -228,6 +232,7 @@ def apply_unit(
     slstm_cost_proxy: bool = False,
     emb0: Optional[torch.Tensor] = None,
     moe_dropless: bool = False,
+    moe_replicated_rows: bool = False,
 ):
     """Apply one repeat unit (its list of layers, ``layer_{i}`` each, the
     shared block woven in at its ``shared_attn`` positions)."""
@@ -242,6 +247,7 @@ def apply_unit(
             cache_index=cache_index, attn_impl=attn_impl,
             slstm_cost_proxy=slstm_cost_proxy, emb0=emb0,
             moe_dropless=moe_dropless,
+            moe_replicated_rows=moe_replicated_rows,
         )
         for k, v in aux.items():
             aux_total[k] = aux_total.get(k, 0.0) + v

@@ -17,7 +17,13 @@ On a mesh the state's leaves are DTensors laid out by
 ``distributed.sharding.param_shardings`` and the batch's rows are split
 over the data axes: each rank computes its rows on parameters gathered
 layer by layer (``models.model._forward``), and the gradients come back
-as DTensors in the parameters' layout.
+as DTensors in the parameters' layout.  A batch whose rows do not divide
+the data ranks is whole on every rank (the MoE dispatch then splits its
+tokens as the reference does, ``models.moe``).  Microbatches are cut as
+the reference cuts them: microbatch i is the global rows [i·B/n,
+(i+1)·B/n), each rank keeping its contiguous share of them where they
+divide the data ranks and all of them where they do not; the batch is
+gathered whole first (its token ids: a small all-gather).
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ParallelConfig
-from ..distributed.sharding import (data_parallel_size, mean_over_data,
-                                    to_local)
+from ..distributed.sharding import (batch_shardings, data_parallel_size,
+                                    gather_full, is_dtensor, local_chunk,
+                                    mean_over_data, rows_sharded, to_local)
 from ..models import model as M
 from ..models.convert import to_reference, unstack
 from ..radar._device import DeviceLike
@@ -82,6 +89,15 @@ def _split_microbatches(batch: Dict[str, Any], n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _data_rows(mb: Dict[str, Any], mesh) -> Tuple[Dict[str, Any], bool]:
+    """This rank's rows of a whole microbatch on ``mesh``: its contiguous
+    share where the rows divide the data ranks (``batch_shardings``), else
+    every row -> (rows, whether they are every row)."""
+    specs = batch_shardings(mesh, mb)
+    rows = {k: local_chunk(v, specs[k], mesh) for k, v in mb.items()}
+    return rows, any(spec[0] is None for spec in specs.values())
+
+
 def make_train_step(
     cfg: ModelConfig,
     ocfg: AdamWConfig,
@@ -97,9 +113,11 @@ def make_train_step(
     optimizer."""
     _, opt_update = make_adamw(ocfg, pcfg)
 
-    def loss_and_grads(params: Params, mb: Dict[str, Any]):
+    def loss_and_grads(params: Params, mb: Dict[str, Any],
+                       replicated_rows: bool):
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        # on a mesh each data-parallel rank's loss is over its own rows;
+        # on a mesh each data-parallel rank's loss is over its own rows
+        # (or the whole batch, where the rows do not divide the ranks);
         # the gradients are summed over the data axes (the reduce-scatter
         # into the stored shards), so each rank's loss counts 1 / dp
         first = leaves(ps)[0]
@@ -108,7 +126,8 @@ def make_train_step(
         with torch.enable_grad():
             loss, metrics = M.train_loss(cfg, pcfg, unstack(ps), mb,
                                          attn_impl=attn_impl,
-                                         slstm_cost_proxy=True)
+                                         slstm_cost_proxy=True,
+                                         replicated_rows=replicated_rows)
             grads = torch.autograd.grad(loss / dp if dp > 1 else loss,
                                         leaves(ps), allow_unused=True)
         # a parameter the loss does not read (qwen2-vl's token table: its
@@ -123,17 +142,28 @@ def make_train_step(
                 unflatten(params, list(grads)))
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = to_local(batch)         # this rank's rows, on a mesh
+        first = leaves(state.params)[0]
+        mesh = first.device_mesh if is_dtensor(first) else None
+        replicated = data_parallel_size(first) > 1 and not rows_sharded(batch)
         n = pcfg.n_microbatches
         if n <= 1:
-            loss, metrics, grads = loss_and_grads(state.params, batch)
+            # this rank's rows, on a mesh
+            loss, metrics, grads = loss_and_grads(state.params,
+                                                  to_local(batch), replicated)
         else:
+            if mesh is None:
+                mbs = [(mb, False) for mb in _split_microbatches(batch, n)]
+            else:
+                # the reference's microbatches: the global rows cut first,
+                # then shared out over the data ranks
+                mbs = [_data_rows(mb, mesh) for mb in
+                       _split_microbatches(gather_full(batch), n)]
             grads = tree_map(lambda p: torch.zeros_like(p,
                                                         dtype=torch.float32),
                              state.params)
             losses, ms = [], []
-            for mb in _split_microbatches(batch, n):
-                loss_i, m_i, g = loss_and_grads(state.params, mb)
+            for mb, whole in mbs:
+                loss_i, m_i, g = loss_and_grads(state.params, mb, whole)
                 grads = tree_map(lambda a, gi: a + gi.to(torch.float32) / n,
                                  grads, g)
                 losses.append(loss_i)

@@ -193,3 +193,61 @@ def serve_worker(rank, world, arch, seed, steps):
             out.append(logits[:, -1].numpy())
             nxt = logits[:, -1].argmax(-1)[:, None]
     return out
+
+
+def mesh_step_worker(rank, world, cases, trees):
+    """One training step of the port on a ``(world, 1)`` mesh for each
+    ``(arch, batch, seq, n_microbatches)`` of ``cases``: the arch's
+    ``.reduced()`` configuration in float32 with ``remat="none"``, the
+    parameters ``trees[arch]`` (the reference's tree as numpy) laid out
+    by ``param_shardings``, ``make_batch(seed=1000)`` by
+    ``batch_shardings``, the default ``AdamWConfig``; returns each step's
+    ``loss_total``."""
+    _src()
+    from repro_torch.configs import get_any_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data import make_batch
+    from repro_torch.distributed import batch_shardings, param_shardings
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import opt_shardings_like
+    from repro_torch.models.convert import from_reference, to_reference
+    from repro_torch.train import (AdamWConfig, TrainState, make_adamw,
+                                   make_train_step)
+    mesh = make_host_mesh(1, device_type="cpu")
+    out = []
+    for arch, batch, seq, n in cases:
+        cfg = get_any_config(arch).reduced()
+        pcfg = ParallelConfig(compute_dtype="float32", remat="none",
+                              n_microbatches=n)
+        ocfg = AdamWConfig()
+        params = to_reference(from_reference(cfg, trees[arch], device="cpu"))
+        state = TrainState(params, make_adamw(ocfg, pcfg)[0](params))
+        pshard = param_shardings(cfg, pcfg, params, mesh)
+        state = distribute(state, TrainState(
+            params=pshard, opt=opt_shardings_like(pshard, mesh)), mesh)
+        b = make_batch(cfg, batch, seq, seed=1000, device="cpu")
+        b = distribute(b, batch_shardings(mesh, b), mesh)
+        with set_mesh(mesh):
+            _state, metrics = make_train_step(cfg, ocfg, pcfg)(state, b)
+        out.append(float(metrics["loss_total"]))
+    return out
+
+
+def gather_rows_worker(rank, world, rows):
+    """``distributed.sharding.gather_rows`` on a ``(pod, data, model) =
+    (2, world / 2, 1)`` mesh: each data rank's ``rows`` rows filled with
+    its data rank, gathered, then the gradient of the gathered rows
+    against weights ``arange``; returns (data rank, gathered, gradient)."""
+    _src()
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import data_rank, gather_rows
+    mesh = init_device_mesh("cpu", (2, world // 2, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    r = data_rank(mesh)
+    x = torch.full((rows, 3), float(r), requires_grad=True)
+    y = gather_rows(x, mesh)
+    weights = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape)
+    (y * weights).sum().backward()
+    return r, y.detach().numpy(), x.grad.numpy()

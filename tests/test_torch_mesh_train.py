@@ -14,6 +14,14 @@ its own chunks).  A bad ``--model-axis`` raises.  And the fault this
 slice found and fixed: the training step's gradient of a parameter the
 loss does not read (qwen2-vl's token table: its batches carry
 embeddings) is zero, as ``jax.grad`` gives it, where the step raised.
+
+Last, one step on a data mesh of 2 against the reference on two host
+devices (a subprocess, ``tests/_reference_mesh.py``), within 1e-5: the
+MoE dispatch of a batch whose one row does not divide the data ranks
+(the reference sorts each data shard of the tokens alone) and
+microbatches cut from the global rows before they are shared out over
+the data ranks, as the reference cuts them, for deepseek-v2-lite's MoE
+and for a dense model.
 """
 
 import numpy as np
@@ -23,7 +31,10 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
-from _torch_spawn import run_ranks, train_worker, with_capacity  # noqa: E402
+from _reference_mesh import reference_mesh_losses  # noqa: E402
+from _torch_spawn import (gather_rows_worker,  # noqa: E402
+                          mesh_step_worker, run_ranks, train_worker,
+                          with_capacity)
 from repro import train as jtrain  # noqa: E402
 from repro.configs import get_any_config as jax_config  # noqa: E402
 from repro.configs.base import ParallelConfig as JaxPCfg  # noqa: E402
@@ -176,3 +187,105 @@ def test_unread_parameters_get_a_zero_gradient_as_in_the_reference():
     for a, b in zip(leaves(new.params), jax.tree.leaves(jnew.params)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
                                    atol=1e-5)
+
+
+# one step on a data mesh of 2 against the reference's on two host
+# devices: (arch, batch, seq, n_microbatches).  B = 1 does not divide the
+# two data ranks, so the rows are whole on each and the MoE dispatch
+# splits the 32 tokens into the reference's two data shards; with two
+# microbatches each is cut from the global rows before the ranks share it
+MESH_CASES = {
+    "moe-one-row": ("deepseek-v2-lite-16b", 1, 32, 1),
+    "moe-microbatches-b4": ("deepseek-v2-lite-16b", 4, 32, 2),
+    "moe-microbatches-b8": ("deepseek-v2-lite-16b", 8, 32, 2),
+    "dense-microbatches-b4": ("radar-lm-100m", 4, 32, 2),
+}
+# near the two packages' agreement without a mesh (1e-6): the microbatch
+# fault moved the loss by 5e-4, inside the mesh tests' rtol of 1e-4
+MESH_LOSS_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def mesh_losses(tmp_path_factory):
+    """{case: (the reference's loss, the port's on each of 2 ranks)}: the
+    reference in one subprocess, the port in one gloo group of 2, every
+    case in turn, from the reference's ``init_params(key(0))``."""
+    cases = list(MESH_CASES.values())
+    want = reference_mesh_losses(cases)
+    trees = {arch: jax.tree.map(np.asarray, JM.init_params(
+        jax_config(arch).reduced(), jax.random.key(0)))
+        for arch in {c[0] for c in cases}}
+    got = run_ranks(mesh_step_worker, 2, tmp_path_factory.mktemp("mesh"),
+                    cases, trees)
+    return {name: (want[i], [r[i] for r in got])
+            for i, name in enumerate(MESH_CASES)}
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_a_data_mesh_of_2_gives_the_references_loss(mesh_losses, case):
+    want, ranks = mesh_losses[case]
+    for rank, got in enumerate(ranks):
+        assert abs(got - want) <= MESH_LOSS_ATOL, (case, rank, got, want)
+
+
+def test_the_moe_step_without_a_mesh_is_unchanged():
+    """deepseek-v2-lite at B = 1 with no mesh: one dispatch over the 32
+    tokens, as before, within 1e-6 of the reference's loss."""
+    arch = "deepseek-v2-lite-16b"
+    jcfg, cfg = jax_config(arch).reduced(), get_any_config(arch).reduced()
+    jparams = JM.init_params(jcfg, jax.random.key(0))
+    jpcfg = JaxPCfg(compute_dtype="float32", remat="none")
+    pcfg = ParallelConfig(compute_dtype="float32", remat="none")
+    jocfg, ocfg = jtrain.AdamWConfig(), AdamWConfig()
+    jst = jtrain.TrainState(jparams,
+                            jtrain.make_adamw(jocfg, jpcfg)[0](jparams))
+    params = to_reference(from_reference(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu"))
+    st = TrainState(params, make_adamw(ocfg, pcfg)[0](params))
+    _j, jm = jtrain.make_train_step(jcfg, jocfg, jpcfg)(
+        jst, jmake_batch(jcfg, 1, 32, seed=1000))
+    _p, m = make_train_step(cfg, ocfg, pcfg)(
+        st, make_batch(cfg, 1, 32, seed=1000, device="cpu"))
+    assert abs(float(m["loss_total"]) - float(jm["loss_total"])) <= 1e-6
+
+
+def test_gather_rows_over_pod_and_data(tmp_path):
+    """The MoE's gather of the data shards' outputs at world 4 on a
+    ``(pod, data) = (2, 2)`` mesh: every rank holds the rows in data-rank
+    order (pod major, as ``batch_shardings`` splits rows), and each rank's
+    rows get the gradient summed over the four ranks, once."""
+    rows = 2
+    out = run_ranks(gather_rows_worker, 4, tmp_path, rows)
+    assert sorted(r for r, _y, _g in out) == [0, 1, 2, 3]
+    want = np.repeat(np.arange(4, dtype=np.float32), rows)[:, None] \
+        * np.ones((1, 3), np.float32)
+    weights = np.arange(want.size, dtype=np.float32).reshape(want.shape)
+    for r, y, g in out:
+        np.testing.assert_array_equal(y, want)
+        np.testing.assert_array_equal(g, 4 * weights[r * rows:(r + 1) * rows])
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_shard_drops_add_up_every_shards_dispatch(n_shards):
+    """The MoE's drop count where a call splits its tokens into data
+    shards (each rank dispatches its own): every shard's assignments past
+    its capacity, from the routing alone, as each shard's own sorted
+    dispatch counts them."""
+    from repro_torch.models import moe
+    cfg = get_any_config("deepseek-v2-lite-16b").reduced()
+    E, K, D, T = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, 64
+    gen = torch.Generator().manual_seed(n_shards)
+    p = moe.init_moe(cfg, gen, torch.float32, "cpu")
+    # skewed routing: the low experts take most assignments
+    idx = torch.stack([torch.randperm(E, generator=gen)[:K] % (E // 2)
+                       for _ in range(T)])
+    xt = torch.randn((T, D), generator=gen)
+    gates = torch.rand((T, K), generator=gen)
+    cap = moe.capacity(cfg, T // n_shards)
+    Tl = T // n_shards
+    want = sum(int(moe._dispatch_sorted(
+        xt[s * Tl:(s + 1) * Tl], gates[s * Tl:(s + 1) * Tl],
+        idx[s * Tl:(s + 1) * Tl], p, n_experts=E, cap=cap)[1])
+        for s in range(n_shards))
+    assert want > 0
+    assert int(moe._shard_drops(idx, n_shards, E, cap)) == want
