@@ -44,16 +44,20 @@ Phases, each printing its own lines:
    zero-padded to it) prefill and decode shapes and at 32 ragged ones (D
    16 to 128 in steps of 16), then at head dims no configuration has
    (40, 72, 136, 200, 256: zero columns up to the kernel's width, two
-   column groups of v above 128; 288, 320, 384, 512: S summed over
-   k-slices of 64 columns, v and o in groups of 128, decode in passes of
-   256) at ragged shapes and, from 256 up, at stablelm's B, heads and S,
-   and a decode of 16 query heads on each KV head (at D 64 and 320, and
-   at radar-lm's B and D), in float32 and bfloat16, each call on the
-   route its dtype and Sq choose; at the serve paths' shapes timed
-   beside its plain version and
+   column groups of v above 128; the prefill on the wide kernel above 192
+   in bf16 and above 128 in float32: S once per query tile over k-slices
+   of 64 columns, decode in passes of 256 above 256) at ragged shapes
+   and, from 256 up, at stablelm's B, heads and S, and a decode of 16
+   query heads on each KV head (at D 64 and 320, and at radar-lm's B and
+   D), in float32 and bfloat16, each call on the route its dtype and Sq
+   choose; at the serve paths' shapes timed beside its plain version and
    ``F.scaled_dot_product_attention``, the decode call also by
    ``torch.profiler``, with the wrapper's host time per call and the
    tensor-core instructions of the built library (``cuobjdump -sass``);
+   the wide kernel timed at stablelm's shape at 288 to 512 beside SDPA
+   and its bound, and in turns with the narrow kernel at deepseek's D 192
+   and at 256 (where it takes over), its SASS checked for serialized
+   ``wgmma``;
    ``mamba2_scan`` on each of its three routes (``chunk_tc``, the bf16
    scan on the tensor cores; ``decode``, one token from a state; ``f32``,
    the float32 scan) at zamba2's prefill shape (8 x 1024 tokens, 64 heads,
@@ -63,14 +67,15 @@ Phases, each printing its own lines:
    choose; two planted faults must fail the checks; timed beside its plain
    version (the sequential recurrence), the decode call also by
    ``torch.profiler`` with the wrapper's host time per call, and the
-   tensor-core instructions of the built library counted; the CUDA-core
-   kernel for states wider than the tensor cores hold, in float32 and
-   (``bf16_wide``) bfloat16 at P = 64, N = 192, timed, and with P tiled
-   over the grid (a state wider than a block's shared memory) and B and C
-   passed in slices of N (any N; the state in global memory where no 16
-   of its columns fit) at ragged shapes and at zamba2's B, L and H with
-   P = N = 160, P = 256, N = 192 and P = 64, N = 384 and 512, in both
-   dtypes, timed;
+   tensor-core instructions of the built library counted; the wide
+   kernel (``bf16_wide``, ``f32_wide``: tensor cores, P in tiles of 64
+   over the grid, B and C in slices of 64 columns of N, the state in
+   shared memory where its slices fit, else in global memory) for states
+   wider than the other kernels hold, at bfloat16 P = 64, N = 192, timed,
+   at ragged shapes and at zamba2's B, L and H with P = N = 160, P = 256,
+   N = 192 and P = 64, N = 384 and 512, in both dtypes, against the
+   sequential recurrence and its plain version with the same roundings,
+   timed, its SASS checked for serialized ``wgmma``;
 4. the paths, each with every kernel's launch counter set to 0 just
    before it and read just after, on a versioned archive at VCP-212's
    full width (720 azimuths x 1192 gates, its four lowest cuts and the
@@ -215,6 +220,7 @@ exits non-zero; without a CUDA device it exits non-zero before any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -1181,15 +1187,15 @@ def sdpa(q, k, v, causal: bool):
 
 FA_ROUTES = ("tc_prefill", "decode", "f32")
 L2_BYTES = 50e6                            # the H100's L2 cache
-# head dims no configuration has, checked and timed beside the paths'
-# ones: off the multiples of 16 (zero columns up to the kernel's width),
-# above 128 (two column groups of v) and above 256 (S summed over k-slices
-# of 64 columns, v and o in groups of 128; decode in passes of 256), at
-# stablelm's B, heads and S
+# head dims no configuration has, checked beside the paths' ones: off the
+# multiples of 16 (zero columns up to the kernel's width), above 128 (two
+# column groups of v), and on the wide prefill kernel (above 192 in bf16,
+# above 128 in float32: S once per query tile over k-slices of 64 columns,
+# up to 512 columns of o a block; decode in passes of 256)
 FA_WIDE_DIMS = (40, 72, 136, 200, 256, 288, 320, 384, 512)
-# the ones also checked at stablelm's full shapes: 256 and the sliced
-# widths (none is timed here: PERF.md rows 5a-5c keep their earlier
-# times)
+# the ones also checked at stablelm's B, heads and S: 256 and the widths
+# above it, which are timed there too (the wide kernel beside SDPA and its
+# bound)
 FA_FULL_DIMS = (256, 288, 320, 384, 512)
 # a decode whose group holds more than 8 query heads (sliced over the
 # grid, 8 a block): checked at these head dims and at radar-lm's B and
@@ -1204,10 +1210,11 @@ def width_note(d: int) -> str:
 
     if d <= flash_attention.SLICED_ABOVE:
         return f"kernel width {flash_attention.kernel_dim(d)}"
-    slices, groups, smem = flash_attention.wide_tiling(d)
+    slices, per_block, blocks = flash_attention.wide_tiling(d)
     passes, _cg, _gs = flash_attention.decode_tiling(d, 1)
-    return (f"{slices} k-slices and {groups} column groups a prefill, "
-            f"{smem} bytes of shared memory a block; {passes} decode passes")
+    return (f"a prefill's S over {slices} k-slices, computed {blocks} "
+            f"time(s) a query tile, {per_block} columns of o a block; "
+            f"{passes} decode passes")
 
 
 def attention_width(cfg) -> int:
@@ -1376,24 +1383,98 @@ def count_fused(label: str, traced, fmax: int) -> str:
             "kernels")
 
 
+_SASS = {}   # library path -> its SASS lines, or why there are none
+
+
+def sass_lines(lib_path):
+    """A built library's SASS as ``cuobjdump -sass`` prints it (a list of
+    lines, read once a run), or a string saying why it is not available."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    key = str(lib_path)
+    if key not in _SASS:
+        tool = shutil.which("cuobjdump")
+        if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin",
+                                                     "cuobjdump")):
+            tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+        if not tool or not Path(lib_path).exists():
+            _SASS[key] = "not available (no cuobjdump or no library)"
+        else:
+            out = subprocess.run([tool, "-sass", key], capture_output=True,
+                                 text=True, timeout=300)
+            _SASS[key] = (out.stdout.splitlines() if not out.returncode else
+                          f"not available (cuobjdump exit {out.returncode})")
+    return _SASS[key]
+
+
 def sass_counts(lib_path) -> str:
     """Tensor-core instructions in a built library's SASS, as
     ``cuobjdump -sass`` shows them."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tool = shutil.which("cuobjdump")
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin",
-                                                 "cuobjdump")):
-        tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
-    if not tool or not Path(lib_path).exists():
-        return "not available (no cuobjdump or no library)"
-    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                         text=True, timeout=300)
-    if out.returncode:
-        return f"not available (cuobjdump exit {out.returncode})"
-    lines = out.stdout.splitlines()
+    lines = sass_lines(lib_path)
+    if isinstance(lines, str):
+        return lines
     return (f"{sum('HGMMA' in ln for ln in lines)} HGMMA and "
             f"{sum('HMMA' in ln for ln in lines)} HMMA instructions")
+
+
+# the ptxas logs of the libraries built by this run, {name: log}
+BUILD_LOGS = {}
+
+
+def check_wgmma_pipelined(lib: str, fragment: str) -> str:
+    """Fail if a kernel of library ``lib`` whose mangled name holds
+    ``fragment`` has its ``wgmma`` serialized: a ptxas note C7512 or C7518
+    on it in this run's build log, or, in its SASS (``cuobjdump -sass``),
+    a ``WARPGROUP.DEPBAR`` (a wait) between most two ``HGMMA`` in a row
+    (a pipelined group issues its k-steps back to back); returns the
+    counts."""
+    from repro_torch.kernels import _cuda
+
+    for line in BUILD_LOGS.get(lib, "").splitlines():
+        if fragment in line and ("(C7512)" in line or "(C7518)" in line):
+            raise AssertionError(f"{lib}: serialized wgmma: {line.strip()}")
+    lines = sass_lines(_cuda.library_path(lib))
+    if isinstance(lines, str):
+        return "SASS " + lines
+    # per kernel: HGMMA, WARPGROUP.DEPBAR, HGMMA straight after an HGMMA
+    counts, cur, last = {}, None, None
+    for ln in lines:
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            cur, last = (name if fragment in name else None), None
+            if cur:
+                counts[cur] = [0, 0, 0]
+        elif cur and "HGMMA" in ln:
+            counts[cur][0] += 1
+            counts[cur][2] += last == "HGMMA"
+            last = "HGMMA"
+        elif cur and "WARPGROUP.DEPBAR" in ln:
+            counts[cur][1] += 1
+            last = "DEPBAR"
+    if not counts:
+        raise AssertionError(f"{lib}: no {fragment} in the SASS")
+    for name, (hgmma, waits, chained) in counts.items():
+        if hgmma == 0 or 2 * chained < hgmma:
+            raise AssertionError(f"{lib} {name}: {hgmma} HGMMA, {waits} "
+                                 f"WARPGROUP.DEPBAR, only {chained} HGMMA "
+                                 "straight after another: serialized wgmma")
+    return "; ".join(f"{name}: {h} HGMMA ({c} straight after another), {w} "
+                     "WARPGROUP.DEPBAR"
+                     for name, (h, w, c) in sorted(counts.items()))
+
+
+@contextlib.contextmanager
+def prefill_boundary(dtype, above: int):
+    """Route the prefills of ``dtype`` to the wide kernel above head dim
+    ``above`` for a while (``flash_attention.WIDE_PREFILL_ABOVE``)."""
+    from repro_torch.kernels import flash_attention
+
+    old = flash_attention.WIDE_PREFILL_ABOVE[dtype]
+    flash_attention.WIDE_PREFILL_ABOVE[dtype] = above
+    try:
+        yield
+    finally:
+        flash_attention.WIDE_PREFILL_ABOVE[dtype] = old
 
 
 def row_rel_err(got, want) -> float:
@@ -1448,7 +1529,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
     errs = {r: 0.0 for r in FA_ROUTES}
     row_errs = {r: 0.0 for r in FA_ROUTES}
 
-    def check(label, q, k, v, causal):
+    def check(label, q, k, v, causal, record=None):
         which = flash_attention.route(q)
         tol = FA_F32_TOL if q.dtype == torch.float32 else FA_BF16_TOL
         before = dict(flash_attention.route_launches)
@@ -1489,6 +1570,8 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             note += (f", row error {row:.3e} (tolerance "
                      f"{FA_BF16_ROW_RTOL})")
         errs[which] = max(errs[which], err)
+        if record is not None:
+            record[which] = max(record.get(which, 0.0), err)
         say(f"check flash_attention {label} [{which}]: max_abs_err "
             f"{err:.3e} (tolerance {tol['atol']}), bitwise stable{note}")
         return want
@@ -1590,6 +1673,7 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             check(f"head dim decode B={b} Hq={hq} Hkv={hkv} "
                   f"Skv={sq + extra} D={d} {dt}", q1.to(dtype), k.to(dtype),
                   v.to(dtype), causal)
+    full_errs = {}     # head dim -> {route: max_abs_err} at stablelm's shape
     for d in FA_FULL_DIMS:
         cache = randn(2, B_s, Hkv_s, LM_MAX_LEN, d)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1598,7 +1682,8 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
             k, v = randn(B_s, Hkv_s, S, d).to(dtype), randn(
                 B_s, Hkv_s, S, d).to(dtype)
             check(f"head dim {d} prefill {dt} B={B_s} Hq={Hq_s} "
-                  f"Hkv={Hkv_s} Sq=Skv={S}", q, k, v, True)
+                  f"Hkv={Hkv_s} Sq=Skv={S}", q, k, v, True,
+                  full_errs.setdefault(d, {}))
             if dtype == torch.bfloat16:
                 q1 = randn(B_s, Hq_s, 1, d).to(dtype)
                 ck, cv = cache[0].to(dtype), cache[1].to(dtype)
@@ -1709,10 +1794,90 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                 f"host {row['host_us']:.2f} us per call (enqueue of 1000); "
                 f"{width_note(D)}")
             rows[(which, tag)] = row
+
+    # the wide kernel: timed at stablelm's B, heads and S at the head dims
+    # above 256, beside its plain version, SDPA and its bound ---------------
+    def timed_row(which, q, k, v):
+        # calls of a millisecond or more: fewer repetitions do
+        row = {"ms": time_cuda(lambda: ops.flash_attention(q, k, v,
+                                                           mode="kernel"),
+                               reps=5, inner=5),
+               "plain_ms": time_cuda(lambda: ref.flash_attention(q, k, v),
+                                     reps=3, inner=1),
+               "library_ms": time_cuda(lambda: sdpa(q, k, v, True), reps=5,
+                                       inner=5)}
+        nbytes, nops = attention_cost(*q.shape[:2], k.shape[1], q.shape[2],
+                                      k.shape[2], q.shape[3], True,
+                                      q.element_size())
+        t_bytes = nbytes / peak_bw * 1e3
+        # three bf16 products for each float32 one on the tensor cores
+        t_ops = (3 if which == "f32" else 1) * nops / peak_tc * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["tflops"] = nops / row["ms"] / 1e9
+        return row
+
+    wide = {"tc_prefill": {}, "f32": {}}
+    for d in FA_FULL_DIMS:
+        if d <= flash_attention.SLICED_ABOVE:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            which = "f32" if dtype == torch.float32 else "tc_prefill"
+            q = randn(B_s, Hq_s, S, d).to(dtype)
+            k, v = (randn(B_s, Hkv_s, S, d).to(dtype) for _ in range(2))
+            row = dict(timed_row(which, q, k, v),
+                       max_abs_err=full_errs[d][which])
+            wide[which][f"D{d}"] = row
+            say(f"time flash_attention [{which}, wide kernel] stablelm (B="
+                f"{B_s} Hq={Hq_s} Hkv={Hkv_s} Sq=Skv={S} D={d} "
+                f"{str(dtype)[6:]}): kernel {row['ms']:.4f} ms (CUDA "
+                f"events), plain {row['plain_ms']:.4f} ms, SDPA "
+                f"{row['library_ms']:.4f} ms (kernel / SDPA "
+                f"{row['ms'] / row['library_ms']:.2f}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['tflops']:.1f} TFLOP/s; {width_note(d)}")
+            del q, k, v
+    # where the wide kernel takes over at or below 256
+    # (flash_attention.WIDE_PREFILL_ABOVE): it and the narrow kernel in
+    # turns at deepseek's prefill (D 192) and stablelm's shape at D 256
+    boundary = {"tc_prefill": {}, "f32": {}}
+    for tag, d in (("deepseek", 192), ("stablelm", 256)):
+        B, Hq, Hkv, _ = fa_shapes()[tag]
+        for dtype in (torch.bfloat16, torch.float32):
+            which = "f32" if dtype == torch.float32 else "tc_prefill"
+            q = randn(B, Hq, S, d).to(dtype)
+            k, v = (randn(B, Hkv, S, d).to(dtype) for _ in range(2))
+
+            def call():
+                return ops.flash_attention(q, k, v, mode="kernel")
+
+            ms = {"narrow": [], "wide": []}
+            for kind in ("narrow", "wide", "wide", "narrow"):
+                with prefill_boundary(dtype, 10 ** 9 if kind == "narrow"
+                                      else 0):
+                    ms[kind].append(time_cuda(call))
+            routed = ("wide" if d > flash_attention.WIDE_PREFILL_ABOVE[dtype]
+                      else "narrow")
+            row = {"narrow_ms": statistics.mean(ms["narrow"]),
+                   "wide_ms": statistics.mean(ms["wide"]),
+                   "library_ms": time_cuda(lambda: sdpa(q, k, v, True)),
+                   "routed": routed}
+            boundary[which][f"{tag}_D{d}"] = row
+            faster = "wide" if row["wide_ms"] < row["narrow_ms"] else "narrow"
+            say(f"time flash_attention [{which}] {tag} (B={B} Hq={Hq} "
+                f"Hkv={Hkv} Sq=Skv={S} D={d} {str(dtype)[6:]}), narrow and "
+                f"wide kernel in turns: narrow {ms['narrow'][0]:.4f} / "
+                f"{ms['narrow'][1]:.4f} ms, wide {ms['wide'][0]:.4f} / "
+                f"{ms['wide'][1]:.4f} ms, SDPA {row['library_ms']:.4f} ms; "
+                f"the route takes the {routed} kernel, the {faster} one is "
+                "faster here")
+            del q, k, v
     if DEV == "cuda":
-        say("sass flash_attention library (tc_prefill and f32 kernels, both "
-            "wgmma): "
+        say("sass flash_attention library (tc_prefill, f32 and wide "
+            "kernels, all wgmma): "
             + sass_counts(_cuda.library_path("flash_attention")))
+        say("sass flash_attention wide kernels, wgmma not serialized: "
+            + check_wgmma_pipelined("flash_attention", "wide_prefill_kernel"))
     say("check flash_attention: worst bf16 row errors "
         + ", ".join(f"{r} {row_errs[r]:.3e}" for r in FA_ROUTES
                     if r != "f32") + f" (tolerance {FA_BF16_ROW_RTOL})")
@@ -1743,6 +1908,11 @@ def check_flash_attention(peak_bw: float, peak_flops: float,
                            for key in ("ms", "device_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "host_us")}
+        if which in wide:
+            # the wide kernel above 256 (its launches: the paths' calls that
+            # took it) and the comparison that sets where it takes over
+            row["wide"] = dict(wide[which], launches=0)
+            row["boundary"] = boundary[which]
         out[f"flash_attention:{which}"] = row
     return out
 
@@ -1894,7 +2064,7 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
 
     errs = {r: 0.0 for r in mamba2_scan.route_launches}
 
-    def check(label, args):
+    def check(label, args, chunks=True):
         which = mamba2_scan.route(args[0], args[3].shape[-1])
         before = dict(mamba2_scan.route_launches)
         got = run(args)
@@ -1911,12 +2081,16 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
         want = ref.mamba2_scan(*args[:5], h0=args[5])
         ey, eh = held(label, got, want, args[0].dtype)
         note = ""
-        if which in ("chunk_tc", "f32"):
+        if which != "decode" and chunks:
+            # the plain version with the kernel's roundings (three parts
+            # for the sums over N on f32_wide)
+            parts = 3 if which == "f32_wide" else 2
             cy, ch = held(f"{label} vs mamba2_scan_chunks", got,
-                          ref.mamba2_scan_chunks(*args[:5], h0=args[5]),
+                          ref.mamba2_scan_chunks(*args[:5], h0=args[5],
+                                                 parts=parts),
                           args[0].dtype)
-            note = (f", against ref.mamba2_scan_chunks y {cy:.3e}, state "
-                    f"{ch:.3e}")
+            note = (f", against ref.mamba2_scan_chunks (parts={parts}) y "
+                    f"{cy:.3e}, state {ch:.3e}")
         errs[which] = max(errs[which], ey, eh)
         ytol = SSM_TOL if args[0].dtype == torch.float32 else SSM_BF16_Y_TOL
         say(f"check mamba2_scan {label} [{which}]: max_abs_err y {ey:.3e}, "
@@ -1968,26 +2142,37 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
         for dtype in (torch.float32, torch.bfloat16):
             check(f"ragged B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
                   "state", inputs(2, l, 3, p, n, dtype, True))
-    # a float32 state wider than the tensor-core kernel holds: the CUDA-core
-    # kernel, by shape (no configuration of the repo has one)
+    def wide_bounds(p, n, itemsize, pairs):
+        """(tensor-core bound, CUDA-core bound, bytes, operations) of the
+        wide kernel at zamba2's B, L and H: the products at the bf16 peak,
+        three bf16 products a float32 one as rows 6a and 6c count theirs
+        (f32_wide's six for the sums over N not counted), or as float32
+        FMAs on the CUDA cores; either beside the bytes."""
+        nbytes, nops = ssd_cost(B, L, H, p, n, itemsize, True)
+        t_bytes = nbytes / peak_bw * 1e3
+        tc = max(t_bytes, (3 if pairs else 1) * nops / peak_tc * 1e3)
+        return tc, max(t_bytes, nops / peak_flops * 1e3), nbytes, nops
+
+    # a float32 state wider than the f32 kernel holds: the wide kernel, by
+    # shape (no configuration of the repo has one)
     for l in (2, 130):
         check(f"wide B=2 L={l} H=3 P=16 N=160 float32 from a state",
               inputs(2, l, 3, 16, 160, torch.float32, True))
     # a bf16 state wider than chunk_tc holds (P or N above 128) takes the
-    # same CUDA-core kernel (bf16_wide), as does a one-token step wider
-    # than the decode kernel's N = 256: at zamba2's B, L and H with P = 64,
-    # N = 192, timed beside its plain version, and at ragged shapes
+    # wide kernel (bf16_wide), as does a one-token step wider than the
+    # decode kernel's N = 256: at zamba2's B, L and H with P = 64, N = 192,
+    # timed beside its plain version, and at ragged shapes
     args = inputs(B, L, H, 64, 192, torch.bfloat16, True)
     check(f"wide B={B} L={L} H={H} P=64 N=192 bfloat16 from a state", args)
     wide_ms = time_cuda(lambda: run(args), reps=3, inner=3)
     wide_plain = time_cuda(lambda: ref.mamba2_scan(*args[:5], h0=args[5]),
                            reps=2, inner=1)
-    nbytes, nops = ssd_cost(B, L, H, 64, 192, 2, True)
+    tc_bound, cc_bound, nbytes, nops = wide_bounds(64, 192, 2, False)
     say(f"time mamba2_scan [bf16_wide] B={B} L={L} H={H} P=64 N=192 bf16: "
         f"kernel {wide_ms:.4f} ms (CUDA events), plain {wide_plain:.4f} ms, "
-        f"bound {max(nbytes / peak_bw, nops / peak_flops) * 1e3:.4f} ms "
-        f"({nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP at "
-        f"{peak_flops / 1e12:.0f} TFLOP/s float32, the CUDA cores)")
+        f"bound {tc_bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.2f} GFLOP at {peak_tc / 1e12:.0f} TFLOP/s, the "
+        f"tensor cores; {cc_bound:.4f} ms on the CUDA cores)")
     del args
     for l, p, n, dtype in ((70, 136, 16, torch.bfloat16),
                            (130, 16, 192, torch.bfloat16),
@@ -1995,15 +2180,16 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
                            (1, 16, 320, torch.bfloat16)):
         check(f"wide B=2 L={l} H=3 P={p} N={n} {str(dtype)[6:]} from a "
               "state", inputs(2, l, 3, p, n, dtype, True))
-    # a state wider than a block's shared memory: P tiled over the grid
-    # (kernels.mamba2_scan.wide_p_tile), ragged, in both dtypes; then at
-    # zamba2's B, L and H with P = N = 160 and P = 256, N = 192, timed
-    # beside the plain version and the CUDA cores' bound
+    # P tiled over the grid (kernels.mamba2_scan.wide_p_tile), B and C in
+    # slices of N, the state in shared memory or (wider) in global memory,
+    # ragged, in both dtypes; then at zamba2's B, L and H with P = N = 160,
+    # P = 256, N = 192 and P = 64, N = 384 and 512, timed beside the plain
+    # version and the tensor-core and CUDA-core bounds
     for l, p, n in ((130, 160, 160), (70, 256, 192), (1, 40, 365),
                     (65, 33, 365), (130, 64, 384), (70, 160, 512),
                     (65, 40, 3000)):
         for dtype in (torch.float32, torch.bfloat16):
-            tile, resident = mamba2_scan.wide_tiling(p, n)
+            tile, resident = mamba2_scan.wide_tiling(p, n, dtype)
             check(f"P-tiled B=2 L={l} H=3 P={p} N={n} (tiles of {tile}, "
                   f"{mamba2_scan.n_slices(n)} N-slices, the state "
                   f"{'in shared' if resident else 'in global'} memory) "
@@ -2014,27 +2200,38 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
         for dtype in (torch.float32, torch.bfloat16):
             args = inputs(B, L, H, p, n, dtype, True)
             tag = "f32" if dtype == torch.float32 else "bf16"
+            # against the sequential recurrence only: the plain version
+            # with the kernel's roundings takes many seconds a call at
+            # these shapes (it is held at the ragged ones above)
             check(f"P-tiled B={B} L={L} H={H} P={p} N={n} {tag} from a "
-                  "state", args)
-            nbytes, nops = ssd_cost(B, L, H, p, n, args[0].element_size(),
-                                    True)
-            t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak_flops * 1e3
+                  "state", args, chunks=False)
+            tc_bound, cc_bound, nbytes, nops = wide_bounds(
+                p, n, args[0].element_size(), dtype == torch.float32)
+            t_bytes = nbytes / peak_bw * 1e3
             row = {"ms": time_cuda(lambda: run(args), reps=3, inner=3),
                    "plain_ms": time_cuda(
                        lambda: ref.mamba2_scan(*args[:5], h0=args[5]),
                        reps=2, inner=1),
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bound_ms": tc_bound,
+                   "bound_by": ("bytes" if t_bytes >= tc_bound
+                                else "operations"),
+                   "cuda_core_bound_ms": cc_bound,
                    "library_ms": None,
-                   "p_tile": mamba2_scan.wide_p_tile(p, n)}
+                   "p_tile": mamba2_scan.wide_p_tile(p, n),
+                   "resident": mamba2_scan.wide_tiling(p, n, dtype)[1]}
             tiled[(tag, f"P{p}_N{n}")] = row
             say(f"time mamba2_scan [{mamba2_scan.route(args[0], n)}] B={B} "
                 f"L={L} H={H} P={p} N={n} {tag} (tiles of {row['p_tile']} "
-                f"columns): kernel {row['ms']:.4f} ms (CUDA events), plain "
+                f"columns, the state in "
+                f"{'shared' if row['resident'] else 'global'} memory): "
+                f"kernel {row['ms']:.4f} ms (CUDA events), plain "
                 f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
-                f"{nops / 1e9:.2f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s "
-                "float32, the CUDA cores)")
+                f"{(3 if tag == 'f32' else 1) * nops / 1e9:.2f} GFLOP at "
+                f"{peak_tc / 1e12:.0f} TFLOP/s, the tensor cores), "
+                f"{row['cuda_core_bound_ms']:.4f} ms on the CUDA cores "
+                f"({nops / 1e9:.2f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s "
+                "float32)")
             del args
     # the state continues: two halves, the second from the first's state
     for dtype in (torch.float32, torch.bfloat16):
@@ -2126,8 +2323,10 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
                "of 1000)" if "host_us" in row else ""))
         timed[which] = row
     if DEV == "cuda":
-        say("sass mamba2_scan library (chunk_tc, f32 and f32_wide kernels): "
-            + sass_counts(_cuda.library_path("mamba2_scan")))
+        say("sass mamba2_scan library (chunk_tc, f32 and wide kernels, all "
+            "wgmma): " + sass_counts(_cuda.library_path("mamba2_scan")))
+        say("sass mamba2_scan wide kernels, wgmma not serialized: "
+            + check_wgmma_pipelined("mamba2_scan", "wide_scan_kernel"))
     # the JSON rows: each route at the path's shapes, and the wrapper under
     # its own name with the main path's prefill route's numbers
     out = {"mamba2_scan": dict(timed["chunk_tc"],
@@ -2135,8 +2334,8 @@ def check_mamba2_scan(peak_bw: float, peak_flops: float, peak_tc: float):
     for which in SSM_ROUTES:
         out[f"mamba2_scan:{which}"] = dict(timed[which],
                                            max_abs_err=errs[which])
-    # the P-tiled wide kernel beside the bf16 and float32 prefill routes
-    # (bf16_wide and f32_wide: no configuration of the repo takes them)
+    # the wide kernel beside the bf16 and float32 prefill routes (bf16_wide
+    # and f32_wide: no configuration of the repo takes them)
     for which, tag in (("chunk_tc", "bf16"), ("f32", "f32")):
         out[f"mamba2_scan:{which}"]["wide_p_tiled"] = {
             shape: dict(row, max_abs_err=errs[f"{tag}_wide"])
@@ -2218,8 +2417,20 @@ def reset_launches() -> None:
     for mod in mods.values():
         mod.launches = 0
     for mod in mods.values():
-        for which in getattr(mod, "route_launches", ()):
-            mod.route_launches[which] = 0
+        for counter in ("route_launches", "wide_launches"):
+            for which in getattr(mod, counter, ()):
+                getattr(mod, counter)[which] = 0
+
+
+def add_wide_launches(rows) -> None:
+    """Add the wide prefill kernel's launches since the last reset to the
+    rows of the routes that took it (a part of their launches)."""
+    from repro_torch.kernels import flash_attention
+
+    for which, n in flash_attention.wide_launches.items():
+        if n:
+            wide = rows[f"flash_attention:{which}"]["wide"]
+            wide["launches"] = wide.get("launches", 0) + n
 
 
 def read_launches():
@@ -3577,6 +3788,7 @@ def drive_serve_path(archive, rows, arch: str, tag: str, kernel_ms, *,
                     row = rows[f"{name}:f32"]
                     row["launches"] = (row.get("launches", 0)
                                        + routes[name]["f32"])
+            add_wide_launches(rows)
         if gens[impl].shape != (B, LM_NEW_TOKENS) or not all(
                 o.finished == "length" for o in out):
             raise AssertionError(f"{tag} {impl}: completions "
@@ -3698,6 +3910,7 @@ def serve_bf16(cfg, params, toks, rows, tag: str, kernel_ms, *,
         f"{routes}; peak device memory "
         f"{peak_gb:.2f} GB (max_memory_allocated){same}{moe_note}")
     add_path_launches(rows, launched, routes)
+    add_wide_launches(rows)
 
     prompt = torch.from_numpy(toks).to(DEV)
     if "mamba2_scan" in per_call:
@@ -4926,8 +5139,10 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         "device_ms is a torch.profiler time and host_us the wrapper's host "
         "time per call, where measured; deepseek is each flash_attention "
         "route at DeepSeek-V2-Lite's MLA shape (16 heads of 192), "
-        "wide_p_tiled the P-tiled wide scan beside the prefill routes of "
-        "its dtype")
+        "wide the wide prefill kernel of the route at stablelm's shape above "
+        "D 256 (launches: the route's calls that took it), boundary it and "
+        "the narrow kernel in turns at D 192 and 256, wide_p_tiled the wide "
+        "scan beside the prefill routes of its dtype")
     idle = [k for k, row in rows.items() if not row.get("launches")]
     if idle:
         raise AssertionError(f"no path launched {idle}")
@@ -4946,7 +5161,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         for key in ("routes", "device_ms", "warm_device_ms", "cold_ms",
                     "host_us", "warm_ms",
                     "cuda_core_bound_ms", "library_kernel", "deepseek",
-                    "wide_p_tiled"):
+                    "wide", "boundary", "wide_p_tiled"):
             if row.get(key) is not None:
                 out[-1][key] = row[key]
     return out
@@ -4979,6 +5194,7 @@ def main() -> int:
     # 2. build
     t = time.perf_counter()
     logs = _cuda.build()
+    BUILD_LOGS.update(logs)
     say(f"build: {len(logs)} kernel(s) compiled in parallel in "
         f"{time.perf_counter() - t:.1f} s into {_cuda.BUILD_DIR}")
     for kname, log in logs.items():

@@ -121,14 +121,18 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def add_launch(module: str, route: Optional[str] = None) -> None:
+def add_launch(module: str, route: Optional[str] = None,
+               counter: Optional[str] = None) -> None:
     """Count one launch on the kernel module ``module``'s ``launches`` (and
-    on ``route_launches[route]``).  The counters are module globals that
-    callers read and reset; the read-modify-write is under one lock, so
-    launches made from several host threads at once (a federated product's
-    fan-out) are all counted."""
+    on ``route_launches[route]``, and on the module's dict ``counter`` by
+    route where given).  The counters are module globals that callers read
+    and reset; the read-modify-write is under one lock, so launches made
+    from several host threads at once (a federated product's fan-out) are
+    all counted."""
     mod = sys.modules[module]
     with _count_lock:
         mod.launches += 1
         if route is not None:
             mod.route_launches[route] += 1
+        if counter is not None:
+            getattr(mod, counter)[route] += 1

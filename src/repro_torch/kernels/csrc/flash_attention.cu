@@ -16,8 +16,9 @@
 //     (tc_prefill: wgmma fed by TMA), first;
 //   * flash_attention_launch, the float32 prefill on the same tensor cores,
 //     each float32 operand as a bf16 hi + lo pair, after it;
-//   * flash_attention_wide_launch, both dtypes' prefill at head dims above
-//     256 (mma.sync, S summed over k-slices of D), last.
+//   * flash_attention_wide_launch, both dtypes' prefill at the widest head
+//     dims (wgmma fed by TMA, S computed once per query tile for up to 512
+//     columns of o), last.
 
 #include <cmath>
 #include <cstdint>
@@ -795,131 +796,94 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                               static_cast<cudaStream_t>(stream));
 }
 
-// --- head dims above 256: both prefill routes, S over k-slices ------------
+// --- the wide prefill: S once per query tile, wgmma fed by TMA -------------
 //
-// The prefill (Sq >= 2) of tc_prefill (bfloat16) and f32 (float32) at a
-// head dim D above 256, where a block cannot hold Q's and K's tiles over
-// all of D in shared memory.  Bound: operations, 4 * B * Hq * D flops per
-// visible pair at the bf16 tensor-core peak (three bf16 products per
-// float32 product on f32).  The design, simple before fast:
-//   * one block of 4 warps per (64-row query tile, query head and column
-//     group, batch), the longest causal tiles first; a block owns one group
-//     of at most 128 columns of v and o (ceil(D / 128) groups over the
-//     grid), and each group's blocks compute the same S in the same order,
-//     so the split is exact;
-//   * S = Q K^T is summed over D in k-slices of 64 columns: per key tile
-//     the block stages the Q slice and the K slice in shared memory (as
-//     float32, zeros past D or past the rows), adds their product to S,
-//     and moves on, so its shared memory (the two slices and one 64 x 128
-//     V tile, 68 KB) does not depend on D.  Q's slices are read again for
-//     each key tile (from L2);
-//   * the products are mma.sync m16n8k16 (bf16 operands, float32
-//     accumulators), a warp 16 query rows: on f32 every float32 operand is
-//     the bf16 pair hi = bf16(v), lo = bf16(v - hi) and every product
-//     hi.hi + hi.lo + lo.hi, as on the f32 route; on tc_prefill the bf16
-//     operands are exact and P is rounded to bf16 once, as there;
-//   * the online softmax in float32 on the S fragments (masked scores
-//     -1e30, expf), O in float32 registers, output acc / max(l, 1e-30)
-//     rounded once to the dtype; no atomics and a fixed order: the same
-//     bits from run to run.
+// The prefill (Sq >= 2) of tc_prefill (bfloat16) and f32 (float32) at the
+// head dims above 256, where the kernels above do not fit a block, and
+// from the widths where it beats them (kernels/flash_attention.py,
+// WIDE_PREFILL_ABOVE: above 192 in bf16, above 128 in float32), redesigned
+// for Hopper.  Bound: at stablelm's prefill shape (B = 8, 32/32
+// heads, Sq = Skv = 1024, causal) and D = 512, bytes in bf16 (q, k, v and o
+// 1.07 GB, 0.32 ms at 3.35 TB/s; 275 GFLOP, 0.28 ms at 989 TFLOP/s) and
+// operations in float32 (three bf16 products a product, 825 GFLOP,
+// 0.83 ms).  What the design does about it:
+//   * one block per (64-row query tile, query head, column block, batch),
+//     the longest causal tiles launched first: two consumer warpgroups and
+//     a producer warpgroup, warp-specialised: the producer gives up its
+//     registers (setmaxnreg, 40 a thread) so each consumer thread holds
+//     232.  Warpgroup g keeps NC chunks of 64 columns of o in float32
+//     accumulators (NC <= 4: 256 columns, 128 registers), so a block covers
+//     2 NC 64 columns of v and o, all of D up to 512, and S = Q K^T is
+//     computed once per query tile for all of them; above 512 the column
+//     blocks split D over the grid and each computes S again
+//     (ceil(D / 512) times in all);
+//   * S is summed over k-slices of 64 columns of D, the even slices by
+//     warpgroup 0 and the odd by warpgroup 1 (wgmma m64n64k16 from
+//     128-byte-swizzled shared memory, float32 accumulators); each adds
+//     the other's half through shared memory, a + b in both, so both hold
+//     the same S bit for bit and run the same online softmax;
+//   * every tile goes through TMA: each warpgroup has its own ring of
+//     stages (6 in bf16, 2 in float32), a stage holding one k-slice of K
+//     (and of Q) or one 64 x 64 chunk of V, with a "full" mbarrier that
+//     counts the bytes and an "empty" one its 128 threads arrive on once
+//     their products have read it.  The producer issues each key tile's
+//     slices, then its chunks of V, in the order the warpgroups take them,
+//     so a copy is in flight while the products run.  In bf16 with all of
+//     D in one block (up to 512) Q's slices are loaded once and stay in
+//     shared memory (64 KB at D 512; "QR"); in float32 (their pairs would
+//     not fit) and above 512 they come again with each key tile (from L2);
+//   * softmax in float32 as tc_prefill's (masked scores -1e30, expf, row
+//     max and sum over the 4 threads of a row); P is rounded to bf16 once
+//     into registers, the A operand of O_c += P V_c (wgmma m64n64k16, V
+//     MN-major) for each of the warpgroup's chunks; output acc / max(l,
+//     1e-30) rounded once;
+//   * float32: each float32 tile is split once in shared memory into bf16
+//     hi and lo tiles (hopper::split_tile) and every product is three bf16
+//     products, hi.hi + hi.lo + lo.hi, S's and P V's, P split in registers:
+//     the f32 route's roundings, whose plain version is
+//     kernels/ref.py:flash_attention_pairs;
+//   * the caller's D (a whole number of 16-byte units) is the tensor maps'
+//     first extent, so columns past it arrive as zeros (exact) and only D
+//     columns are stored; the maps are built over the caller's strides, so
+//     a cache prefix or a transposed view is read in place;
+//   * no atomics and a fixed order: the same bits from run to run.
 
 namespace wide {
 
-constexpr int kRows = 64;       // query rows per block, 16 a warp
-constexpr int kKeys = 64;       // keys per tile
-constexpr int kSlice = 64;      // columns of D in a k-slice
-constexpr int kGroup = 128;     // columns of v and o a block owns
-constexpr int kThreads = 128;
-constexpr int kQP = kSlice + 4;   // float row pitch of the Q and K slices
-constexpr int kVP = kGroup + 4;   // float row pitch of the V tile
-constexpr int kSmem = (2 * kRows * kQP + kKeys * kVP) * 4;
+constexpr int kRows = 64;                   // query rows a block, wgmma's M
+constexpr int kKeys = 64;                   // keys a tile
+constexpr int kW = 64;                      // columns of a k-slice, a chunk
+constexpr int kGroups = 2;                  // consumer warpgroups
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kMaxChunks = 4;               // chunks of o a warpgroup holds
+// registers a thread: the producer's and the consumers', 64512 in all
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTile = kRows * kW * 2;       // a 64 x 64 bf16 tile (bytes)
+constexpr uint32_t kSBO = 8 * 128;          // 8 rows of 128 bytes
 
-template <typename T>
-struct Vec16;   // 16 bytes of T widened to float32
-template <>
-struct Vec16<float> {
-  static constexpr int n = 4;
-  __device__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
+using namespace hopper;
+
+// Shared memory: with QR (bf16, D up to 512) Q's slices, resident; each
+// warpgroup's ring of stages (a stage holds a K slice and, without QR, a
+// Q slice, or one chunk of V, as loaded: bf16, or float32 on f32), on f32
+// each warpgroup's pair tiles (Q hi, lo, K hi, lo; V's pair takes Q's
+// place), each warpgroup's half of S (float32, 32 values a thread), the
+// mbarriers; 1024 bytes of slack to align the swizzled tiles
+template <bool PAIRS, bool QR>
+struct Layout {
+  static_assert(!(PAIRS && QR), "Q resident in bf16 only");
+  static constexpr int kIn = kRows * kW * (PAIRS ? 4 : 2);   // a tile loaded
+  static constexpr int kQ = QR ? 2 * kMaxChunks * kIn : 0;   // 8 slices
+  static constexpr int kStage = (QR ? 1 : 2) * kIn;
+  static constexpr int kRing = PAIRS ? 2 : 6;
+  static constexpr int kPairs = PAIRS ? 4 * kTile : 0;
+  static constexpr int kHalf = 32 * 128 * 4;
+  static constexpr int kBytes = 1024 + kQ +
+                                kGroups * (kRing * kStage + kPairs) +
+                                kGroups * kHalf + kGroups * kRing * 16 + 8;
+  static_assert(kBytes <= 232448, "shared memory");
 };
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
-
-// ROWS x COLS of src (row stride `stride`, the first `rows` rows and
-// `cols` columns inside the tensor) into dst (float, pitch PITCH), zeros
-// elsewhere; cols is a multiple of the 16-byte unit
-template <typename T, int ROWS, int COLS, int PITCH>
-__device__ __forceinline__ void stage(float* dst, const T* src,
-                                      int64_t stride, int rows, int cols,
-                                      int tid) {
-  constexpr int VN = Vec16<T>::n;
-  constexpr int kPerRow = COLS / VN;
-  for (int i = tid; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * VN;
-    float f[VN];
-    if (r < rows && c < cols) {
-      Vec16<T>::load(src + r * stride + c, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VN; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VN; ++e) dst[r * PITCH + c + e] = f[e];
-  }
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16) * b (16 x 8, bf16)
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the pair (hi, lo) of two float32 values on f32 (PAIRS); on tc_prefill
-// the bf16 of each (exact for a bf16 operand), lo unused
-template <bool PAIRS>
-__device__ __forceinline__ void operand(float x0, float x1, uint32_t& hi,
-                                        uint32_t& lo) {
-  if constexpr (PAIRS) {
-    hopper::split(x0, x1, hi, lo);
-  } else {
-    hi = hopper::pack_bf16(x0, x1);
-  }
-}
-
-// d += a * b over the pair terms: hi.hi, then on f32 hi.lo and lo.hi
-template <bool PAIRS>
-__device__ __forceinline__ void mma_pair(float* d, const uint32_t* ah,
-                                         const uint32_t* al, uint32_t bh0,
-                                         uint32_t bh1, uint32_t bl0,
-                                         uint32_t bl1) {
-  mma(d, ah, bh0, bh1);
-  if constexpr (PAIRS) {
-    mma(d, ah, bl0, bl1);
-    mma(d, al, bh0, bh1);
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float x0, float x1);
@@ -933,96 +897,221 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wide_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int64_t qsb,
-                    int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
-                    int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                    int64_t osb, int64_t osh, int64_t oss, int group,
-                    int n_groups, int Sq, int Skv, int D, float scale,
-                    int causal) {
+// T: the type of q, k, v and o (float: f32, as bf16 pairs; bf16:
+// tc_prefill); NC: the 64-column chunks of o each warpgroup holds; QR: Q's
+// slices loaded once and kept (bf16 with D up to 512), else they come
+// again with each key tile
+template <typename T, int NC, bool QR>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    T* __restrict__ o, int64_t osb, int64_t osh,
+                    int64_t oss, int group, int n_cb, int Sq, int Skv,
+                    int Dt, float scale, int causal) {
   constexpr bool PAIRS = sizeof(T) == 4;
-  extern __shared__ float wsm[];
-  float* qs = wsm;                  // kRows x kQP, Q's slice
-  float* ks = qs + kRows * kQP;     // kKeys x kQP, K's slice
-  float* vs = ks + kKeys * kQP;     // kKeys x kVP, V's column group
+  using Ly = Layout<PAIRS, QR>;
+  constexpr int R = Ly::kRing;
+  constexpr int kCB = kGroups * NC * kW;    // columns of v and o a block
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;   // Q's resident slices (QR)
+  const uint32_t rings = base + Ly::kQ;
+  const uint32_t pairs_s = rings + kGroups * R * Ly::kStage;
+  const uint32_t half_s = pairs_s + kGroups * Ly::kPairs;
+  const uint32_t bars = half_s + kGroups * Ly::kHalf;
+  const uint32_t q_bar = bars + 16 * kGroups * R;
+  // ring g's stage st, its full and its empty mbarrier
+  auto stage = [=](int g, int st) {
+    return rings + (g * R + st) * Ly::kStage;
+  };
+  auto full = [=](int g, int st) { return bars + 8 * (g * R + st); };
+  auto empty = [=](int g, int st) {
+    return bars + 8 * (kGroups * R + g * R + st);
+  };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t4 = lane % 4;
+  // the warp index through a shuffle, so the compiler sees it uniform
+  // across the warp (a divergent role branch would serialize the wgmmas)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y / n_groups, b = blockIdx.z, hk = h / group;
-  const int v0 = blockIdx.y % n_groups * kGroup;   // the block's columns
-  const int offset = Skv - Sq;    // query row r sits at key r + offset
+  const int h = blockIdx.y / n_cb, b = blockIdx.z, hk = h / group;
+  const int v0 = blockIdx.y % n_cb * kCB;   // the block's first column
+  // query row r sits at key position r + (Skv - Sq)
+  const int offset = Skv - Sq;
   const int kv_end = causal ? min(Skv, q0 + kRows + offset) : Skv;
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
-  const T* qb = q + b * qsb + h * qsh + q0 * qss;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
-  // the warp's rows of a tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g8;
+  const int n_slices = (Dt + kW - 1) / kW;
 
-  float acc[kGroup / 8][4];
-#pragma unroll
-  for (int j = 0; j < kGroup / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  if (tid == 0) {
+    for (int i = 0; i < kGroups * R; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (kGroups * R + i), 128);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kKeys;
-    float s[kKeys / 8][4];
+  if (warp >= kConsumers / 32) {
+    // the producer warpgroup: its first thread issues every copy, each key
+    // tile's k-slices (slice j to warpgroup j % 2), then its chunks of V
+    regs_dec<kProducerRegs>();
+    if (warp != kConsumers / 32 || lane != 0) return;
+    int issued[kGroups] = {0, 0};
+    // the next stage of ring g, once free, armed for `bytes`
+    auto arm = [&](int g, int bytes, uint32_t& dst, uint32_t& bar) {
+      const int n = issued[g]++;
+      const int st = n % R;
+      if (n >= R) mbar_wait(empty(g, st), (n / R - 1) & 1);
+      dst = stage(g, st);
+      bar = full(g, st);
+      mbar_expect_tx(bar, bytes);
+    };
+    // the 64 x 64 tile at (column c, row r, head hh) of `map` into dst
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int c,
+                    int r, int hh) {
+      tma_load(dst, map, bar, c, r, hh, b);
+      if constexpr (PAIRS)
+        tma_load(dst + kRows * 128, map, bar, c + 32, r, hh, b);
+    };
+    if constexpr (QR) {
+      // Q's slices once, for every key tile
+      mbar_expect_tx(q_bar, n_slices * Ly::kIn);
+      for (int j = 0; j < n_slices; ++j)
+        load(q_s + j * Ly::kIn, &qmap, q_bar, j * kW, q0, h);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kKeys;
+      for (int j0 = 0; j0 < n_slices; j0 += kGroups) {
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
+        for (int g = 0; g < kGroups; ++g) {
+          const int j = j0 + g;
+          if (j >= n_slices) break;
+          uint32_t dst, bar;
+          arm(g, Ly::kStage, dst, bar);
+          if constexpr (!QR) load(dst + Ly::kIn, &qmap, bar, j * kW, q0, h);
+          load(dst, &kmap, bar, j * kW, k0, hk);
+        }
+      }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-
-    // S = Q K^T, summed over the k-slices of D
-    for (int c0 = 0; c0 < D; c0 += kSlice) {
-      __syncthreads();   // every warp is done with the last slice (and V)
-      stage<T, kRows, kSlice, kQP>(qs, qb + c0, qss, Sq - q0, D - c0, tid);
-      stage<T, kKeys, kSlice, kQP>(ks, kb + k0 * kss + c0, kss, Skv - k0,
-                                   D - c0, tid);
-      if (c0 == 0)
-        stage<T, kKeys, kGroup, kVP>(vs, vb + k0 * vss + v0, vss, Skv - k0,
-                                     D - v0, tid);
-      __syncthreads();
+      for (int c = 0; c < NC; ++c) {
 #pragma unroll
-      for (int kk = 0; kk < kSlice / 16; ++kk) {
-        const int c = kk * 16 + 2 * t4;
-        const float* qr = qs + r0 * kQP + c;
-        uint32_t ah[4], al[4];
-        operand<PAIRS>(qr[0], qr[1], ah[0], al[0]);
-        operand<PAIRS>(qr[8 * kQP], qr[8 * kQP + 1], ah[1], al[1]);
-        operand<PAIRS>(qr[8], qr[9], ah[2], al[2]);
-        operand<PAIRS>(qr[8 * kQP + 8], qr[8 * kQP + 9], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j) {
-          const float* kr = ks + (8 * j + g8) * kQP + c;
-          uint32_t bh0, bl0, bh1, bl1;
-          operand<PAIRS>(kr[0], kr[1], bh0, bl0);
-          operand<PAIRS>(kr[8], kr[9], bh1, bl1);
-          mma_pair<PAIRS>(s[j], ah, al, bh0, bh1, bl0, bl1);
+        for (int g = 0; g < kGroups; ++g) {
+          uint32_t dst, bar;
+          arm(g, Ly::kIn, dst, bar);
+          load(dst, &vmap, bar, v0 + (g * NC + c) * kW, k0, hk);
         }
       }
     }
+    return;
+  }
 
-    // online softmax in float32 on the fragments: s[j][0..1] row r0,
-    // columns 8 j + 2 t4 (+ 1), s[j][2..3] row r0 + 8
-    const bool edge =
-        (causal && k0 + kKeys - 1 > q0 + offset) || k0 + kKeys > Skv;
+  // a consumer warpgroup.  Accumulator fragments: warp w (of the group)
+  // holds rows 16 w + lane / 4 (+ 8); in each 8-column block j, columns
+  // 8 j + 2 (lane % 4) (+ 1)
+  regs_inc<kConsumerRegs>();
+  const int g = warp / 4, tin = tid % 128;
+  const int r0 = (warp % 4) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const uint32_t qh_s = pairs_s + g * Ly::kPairs, ql_s = qh_s + kTile;
+  const uint32_t kh_s = ql_s + kTile, kl_s = kh_s + kTile;
+  float* mine =
+      reinterpret_cast<float*>(gbase + (half_s - base) + g * Ly::kHalf);
+  const float* theirs = reinterpret_cast<const float*>(
+      gbase + (half_s - base) + (1 - g) * Ly::kHalf);
+
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  int used = 0;   // stages taken from this warpgroup's ring
+  if constexpr (QR) mbar_wait(q_bar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // this warpgroup's half of S = Q K^T: its k-slices, 4 k16 steps each,
+    // both operands K-major
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    int prev = -1;
+    for (int j = g; j < n_slices; j += kGroups) {
+      const int st = used % R;
+      mbar_wait(full(g, st), (used / R) & 1);
+      ++used;
+      // a stage holds K's slice, then (without QR) Q's
+      const uint32_t ks = stage(g, st);
+      const uint32_t qs = QR ? q_s + j * Ly::kIn : ks + Ly::kIn;
+      if constexpr (PAIRS) {
+        // every warp is past its wait on the last products: split the
+        // slices into the pair tiles, then hand the stage back
+        bar_sync(1 + g, 128);
+        split_tile<kRows, kW, 128, 128, 128>(gbase + (qs - base),
+                                              gbase + (qh_s - base),
+                                              gbase + (ql_s - base), tin);
+        split_tile<kKeys, kW, 128, 128, 128>(gbase + (ks - base),
+                                              gbase + (kh_s - base),
+                                              gbase + (kl_s - base), tin);
+        fence_proxy_async();
+        bar_sync(1 + g, 128);
+        mbar_arrive(empty(g, st));
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kW / 16; ++kk) {
+          const uint64_t qh = make_desc(qh_s + kk * 32, 16, kSBO, 1);
+          const uint64_t kh = make_desc(kh_s + kk * 32, 16, kSBO, 1);
+          wgmma_ss_n64(s, qh, kh, 1);
+          wgmma_ss_n64(s, qh, make_desc(kl_s + kk * 32, 16, kSBO, 1), 1);
+          wgmma_ss_n64(s, make_desc(ql_s + kk * 32, 16, kSBO, 1), kh, 1);
+        }
+        wg_commit();
+        wg_wait_all();
+      } else {
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kW / 16; ++kk)
+          wgmma_ss_n64(s, make_desc(qs + kk * 32, 16, kSBO, 1),
+                       make_desc(ks + kk * 32, 16, kSBO, 1), 1);
+        wg_commit();
+        // the slice before this one is read: hand its stage back
+        wg_wait<1>();
+        if (prev >= 0) mbar_arrive(empty(g, prev));
+        prev = st;
+      }
+    }
+    wg_wait_all();
+    fence_regs(s);
+    if (prev >= 0) mbar_arrive(empty(g, prev));
+
+    // S = the two halves, a + b in both warpgroups (the same bits)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mine[i * 128 + tin] = s[i];
+    bar_sync(3, kConsumers);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] += theirs[i * 128 + tin];
+    bar_sync(4, kConsumers);
+
+    // online softmax in float32 on the fragments
+    const int k0 = t * kKeys;
+    const bool edge = (causal && k0 + kKeys - 1 > q0 + offset) ||
+                      k0 + kKeys > Skv;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
+        float x = s[4 * j + e] * scale;
         if (edge) {
           const int row = q0 + r0 + (e >> 1) * 8;
-          const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int col = k0 + 8 * j + c0 + (e & 1);
           if ((causal && row + offset < col) || col >= Skv) x = kNegInf;
         }
-        s[j][e] = x;
+        s[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
@@ -1034,12 +1123,24 @@ wide_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m_new[i] = fmaxf(m[i], mx[i]);
       alpha[i] = expf(m[i] - m_new[i]);
     }
+    // P as A fragments: [2 j] holds row r0 of column block j, [2 j + 1]
+    // row r0 + 8; k16 step kk takes [4 kk .. 4 kk + 3].  bf16: P rounded
+    // once (ph); f32: the pair ph, pl
+    uint32_t ph[16], pl[16];
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m_new[e >> 1]);
-        sum[e >> 1] += s[j][e];
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = expf(s[4 * j] - m_new[0]);
+      const float p1 = expf(s[4 * j + 1] - m_new[0]);
+      const float p2 = expf(s[4 * j + 2] - m_new[1]);
+      const float p3 = expf(s[4 * j + 3] - m_new[1]);
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      if constexpr (PAIRS) {
+        split(p0, p1, ph[2 * j], pl[2 * j]);
+        split(p2, p3, ph[2 * j + 1], pl[2 * j + 1]);
+      } else {
+        ph[2 * j] = pack_bf16(p0, p1);
+        ph[2 * j + 1] = pack_bf16(p2, p3);
       }
     }
 #pragma unroll
@@ -1050,67 +1151,162 @@ wide_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new[i];
     }
 #pragma unroll
-    for (int j = 0; j < kGroup / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[c][4 * j] *= alpha[0];
+        acc[c][4 * j + 1] *= alpha[0];
+        acc[c][4 * j + 2] *= alpha[1];
+        acc[c][4 * j + 3] *= alpha[1];
+      }
 
-    // O += P V over the tile's 4 steps of 16 keys; P's A fragment is the
-    // S fragments of key blocks 2 kk and 2 kk + 1
+    // O_c += P V_c for this warpgroup's chunks: 4 steps of 16 keys, V the
+    // MN-major B operand
+    prev = -1;
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      operand<PAIRS>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      operand<PAIRS>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      operand<PAIRS>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      operand<PAIRS>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-      const float* vr = vs + (16 * kk + 2 * t4) * kVP + g8;
+    for (int c = 0; c < NC; ++c) {
+      const int st = used % R;
+      mbar_wait(full(g, st), (used / R) & 1);
+      ++used;
+      const uint32_t vs = stage(g, st);
+      fence_regs(acc[c]);
+      if constexpr (PAIRS) {
+        bar_sync(1 + g, 128);
+        split_tile<kKeys, kW, 128, 128, 128>(gbase + (vs - base),
+                                              gbase + (qh_s - base),
+                                              gbase + (ql_s - base), tin);
+        fence_proxy_async();
+        bar_sync(1 + g, 128);
+        mbar_arrive(empty(g, st));
+        wg_fence();
 #pragma unroll
-      for (int j = 0; j < kGroup / 8; ++j) {
-        const float* vc = vr + 8 * j;
-        uint32_t bh0, bl0, bh1, bl1;
-        operand<PAIRS>(vc[0], vc[kVP], bh0, bl0);
-        operand<PAIRS>(vc[8 * kVP], vc[9 * kVP], bh1, bl1);
-        mma_pair<PAIRS>(acc[j], ph, pl, bh0, bh1, bl0, bl1);
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          const uint64_t vh = make_desc(qh_s + kk * 2048, kTile, kSBO, 1);
+          wgmma_rs_n64(acc[c], &ph[4 * kk], vh);
+          wgmma_rs_n64(acc[c], &ph[4 * kk],
+                       make_desc(ql_s + kk * 2048, kTile, kSBO, 1));
+          wgmma_rs_n64(acc[c], &pl[4 * kk], vh);
+        }
+        wg_commit();
+        wg_wait_all();
+      } else {
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wgmma_rs_n64(acc[c], &ph[4 * kk],
+                       make_desc(vs + kk * 2048, kTile, kSBO, 1));
+        wg_commit();
+        wg_wait<1>();
+        if (prev >= 0) mbar_arrive(empty(g, prev));
+        prev = st;
       }
     }
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+    if (prev >= 0) mbar_arrive(empty(g, prev));
   }
 
-  // columns v0 + 8 j + 2 t4 (+ 1) of the caller's D (even)
-  T* ob = o + b * osb + h * osh + v0;
+  // columns v0 + 64 (g NC + c) + 8 j + c0 (+ 1) of the caller's Dt (a
+  // multiple of 4)
+  T* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kGroup / 8; ++j)
-      if (v0 + 8 * j + 2 * t4 < D)
-        store2<T>(ob + row * oss + 8 * j + 2 * t4, acc[j][2 * i] / den,
-                  acc[j][2 * i + 1] / den);
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = v0 + (g * NC + c) * kW + 8 * j + c0;
+        if (col < Dt)
+          store2<T>(ob + row * oss + col, acc[c][4 * j + 2 * i] / den,
+                    acc[c][4 * j + 2 * i + 1] / den);
+      }
+  }
+}
+
+template <typename T, int NC, bool QR>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Skv, int Dt, const int64_t* st,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr bool PAIRS = sizeof(T) == 4;
+  using Ly = Layout<PAIRS, QR>;
+  constexpr int kCB = kGroups * NC * kW;
+  const int n_cb = (Dt + kCB - 1) / kCB;
+  if (static_cast<int64_t>(Hq) * n_cb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // (Dt, S, H, B) views with the caller's sequence, head and batch
+  // strides, in boxes of 64 rows of 128 bytes (64 bf16 or 32 float32
+  // values; a float32 slice is two boxes)
+  const cuuint32_t box[4] = {PAIRS ? 32u : 64u, kRows, 1, 1};
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[4] = {
+        static_cast<cuuint64_t>(Dt), static_cast<cuuint64_t>(i ? Skv : Sq),
+        static_cast<cuuint64_t>(i ? Hkv : Hq), static_cast<cuuint64_t>(B)};
+    const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
+    const bool ok =
+        PAIRS ? encode_f32(&maps[i], ptrs[i], 4, dims, strides, box)
+              : encode_bf16(&maps[i], ptrs[i], 4, dims, strides, box);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = wide_prefill_kernel<T, NC, QR>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq * n_cb, B);
+  kernel<<<grid, kThreads, Ly::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<T*>(o), st[9], st[10], st[11],
+      Hq / Hkv, n_cb, Sq, Skv, Dt, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the chunks of o a warpgroup holds at head dim D: half of D's 64-column
+// chunks, from 2 (the wrapper sends no D below 129) to kMaxChunks
+// (kernels/flash_attention.py, wide_tiling)
+inline int chunks_of(int D) {
+  const int half = ((D + kW - 1) / kW + kGroups - 1) / kGroups;
+  return half < 2 ? 2 : (half < kMaxChunks ? half : kMaxChunks);
+}
+
+// launch<T, NC, QR> with Q resident where it can be: bf16 with D up to
+// 512 (all of D in one block)
+template <typename T, int NC>
+int by_residency(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
+                 float scale, int causal, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if constexpr (kBf16 && NC < kMaxChunks) {
+    // D up to 384
+    return launch<T, NC, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                               scale, causal, s);
+  } else {
+    if (kBf16 && (D + kW - 1) / kW <= 2 * kMaxChunks)
+      return launch<T, NC, kBf16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                  scale, causal, s);
+    return launch<T, NC, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                scale, causal, s);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
-           float scale, int causal, cudaStream_t stream) {
-  const int n_groups = (D + kGroup - 1) / kGroup;
-  if (static_cast<int64_t>(Hq) * n_groups > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wide_prefill_kernel<T>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kRows - 1) / kRows, Hq * n_groups, B);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      Hq / Hkv, n_groups, Sq, Skv, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+int by_chunks(const void* q, const void* k, const void* v, void* o, int B,
+              int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
+              float scale, int causal, cudaStream_t s) {
+  switch (chunks_of(D)) {
+    case 2:
+      return by_residency<T, 2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                scale, causal, s);
+    case 3:
+      return by_residency<T, 3>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                scale, causal, s);
+    default:
+      return by_residency<T, 4>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
+                                scale, causal, s);
+  }
 }
 
 }  // namespace wide
@@ -1119,7 +1315,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // 16-byte units; the wrapper sees to it), launched on `stream`: the same
 // arguments as flash_attention_launch, then the dtype (0 = float32, 1 =
 // bfloat16).  q, k and v must be 16-byte aligned with strides of whole
-// 16-byte units and Sq >= 2.  Returns cudaGetLastError() (0 on success).
+// 16-byte units.  Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int Hq, int Hkv, int Sq, int Skv,
@@ -1132,10 +1328,10 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D % 4 == 0)
-    return wide::launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
-                               scale, causal, s);
+    return wide::by_chunks<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides,
+                                  scale, causal, s);
   if (dtype == 1 && D % 8 == 0)
-    return wide::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                       strides, scale, causal, s);
+    return wide::by_chunks<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                          strides, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

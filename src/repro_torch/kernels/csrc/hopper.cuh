@@ -164,6 +164,17 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// this warpgroup's registers a thread raised to N, or lowered to N (all
+// four warps execute it; N a multiple of 8 from 24 to 256)
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B, 3 = 32 B)
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -181,6 +192,11 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // pins accumulator registers in place across the asynchronous wgmma, so
 // the compiler neither reads them before the wait nor moves writes past
@@ -204,6 +220,16 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
   const float2 f = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - f.x, v1 - f.y);
+}
+
+// v0, v1 as three bf16 parts: hi = bf16_rn(v), then the pair of v - hi
+// (exact in float32): mid = bf16_rn(v - hi), lo = bf16_rn(v - hi - mid)
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  split(v0 - f.x, v1 - f.y, mid, lo);
 }
 
 // Byte offset of element (r, c) of a tile of ROWS rows of E-byte values,
@@ -239,6 +265,29 @@ __device__ __forceinline__ void split_tile(const unsigned char* src,
     split(v.z, v.w, h.y, l.y);
     const uint32_t o = tile_off<ROWS, HB, 2>(r, c);
     *reinterpret_cast<uint2*>(hi + o) = h;
+    *reinterpret_cast<uint2*>(lo + o) = l;
+  }
+}
+
+// split_tile's three-part form: hi, mid and lo tiles (split3)
+template <int ROWS, int COLS, int FB, int HB, int NT>
+__device__ __forceinline__ void split3_tile(const unsigned char* src,
+                                            unsigned char* hi,
+                                            unsigned char* mid,
+                                            unsigned char* lo, int tid) {
+  constexpr int kRuns = ROWS * COLS / 4;
+  static_assert(kRuns % NT == 0, "whole runs a thread");
+#pragma unroll 4
+  for (int i = tid; i < kRuns; i += NT) {
+    const int r = i / (COLS / 4), c = i % (COLS / 4) * 4;
+    const float4 v =
+        *reinterpret_cast<const float4*>(src + tile_off<ROWS, FB, 4>(r, c));
+    uint2 h, m, l;
+    split3(v.x, v.y, h.x, m.x, l.x);
+    split3(v.z, v.w, h.y, m.y, l.y);
+    const uint32_t o = tile_off<ROWS, HB, 2>(r, c);
+    *reinterpret_cast<uint2*>(hi + o) = h;
+    *reinterpret_cast<uint2*>(mid + o) = m;
     *reinterpret_cast<uint2*>(lo + o) = l;
   }
 }

@@ -12,44 +12,18 @@
 //   h_t = exp(A dt_t) h_{t-1} + dt_t x_t (x) B_t,   y_t = h_t C_t,
 // the function of the sequential recurrence, from h0.
 //
-// Three kernels live here; the wrapper (kernels/mamba2_scan.py, route)
-// picks one from the dtype, L and N (a one-token step goes to
-// csrc/mamba2_decode.cu):
-//   * mamba2_scan_tc_launch, the bfloat16 scan on the tensor cores
-//     (chunk_tc: wgmma fed by TMA), after the kernel below;
-//   * mamba2_scan_launch, the float32 scan on the same tensor cores with
-//     every operand as a bf16 hi + lo pair (N up to 128), last;
-//   * mamba2_scan_wide_launch, the scan on the CUDA cores in float32
-//     arithmetic, for float32 with N > 128 and bfloat16 with P or N > 128
-//     (below), the widths the tensor-core kernels' registers do not hold.
-//
-// --- the scan on the CUDA cores (float32 N > 128, bf16 P or N > 128) --------
-//
-// bfloat16 x, Bm and Cm are widened to float32 as they are staged in shared
-// memory, every product and the state are float32, and y is rounded to
-// bfloat16 once, at its store: the reference's arithmetic (bf16 operands,
-// float32 products and state).
-//
-// A block takes one (head, batch) and one tile of PT columns of P.  Given
-// dt, A, B and C, state row p and output column p depend on x[:, p] alone
-// (the reference's _ssd_kernel computes them so too), and every tile
-// computes the same M in the same order, so a tile's values are those of
-// the whole, bitwise.
-//
-// Any N: the B and C chunks pass through shared memory in slices of kNS
-// columns of N.  Per chunk and slice the block adds the slice's terms to
-// M = C B^T (registers, each thread its own 4 x 4 of M, in the order of n)
-// and to the C h term of y (yc in shared memory, each element its one
-// thread's, in the order of n), then updates the slice of the state,
-// which depends on that slice of B alone.  So a chunk's y and state are
-// the arithmetic of the kernel that held all of N at once, bitwise.  The
-// state tile (PT x N floats) stays in shared memory where it fits
-// ("resident"), else in hout, read and written per slice and chunk by
-// the thread that owns each element.  PT is P where it fits with the
-// state resident, else the widest tile that does, else P (or the widest
-// tile) with the state in hout: p_tile chooses, kernels/mamba2_scan.py:
-// wide_tiling mirrors it.  No atomics, a fixed order.
-//
+// Three kernels live here, all on the tensor cores (wgmma fed by TMA); the
+// wrapper (kernels/mamba2_scan.py, route) picks one from the dtype, L and N
+// (a one-token step with N up to 256 goes to csrc/mamba2_decode.cu):
+//   * mamba2_scan_tc_launch, the bfloat16 scan with P and N up to 128
+//     (chunk_tc), first;
+//   * mamba2_scan_launch, the float32 scan with N up to 128, every operand
+//     as a bf16 hi + lo pair, after it;
+//   * mamba2_scan_wide_launch, both dtypes at any P and N (bf16 with P or
+//     N above 128, float32 with N above 128, a one-token step with N above
+//     256): chunk_tc's frame with N walked in slices and the state out of
+//     registers, last.
+
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -57,372 +31,6 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
-
-namespace {
-
-constexpr int kCS = 64;          // chunk length (tokens)
-constexpr int kNS = 64;          // columns of N in a slice of B and C
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kLDM = kCS + 1;    // row pitch of M
-constexpr int kLDS = kNS + 1;    // row pitch of the B, C slices (conflict-free)
-
-// floats of shared memory for a tile of P columns and state width N: the x
-// chunk (kCS x P), the B and C slices, the C h term of y (kCS x P), M, and
-// L, dt and the state-update weights; with the state resident also its
-// tile, rows padded to N + 1
-int smem_floats(int P, int N, bool resident) {
-  return 2 * kCS * P + 2 * kCS * kLDS + kCS * kLDM + 3 * kCS +
-         (resident ? P * (N + 1) : 0);
-}
-
-constexpr int kSmemLimit = 232448;   // dynamic shared memory of a block
-
-// the widest tile of P (P itself, else a multiple of 16, the tiles then
-// evened out) that fits the block; 0 when not even 16 columns fit
-int fit_tile(int P, int N, bool resident) {
-  if (smem_floats(P, N, resident) * 4 <= kSmemLimit) return P;
-  int w = (P - 1) / 16 * 16;
-  while (w >= 16 && smem_floats(w, N, resident) * 4 > kSmemLimit) w -= 16;
-  if (w < 16) return 0;
-  const int tiles = (P + w - 1) / w;
-  return (P + tiles - 1) / tiles;
-}
-
-// columns of P a block takes, and where the state lives
-int p_tile(int P, int N, bool* resident) {
-  const int t = fit_tile(P, N, true);
-  *resident = t > 0;
-  return t > 0 ? t : fit_tile(P, N, false);
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// T: the type of x, Bm, Cm and y (float or __nv_bfloat16)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mamba2_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const T* __restrict__ Bm,
-                   const T* __restrict__ Cm, const float* __restrict__ h0,
-                   T* __restrict__ y, float* __restrict__ hout,
-                   int64_t xsb, int64_t xsl, int64_t xsh,
-                   int64_t dsb, int64_t dsl, int64_t dsh,
-                   int64_t bsb, int64_t bsl, int64_t csb, int64_t csl,
-                   int L, int H, int PF, int N, int PT, int resident) {
-  // this block's columns of P: PF's p_lo .. p_lo + P
-  const int p_lo = blockIdx.z * PT;
-  const int P = min(PT, PF - p_lo);
-  extern __shared__ float smem[];
-  float* xs = smem;                  // kCS x P
-  float* yc = xs + kCS * P;          // kCS x P, the C h term of y
-  float* bs = yc + kCS * P;          // kCS x kLDS, a slice of B
-  float* cm = bs + kCS * kLDS;       // kCS x kLDS, the slice of C
-  float* ms = cm + kCS * kLDS;       // kCS x kLDM, M
-  float* lc = ms + kCS * kLDM;       // kCS, cumulative log-decay
-  float* dts = lc + kCS;             // kCS, dt
-  float* ws = dts + kCS;             // kCS, exp(L_last - L_s) dt_s
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float a = A[h];
-  const T* xb = x + b * xsb + h * xsh + p_lo;
-  const float* db = dt + b * dsb + h * dsh;
-  const T* bb = Bm + b * bsb;
-  const T* cb = Cm + b * csb;
-  const int64_t ysl = static_cast<int64_t>(H) * PF;
-  T* yb = y + static_cast<int64_t>(b) * L * ysl + static_cast<int64_t>(h) * PF +
-          p_lo;
-  // the block's rows of the contiguous (B, H, PF, N) state
-  const int64_t hoff =
-      ((static_cast<int64_t>(b) * H + h) * PF + p_lo) * static_cast<int64_t>(N);
-  // the state tile: resident in shared memory (rows of N + 1) or in hout
-  float* hs = resident ? ms + kCS * kLDM + 3 * kCS : hout + hoff;
-  const int ldh = resident ? N + 1 : N;
-
-  for (int i = tid; i < P * N; i += kThreads)
-    hs[(i / N) * ldh + i % N] = h0 ? h0[hoff + i] : 0.f;
-
-  const int cs = min(kCS, L);
-  for (int t0 = 0; t0 < L; t0 += cs) {
-    const int len = min(cs, L - t0);   // tokens of this chunk inside L
-    __syncthreads();   // the previous chunk's x, M, y and state are done
-    for (int i = tid; i < cs * P; i += kThreads) {
-      const int s = i / P, p = i % P;
-      xs[s * P + p] = s < len ? widen(xb[(t0 + s) * xsl + p]) : 0.f;
-      yc[s * P + p] = 0.f;
-    }
-    for (int s = tid; s < cs; s += kThreads)
-      dts[s] = s < len ? db[(t0 + s) * dsl] : 0.f;
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.f;
-      for (int s = 0; s < cs; ++s) {
-        acc += a * dts[s];
-        lc[s] = acc;
-      }
-    }
-    __syncthreads();
-    const float l_last = lc[cs - 1];
-    for (int s = tid; s < cs; s += kThreads)
-      ws[s] = expf(l_last - lc[s]) * dts[s];
-    const float dl = expf(l_last);
-
-    // M[t, s] = sum_n C[t, n] B[s, n]: rows t = ty + 16 i, columns
-    // s = tx + 16 j, summed over the slices in the order of n
-    int ro[4], co[4];
-    float macc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ro[i] = min(ty + 16 * i, cs - 1) * kLDS;
-      co[i] = min(tx + 16 * i, cs - 1) * kLDS;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) macc[i][j] = 0.f;
-    }
-    for (int n0 = 0; n0 < N; n0 += kNS) {
-      const int ns = min(kNS, N - n0);
-      __syncthreads();   // the last slice's B, C and state reads are done
-      for (int i = tid; i < cs * ns; i += kThreads) {
-        const int s = i / ns, n = i % ns;
-        const bool in = s < len;
-        bs[s * kLDS + n] = in ? widen(bb[(t0 + s) * bsl + n0 + n]) : 0.f;
-        cm[s * kLDS + n] = in ? widen(cb[(t0 + s) * csl + n0 + n]) : 0.f;
-      }
-      __syncthreads();
-      if (ty < cs && tx < cs) {
-#pragma unroll 8
-        for (int n = 0; n < ns; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            cv[i] = cm[ro[i] + n];
-            bv[i] = bs[co[i] + n];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              macc[i][j] = fmaf(cv[i], bv[j], macc[i][j]);
-        }
-      }
-      // yc[t, p] += sum_n C[t, n] h[p, n] over the slice: rows
-      // t = ty + 16 i, columns p = p0 + tx + 16 j
-      if (ty < cs) {
-        int tr[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) tr[i] = min(ty + 16 * i, cs - 1);
-        for (int p0 = 0; p0 + tx < P; p0 += 64) {
-          int pc[4];
-          float st[4][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) pc[j] = min(p0 + tx + 16 * j, P - 1);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) st[i][j] = yc[tr[i] * P + pc[j]];
-#pragma unroll 8
-          for (int n = 0; n < ns; ++n) {
-            float cv[4], hv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              cv[i] = cm[tr[i] * kLDS + n];
-              hv[i] = hs[pc[i] * ldh + n0 + n];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                st[i][j] = fmaf(cv[i], hv[j], st[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int t = ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int p = p0 + tx + 16 * j;
-              if (t < cs && p < P) yc[t * P + p] = st[i][j];
-            }
-          }
-        }
-      }
-      __syncthreads();   // every read of the state slice for y is done
-
-      // h[p, n] <- exp(L_last) h[p, n] + sum_s w_s x[s, p] B[s, n] on the
-      // slice: rows p = p0 + ty + 16 i, columns n = tx + 16 j; each
-      // element is read and written by its one owning thread
-      for (int p0 = 0; p0 + ty < P; p0 += 64) {
-        for (int nn = 0; nn + tx < ns; nn += 64) {
-          int pr[4], nc[4];
-          float acc[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pr[i] = min(p0 + ty + 16 * i, P - 1);
-            nc[i] = min(nn + tx + 16 * i, ns - 1);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-          }
-#pragma unroll 4
-          for (int s = 0; s < cs; ++s) {
-            const float w = ws[s];
-            float xv[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              xv[i] = w * xs[s * P + pr[i]];
-              bv[i] = bs[s * kLDS + nc[i]];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int p = p0 + ty + 16 * i;
-            if (p >= P) continue;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int n = nn + tx + 16 * j;
-              if (n < ns) {
-                float* e = hs + p * ldh + n0 + n;
-                *e = dl * *e + acc[i][j];
-              }
-            }
-          }
-        }
-      }
-    }
-
-    // M from its sums, with the decay and dt
-    if (ty < cs && tx < cs) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = tx + 16 * j;
-          if (t < cs && s < cs)
-            ms[t * kLDM + s] =
-                s <= t ? expf(lc[t] - lc[s]) * dts[s] * macc[i][j] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // y[t, p] = sum_s M[t, s] x[s, p] + exp(L_t) yc[t, p]: rows
-    // t = ty + 16 i, columns p = p0 + tx + 16 j
-    if (ty < cs) {
-      int tr[4];
-      float el[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tr[i] = min(ty + 16 * i, cs - 1);
-        el[i] = expf(lc[tr[i]]);
-      }
-      for (int p0 = 0; p0 + tx < P; p0 += 64) {
-        int pc[4];
-        float acc[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pc[j] = min(p0 + tx + 16 * j, P - 1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-        for (int s = 0; s < cs; ++s) {
-          float mv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            mv[i] = ms[tr[i] * kLDM + s];
-            xv[i] = xs[s * P + pc[i]];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(mv[i], xv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = ty + 16 * i;
-          if (t >= len) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int p = p0 + tx + 16 * j;
-            if (p < P)
-              yb[(t0 + t) * ysl + p] =
-                  narrow<T>(acc[i][j] + el[i] * yc[t * P + p]);
-          }
-        }
-      }
-    }
-  }
-  if (!resident) return;   // the state is already in hout
-  __syncthreads();
-  for (int i = tid; i < P * N; i += kThreads)
-    hout[hoff + i] = hs[(i / N) * ldh + i % N];
-}
-
-template <typename T>
-int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, const float* h0, void* y, float* hout, int B,
-           int L, int H, int P, int N, const int64_t* st,
-           cudaStream_t stream) {
-  bool resident = false;
-  const int pt = p_tile(P, N, &resident);
-  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes =
-      smem_floats(pt, N, resident) * static_cast<int>(sizeof(float));
-  auto kernel = mamba2_scan_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(H, B, (P + pt - 1) / pt);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), h0, static_cast<T*>(y), hout,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      L, H, P, N, pt, static_cast<int>(resident));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `strides` holds 10 element strides: x's batch, sequence and head, dt's
-// batch, sequence and head, then Bm's and Cm's batch and sequence.  h0 may
-// be null (a zero start).  dtype 0: float32 x, Bm, Cm and y; 1: bfloat16
-// (the wrapper sends bfloat16 here only when P or N is above 128).
-extern "C" int mamba2_scan_wide_launch(const void* x, const void* dt,
-                                  const void* A, const void* Bm,
-                                  const void* Cm, const void* h0, void* y,
-                                  void* hout, int B, int L, int H, int P,
-                                  int N, const int64_t* strides, int dtype,
-                                  void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* af = static_cast<const float*>(A);
-  const float* h0f = static_cast<const float*>(h0);
-  float* hf = static_cast<float*>(hout);
-  if (dtype == 0)
-    return launch<float>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
-                         strides, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P,
-                                 N, strides, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 // --- bfloat16 chunk scan on the tensor cores (chunk_tc) --------------------
 //
@@ -1279,4 +887,623 @@ extern "C" int mamba2_scan_launch(const void* x, const void* dt,
                              strides, s);
   return pairs::launch<128>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
                             strides, s);
+}
+
+// --- any P and N on the tensor cores, N in slices (bf16_wide, f32_wide) ----
+//
+// The same function at the widths the kernels above do not hold in
+// registers: bfloat16 with P or N above 128, float32 with N above 128, and
+// a one-token step with N above 256 (mamba2_decode.cu's limit), any L.
+// Bound: at zamba2's B = 8, L = 1024, H = 64 with P = N = 160 from a state,
+// bytes (x and y 335.5 MB in float32, 167.8 in bf16; the states 52.4 MB);
+// the operations of the chunked form, as bf16 pairs, stay below them.
+// What the design does about it: chunk_tc's frame, and two things more.
+//   * one block per (64-column tile of P, head, batch) walks its chunks of
+//     kT = 64 tokens in order: a producer warp and a consumer warpgroup.
+//     State row p and output column p depend on x[:, p] alone, so a tile's
+//     values are those of the whole (every tile computes the same S and M
+//     in the same order) and P is tiled over the grid at any width;
+//   * N is walked in slices of kW = 64 columns.  The producer brings each
+//     chunk's x tile and dt (a ring of 2), then the chunk's B and C slices
+//     (a ring of 3 in bf16, 2 in float32), all by TMA over tensor maps on
+//     the caller's strides (rows past L, columns past P or N arrive as
+//     zeros; dt is 0 past L, so those rows neither decay nor update);
+//   * per slice, on the tensor cores with float32 accumulators:
+//       S  += C_s B_s^T            Z += C_s h_s^T      (in the order of n)
+//       h_s <- exp(L_last) h_s + (w o B_s)^T x
+//     each slice's C_s B_s^T and C_s h_s^T in fresh accumulators, added
+//     to S and Z in float32 (the tensor cores' accumulation truncates, so
+//     one accumulator over a wide N drifts);
+//     and once per chunk y = exp(L_t) Z + (M o S) x, with M, w and the
+//     exponentials as in chunk_tc.  The state slice h_s (64 n x 64 p,
+//     transposed, float32) lives in shared memory where all of N's slices
+//     fit beside the rings ("resident"), else in hout, read and written by
+//     the thread that owns each element; it is copied to shared memory as
+//     a bf16 hi + lo pair for Z, and is the accumulator of its update;
+//   * roundings as on the tensor-core routes, whose plain version is
+//     kernels/ref.py:mamba2_scan_chunks: bf16 x, B and C exact, float32
+//     ones split once per tile in shared memory, the state, M o S and
+//     w o B computed in float32 and split; every product of two pairs
+//     three bf16 products.  On float32 the operands of the two sums over
+//     N (S and C h^T: C, B and the state) and of y's (M o S) x, whose
+//     M o S grows with N, go as three bf16 parts (hi, mid, lo;
+//     hopper::split3_tile) and six products, down to 2^-18 of the product
+//     (ref.py: mamba2_scan_chunks with parts=3): a pair's 16 bits miss the
+//     float32 tolerance of 2e-4 in y once N is a few hundred (at N = 3000
+//     the pairs' plain version misses it by itself); the state update
+//     keeps the pairs of w o B and x.  float32
+//     keeps one x stage and one B and C stage, each handed back as soon as
+//     it is split, so the next copy runs under the products;
+//   * y is stored for t < L and p < P, the final state for n < N and
+//     p < P; no atomics and a fixed order: the same bits from run to run.
+
+namespace wide {
+
+constexpr int kT = 64;                      // tokens a chunk, wgmma's M
+constexpr int kW = 64;                      // columns of a P tile, N slice
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // and the producer warp
+constexpr int kTile = kT * kW * 2;          // a 64 x 64 bf16 tile (bytes)
+constexpr uint32_t kSBO = 8 * 128;          // 8 rows of 128 bytes
+constexpr int kSmemLimit = 232448;          // dynamic shared memory a block
+
+using namespace hopper;
+using tc::ex2;
+
+// Shared memory: the x stages, the B and C stages (as loaded: bf16, or
+// float32 on f32), the bf16 part tiles (h^T's pair; on f32 its three
+// parts and x's, B's and C's), dt of each x stage and each
+// consumer warp's L and dt, the mbarriers; then, resident, the state's
+// slices (float32, 32 values a thread a slice); 1024 bytes of slack to
+// align the swizzled tiles
+template <bool PAIRS>
+struct Layout {
+  static constexpr int kIn = kT * kW * (PAIRS ? 4 : 2);   // a tile loaded
+  static constexpr int kXR = PAIRS ? 1 : 2;               // x stages
+  static constexpr int kBR = PAIRS ? 1 : 3;               // B and C stages
+  static constexpr int kPairs = (PAIRS ? 12 : 2) * kTile;
+  static constexpr int kTiles = kXR * kIn + kBR * 2 * kIn + kPairs;
+  static constexpr int kFloats = kXR * kT + 4 * 2 * kT;
+  static constexpr int kFixed = kTiles + 4 * kFloats + 16 * (kXR + kBR);
+  static constexpr int kSlice = kW * kW * 4;               // a state slice
+  static int bytes(int n_slices, bool resident) {
+    return 1024 + kFixed + (resident ? n_slices * kSlice : 0);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// T: the type of x, Bm, Cm and y (float: f32_wide, as bf16 pairs; bf16:
+// bf16_wide); RES: the state's slices resident in shared memory
+template <typename T, bool RES>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_scan_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap bmap,
+                 const __grid_constant__ CUtensorMap cmap,
+                 const float* __restrict__ dt, const float* __restrict__ A,
+                 const float* __restrict__ h0, T* __restrict__ y,
+                 float* __restrict__ hout, int64_t dsb, int64_t dsl,
+                 int64_t dsh, int L, int H, int P, int N) {
+  constexpr bool PAIRS = sizeof(T) == 4;
+  using Ly = Layout<PAIRS>;
+  constexpr int XR = Ly::kXR, BR = Ly::kBR;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t bc_s = base + XR * Ly::kIn;          // stage i: B, then C
+  // the part tiles: h^T's parts 0, 1 (and 2 on f32), then on f32 x's,
+  // B's and C's three parts
+  const uint32_t h0_s = bc_s + BR * 2 * Ly::kIn, h1_s = h0_s + kTile;
+  const uint32_t h2_s = h1_s + kTile;
+  const uint32_t x0_s = h2_s + kTile, x1_s = x0_s + kTile;
+  const uint32_t x2_s = x1_s + kTile, b0_s = x2_s + kTile;
+  const uint32_t b1_s = b0_s + kTile;
+  const uint32_t b2_s = b1_s + kTile, c0_s = b2_s + kTile;
+  const uint32_t c1_s = c0_s + kTile, c2_s = c1_s + kTile;
+  float* dts = reinterpret_cast<float*>(gbase + Ly::kTiles);
+  const uint32_t bars = base + Ly::kTiles + 4 * Ly::kFloats;
+  const uint32_t xfull = bars, xempty = xfull + 8 * XR;
+  const uint32_t bfull = xempty + 8 * XR, bempty = bfull + 8 * BR;
+  float* hres = reinterpret_cast<float*>(gbase + Ly::kFixed);
+
+  // the warp index through a shuffle, so the compiler sees it uniform
+  // across the warp (a divergent role branch would serialize the wgmmas)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int p0 = blockIdx.x * kW, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (L + kT - 1) / kT;
+  const int n_slices = (N + kW - 1) / kW;
+
+  if (tid == 0) {
+    for (int i = 0; i < XR; ++i) {
+      mbar_init(xfull + 8 * i, 32);
+      mbar_init(xempty + 8 * i, kConsumers);
+    }
+    for (int i = 0; i < BR; ++i) {
+      mbar_init(bfull + 8 * i, 1);
+      mbar_init(bempty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // the producer warp: each chunk's dt by its 32 lanes and x tile by lane
+    // 0's TMA, then lane 0 brings the chunk's B and C slices
+    const float* db = dt + b * dsb + h * dsh;
+    int nb = 0;   // B and C stages filled
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % XR, t0 = c * kT;
+      if (c >= XR) mbar_wait(xempty + 8 * st, (c / XR - 1) & 1);
+      float* d = dts + st * kT;
+      for (int i = lane; i < kT; i += 32)
+        d[i] = t0 + i < L ? db[(t0 + i) * dsl] : 0.f;
+      const uint32_t bar = xfull + 8 * st;
+      if (lane != 0) {
+        mbar_arrive(bar);
+        continue;
+      }
+      const uint32_t xs = base + st * Ly::kIn;
+      mbar_expect_tx(bar, Ly::kIn);
+      tma_load(xs, &xmap, bar, p0, h, t0, b);
+      if constexpr (PAIRS)
+        tma_load(xs + kT * 128, &xmap, bar, p0 + 32, h, t0, b);
+      for (int s = 0; s < n_slices; ++s, ++nb) {
+        const int bst = nb % BR;
+        if (nb >= BR) mbar_wait(bempty + 8 * bst, (nb / BR - 1) & 1);
+        const uint32_t bs = bc_s + bst * 2 * Ly::kIn, cs = bs + Ly::kIn;
+        const uint32_t fb = bfull + 8 * bst;
+        mbar_expect_tx(fb, 2 * Ly::kIn);
+        tma_load_3d(bs, &bmap, fb, s * kW, t0, b);
+        tma_load_3d(cs, &cmap, fb, s * kW, t0, b);
+        if constexpr (PAIRS) {
+          tma_load_3d(bs + kT * 128, &bmap, fb, s * kW + 32, t0, b);
+          tma_load_3d(cs + kT * 128, &cmap, fb, s * kW + 32, t0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup.  Accumulator fragments: warp w holds rows
+  // 16 w + lane / 4 (+ 8); in each 8-column block j, columns 8 j +
+  // 2 (lane % 4) (+ 1): element 4 j + e is row r0 + 8 (e >> 1), column
+  // 8 j + c0 + (e & 1).  An A fragment of k-step kk holds the same rows
+  // and columns 16 kk + c0 (+ 1) in a[0] (row r0), a[1] (r0 + 8), and
+  // 16 kk + 8 + c0 (+ 1) in a[2], a[3].
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  // L in log2 units: exp(L_t - L_s) = exp2(L2_t - L2_s), one MUFU.EX2
+  const float a = A[h] * 1.4426950408889634f;
+  float* lw = dts + XR * kT + warp * 2 * kT;   // this warp's L
+  float* dw = lw + kT;                          // and dt
+  uint32_t bo[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      bo[i][e] = tile_off<kT, 128, 2>(c0 + e, r0 + 8 * i);
+  const int64_t hoff = (static_cast<int64_t>(b) * H + h) * P * N;
+  // element i of this thread's part of state slice s (h^T: row n, column
+  // p) in hout, and whether it is inside (n < N, p < P)
+  auto at = [=](int s, int i, bool* in) {
+    const int n = kW * s + r0 + 8 * ((i & 3) >> 1);
+    const int p = p0 + 8 * (i >> 2) + c0 + (i & 1);
+    *in = n < N && p < P;
+    return hoff + static_cast<int64_t>(p) * N + n;
+  };
+  // and its place among the resident slices
+  auto res_at = [=](int s, int i) { return (s * 32 + i) * kConsumers + tid; };
+
+  // the start, h0 or zeros, into the resident slices or into hout
+  for (int s = 0; s < n_slices; ++s)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      bool in;
+      const int64_t g = at(s, i, &in);
+      const float v = h0 != nullptr && in ? h0[g] : 0.f;
+      if constexpr (RES) {
+        hres[res_at(s, i)] = v;
+      } else if (in) {
+        hout[g] = v;
+      }
+    }
+
+  int nb = 0;   // B and C stages taken
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c % XR;
+    const uint32_t xs = base + st * Ly::kIn;
+    mbar_wait(xfull + 8 * st, (c / XR) & 1);
+
+    // L_t = sum_{u <= t} A dt_u: a scan over each half, then joined; this
+    // warp keeps L and dt in its own arrays
+    const float* d = dts + st * kT;
+    const float d0 = d[lane], d1 = d[lane + 32];
+    float v0 = a * d0, v1 = a * d1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
+      const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
+      if (lane >= off) {
+        v0 += u0;
+        v1 += u1;
+      }
+    }
+    v1 += __shfl_sync(0xffffffffu, v0, 31);
+    const float l_last = __shfl_sync(0xffffffffu, v1, 31);
+    lw[lane] = v0;
+    lw[lane + 32] = v1;
+    dw[lane] = d0;
+    dw[lane + 32] = d1;
+    __syncwarp();
+
+    // x's B operand: bf16 as loaded; float32 split once into three parts
+    // (every warp is past the last chunk's products on them), then the
+    // stage goes back
+    uint32_t xo_s = xs;
+    if constexpr (PAIRS) {
+      bar_sync(1, kConsumers);
+      split3_tile<kT, kW, 128, 128, kConsumers>(
+          gbase + (xs - base), gbase + (x0_s - base), gbase + (x1_s - base),
+          gbase + (x2_s - base), tid);
+      fence_proxy_async();
+      bar_sync(1, kConsumers);
+      mbar_arrive(xempty + 8 * st);
+      xo_s = x0_s;
+    }
+
+    // w_s at this thread's columns s = 16 kk + 8 q + c0 (+ 1)
+    float w[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = 16 * kk + 8 * (q >> 1) + c0 + (q & 1);
+        w[kk][q] = ex2(l_last - lw[s]) * dw[s];
+      }
+    const float dl = ex2(l_last);
+
+    // the chunk's S = C B^T and Z = C h^T, summed over N's slices
+    float sacc[32], yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = yacc[i] = 0.f;
+    for (int s = 0; s < n_slices; ++s, ++nb) {
+      const int bst = nb % BR;
+      const uint32_t bs = bc_s + bst * 2 * Ly::kIn, cs = bs + Ly::kIn;
+      mbar_wait(bfull + 8 * bst, (nb / BR) & 1);
+      // this slice of h^T: rows n = 64 s + r0 + 8 (e >> 1), columns p =
+      // p0 + 8 j + c0 + (e & 1)
+      float hs[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (RES) {
+          hs[i] = hres[res_at(s, i)];
+        } else {
+          bool in;
+          const int64_t g = at(s, i, &in);
+          hs[i] = in ? hout[g] : 0.f;
+        }
+      }
+      // every warp is past the last slice's products: h^T into shared
+      // memory as bf16 parts (rows n, 64 p each), a pair or, on f32, three
+      // parts, and on f32 B and C split into three parts
+      bar_sync(1, kConsumers);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float u0 = hs[4 * j + 2 * i], u1 = hs[4 * j + 2 * i + 1];
+          const uint32_t off = tile_off<kT, 128, 2>(r0 + 8 * i, 8 * j + c0);
+          uint32_t q0, q1, q2;
+          if constexpr (PAIRS) {
+            split3(u0, u1, q0, q1, q2);
+            *reinterpret_cast<uint32_t*>(gbase + (h2_s - base) + off) = q2;
+          } else {
+            split(u0, u1, q0, q1);
+          }
+          *reinterpret_cast<uint32_t*>(gbase + (h0_s - base) + off) = q0;
+          *reinterpret_cast<uint32_t*>(gbase + (h1_s - base) + off) = q1;
+        }
+      uint32_t bo_s = bs;   // B's (first part's) tile
+      if constexpr (PAIRS) {
+        split3_tile<kT, kW, 128, 128, kConsumers>(
+            gbase + (bs - base), gbase + (b0_s - base), gbase + (b1_s - base),
+            gbase + (b2_s - base), tid);
+        split3_tile<kT, kW, 128, 128, kConsumers>(
+            gbase + (cs - base), gbase + (c0_s - base), gbase + (c1_s - base),
+            gbase + (c2_s - base), tid);
+        bo_s = b0_s;
+      }
+      fence_proxy_async();
+      bar_sync(1, kConsumers);
+      if constexpr (PAIRS) mbar_arrive(bempty + 8 * bst);
+
+      // this slice's S_s = C B^T and Z_s = C h^T (C and B K-major, h^T
+      // MN-major) in fresh accumulators; on f32 the six products of three
+      // parts, part i by part j for i + j <= 2
+      float ss[32], zs[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ss[i] = zs[i] = 0.f;
+      fence_regs(ss);
+      fence_regs(zs);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kW / 16; ++kk) {
+        auto km = [=](uint32_t t) {
+          return make_desc(t + kk * 32, 16, kSBO, 1);
+        };
+        auto mn = [=](uint32_t t) {
+          return make_desc(t + kk * 2048, kTile, kSBO, 1);
+        };
+        if constexpr (PAIRS) {
+          const uint32_t cp[3] = {c0_s, c1_s, c2_s};
+          const uint32_t bp[3] = {b0_s, b1_s, b2_s};
+          const uint32_t hp[3] = {h0_s, h1_s, h2_s};
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+#pragma unroll
+            for (int j = k; j >= 0; --j) {
+              wgmma_ss_n64(ss, km(cp[k - j]), km(bp[j]), 1);
+              wgmma_ss_n64<1>(zs, km(cp[k - j]), mn(hp[j]), 1);
+            }
+        } else {
+          const uint64_t dc = km(cs);
+          wgmma_ss_n64(ss, dc, km(bs), 1);
+          wgmma_ss_n64<1>(zs, dc, mn(h0_s), 1);
+          wgmma_ss_n64<1>(zs, dc, mn(h1_s), 1);
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(ss);
+      fence_regs(zs);
+      // added to the chunk's S and Z in the order of n, in float32 rounded
+      // to nearest: the tensor cores' accumulation truncates, and all of a
+      // wide N in one accumulator drifts past the float32 tolerance
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sacc[i] += ss[i];
+        yacc[i] += zs[i];
+      }
+
+      // (w o B_s)^T as A fragments: B[s, n] with s = 16 kk +
+      // 8 (i >> 1) + c0 + e and n = r0 + 8 (i & 1), at bo[i & 1][e] +
+      // (16 kk + 8 (i >> 1)) 128 (on f32 from B's parts, summed in order)
+      uint32_t ahi[16], alo[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t row = (16 * kk + 8 * (i >> 1)) * 128;
+          float bv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t o = row + bo[i & 1][e];
+            bv[e] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                gbase + (bo_s - base) + o));
+            if constexpr (PAIRS) {
+              bv[e] += __bfloat162float(
+                  *reinterpret_cast<const __nv_bfloat16*>(
+                      gbase + (b1_s - base) + o));
+              bv[e] += __bfloat162float(
+                  *reinterpret_cast<const __nv_bfloat16*>(
+                      gbase + (b2_s - base) + o));
+            }
+          }
+          split(w[kk][2 * (i >> 1)] * bv[0], w[kk][2 * (i >> 1) + 1] * bv[1],
+                ahi[4 * kk + i], alo[4 * kk + i]);
+        }
+      // h_s <- exp(L_last) h_s + (w o B_s)^T x
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hs[i] *= dl;
+      fence_regs(hs);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = make_desc(xo_s + kk * 2048, kTile, kSBO, 1);
+        wgmma_rs_n64(hs, &ahi[4 * kk], dx);
+        if constexpr (PAIRS)
+          wgmma_rs_n64(hs, &ahi[4 * kk],
+                       make_desc(x1_s + kk * 2048, kTile, kSBO, 1));
+        wgmma_rs_n64(hs, &alo[4 * kk], dx);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(hs);
+      // B and C of this stage are read: hand it back to the producer
+      if constexpr (!PAIRS) mbar_arrive(bempty + 8 * bst);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (RES) {
+          hres[res_at(s, i)] = hs[i];
+        } else {
+          bool in;
+          const int64_t g = at(s, i, &in);
+          if (in) hout[g] = hs[i];
+        }
+      }
+    }
+
+    // y = exp(L_t) Z + (M o S) x: rows t = r0 (+ 8); M o S as A fragments,
+    // a pair (m[0], m[1]) or on f32 three parts
+    const float lt[2] = {lw[r0], lw[r0 + 8]};
+    const float el[2] = {ex2(lt[0]), ex2(lt[1])};
+    uint32_t m[PAIRS ? 3 : 2][16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = r0 + 8 * i;
+        float mv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // branch-free: above the diagonal the exponent is clamped to 0
+          // and the product masked
+          const int s = 8 * j + c0 + e;
+          const float mm = ex2(fminf(lt[i] - lw[s], 0.f)) * dw[s];
+          mv[e] = s <= t ? mm * sacc[4 * j + 2 * i + e] : 0.f;
+          yacc[4 * j + 2 * i + e] *= el[i];
+        }
+        if constexpr (PAIRS)
+          split3(mv[0], mv[1], m[0][2 * j + i], m[1][2 * j + i],
+                 m[2][2 * j + i]);
+        else
+          split(mv[0], mv[1], m[0][2 * j + i], m[1][2 * j + i]);
+      }
+    fence_regs(yacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      auto mn = [=](uint32_t t) {
+        return make_desc(t + kk * 2048, kTile, kSBO, 1);
+      };
+      if constexpr (PAIRS) {
+        // part i of M o S by part j of x for i + j <= 2
+        const uint32_t xp[3] = {x0_s, x1_s, x2_s};
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int j = k; j >= 0; --j)
+            wgmma_rs_n64(yacc, &m[k - j][4 * kk], mn(xp[j]));
+      } else {
+        wgmma_rs_n64(yacc, &m[0][4 * kk], mn(xs));
+        wgmma_rs_n64(yacc, &m[1][4 * kk], mn(xs));
+      }
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(yacc);
+    // x of this stage is read: hand it back to the producer
+    if constexpr (!PAIRS) mbar_arrive(xempty + 8 * st);
+
+    // y: a column pair at once where P is even
+    const int t0 = c * kT;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = t0 + r0 + 8 * i;
+      T* yr = y + ((static_cast<int64_t>(b) * L + t) * H + h) * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = p0 + 8 * j + c0;
+        const float u0 = yacc[4 * j + 2 * i], u1 = yacc[4 * j + 2 * i + 1];
+        if (t >= L || p >= P) continue;
+        if (P % 2 == 0) {
+          store2<T>(yr + p, u0, u1);
+        } else {
+          yr[p] = narrow<T>(u0);
+          if (p + 1 < P) yr[p + 1] = narrow<T>(u1);
+        }
+      }
+    }
+  }
+
+  if constexpr (RES) {
+    // the final state, from this thread's resident elements
+    for (int s = 0; s < n_slices; ++s)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        bool in;
+        const int64_t g = at(s, i, &in);
+        if (in) hout[g] = hres[res_at(s, i)];
+      }
+  }
+}
+
+// whether the state's slices stay in shared memory at state width N
+template <bool PAIRS>
+bool resident(int N) {
+  return Layout<PAIRS>::bytes((N + kW - 1) / kW, true) <= kSmemLimit;
+}
+
+template <typename T>
+int launch(const void* x, const float* dt, const float* A, const void* Bm,
+           const void* Cm, const float* h0, void* y, float* hout, int B,
+           int L, int H, int P, int N, const int64_t* st,
+           cudaStream_t stream) {
+  constexpr bool PAIRS = sizeof(T) == 4;
+  using Ly = Layout<PAIRS>;
+  CUtensorMap xm, bm, cm;
+  // x as (P, H, L, B) in boxes of 64 tokens x 128 bytes; Bm and Cm as (N,
+  // L, B) in boxes of 64 rows of 128 bytes (64 bf16 or 32 float32 values)
+  const cuuint32_t w = PAIRS ? 32 : 64;
+  const cuuint64_t xd[4] = {static_cast<cuuint64_t>(P),
+                            static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B)};
+  const int64_t xst[3] = {st[2], st[1], st[0]};
+  const cuuint32_t xbox[4] = {w, 1, kT, 1};
+  const cuuint64_t nd[3] = {static_cast<cuuint64_t>(N),
+                            static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B)};
+  const int64_t bst[2] = {st[7], st[6]}, cst[2] = {st[9], st[8]};
+  const cuuint32_t nbox[3] = {w, kT, 1};
+  const bool ok = PAIRS ? encode_f32(&xm, x, 4, xd, xst, xbox) &&
+                              encode_f32(&bm, Bm, 3, nd, bst, nbox) &&
+                              encode_f32(&cm, Cm, 3, nd, cst, nbox)
+                        : encode_bf16(&xm, x, 4, xd, xst, xbox) &&
+                              encode_bf16(&bm, Bm, 3, nd, bst, nbox) &&
+                              encode_bf16(&cm, Cm, 3, nd, cst, nbox);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const bool res = resident<PAIRS>(N);
+  auto kernel = res ? wide_scan_kernel<T, true> : wide_scan_kernel<T, false>;
+  const int bytes = Ly::bytes((N + kW - 1) / kW, res);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + kW - 1) / kW, H, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      xm, bm, cm, dt, A, h0, static_cast<T*>(y), hout, st[3], st[4], st[5],
+      L, H, P, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
+// Both dtypes at any P and N, launched on `stream`; returns
+// cudaGetLastError() (0 on success).  `strides` holds 10 element strides:
+// x's batch, sequence and head, dt's batch, sequence and head, then Bm's and
+// Cm's batch and sequence.  h0 may be null (a zero start).  dtype 0:
+// float32 x, Bm, Cm and y; 1: bfloat16.  x, Bm and Cm must be 16-byte
+// aligned with strides of whole 16-byte units (the wrapper sees to it).
+extern "C" int mamba2_scan_wide_launch(const void* x, const void* dt,
+                                       const void* A, const void* Bm,
+                                       const void* Cm, const void* h0,
+                                       void* y, void* hout, int B, int L,
+                                       int H, int P, int N,
+                                       const int64_t* strides, int dtype,
+                                       void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || B > 65535 ||
+      H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(A);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hf = static_cast<float*>(hout);
+  if (dtype == 0)
+    return wide::launch<float>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L, H, P, N,
+                               strides, s);
+  if (dtype == 1)
+    return wide::launch<__nv_bfloat16>(x, dtf, af, Bm, Cm, h0f, y, hf, B, L,
+                                       H, P, N, strides, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,16 +22,24 @@ Every route takes any head dim D, as the TPU kernel does.  Up to 256 a
 kernel of width :func:`kernel_dim` (a multiple of 16 up to 128, then 160,
 192, 224 or 256) reads the caller's D columns and fills the rest of its
 width with zeros, exact because a zero column adds an exact zero to every
-q.k, and stores D columns.  Above 256 both prefill routes go to
-``csrc/flash_attention.cu``'s ``flash_attention_wide_launch``, which sums
-S = QK^T over k-slices of ``WIDE_SLICE`` columns and gives each block a
-group of ``WIDE_GROUP`` columns of v and o (:func:`wide_tiling`: its
-shared memory does not depend on D), and the decode kernel walks a key
-row in passes of 256 columns, a block owning 256 columns of v and o.  The
-decode kernel holds at most ``MAX_GROUP`` query heads of a KV head in a
-block; a wider group is sliced over the grid (:func:`decode_tiling`).  A
-row that is not a whole number of 16-byte units (D not a multiple of 8 in
-bfloat16 or of 4 in float32) is first copied into zero-padded rows.
+q.k, and stores D columns.  Above ``WIDE_PREFILL_ABOVE`` (192 in
+bfloat16, 128 in float32; the wide kernel is the faster there) both
+prefill routes go to ``csrc/flash_attention.cu``'s
+``flash_attention_wide_launch`` (counted also in ``wide_launches``),
+wgmma fed by TMA: a block of two consumer warpgroups and a producer
+warpgroup computes S = QK^T once per 64-row query tile, summed over k-slices of
+``WIDE_SLICE`` columns (the even slices by one warpgroup, the odd by the
+other, the halves added through shared memory), and each warpgroup keeps
+up to ``WIDE_MAX_CHUNKS`` chunks of ``WIDE_SLICE`` columns of o in its
+accumulators, so one block covers all of D up to 512 and column blocks
+split a wider D over the grid (:func:`wide_tiling`).  float32 goes as
+bf16 pairs there too, every float32 tile split once in shared memory.  The
+decode kernel walks a key row in passes of 256 columns, a block owning 256
+columns of v and o.  The decode kernel holds at most ``MAX_GROUP`` query
+heads of a KV head in a block; a wider group is sliced over the grid
+(:func:`decode_tiling`).  A row that is not a whole number of 16-byte
+units (D not a multiple of 8 in bfloat16 or of 4 in float32) is first
+copied into zero-padded rows.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from . import _cuda
 launches = 0
 #: the same calls by route; they add up to ``launches``
 route_launches = {"decode": 0, "tc_prefill": 0, "f32": 0}
+#: those of the prefill routes' calls that launched the wide kernel
+wide_launches = {"tc_prefill": 0, "f32": 0}
 
 #: the kernel widths of one column group, on every route: the multiples of
 #: 16 up to 128 (the tensor cores' k16 step and whole 16-column sub-tiles)
@@ -57,14 +67,17 @@ HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: the kernel widths above 128: a prefill block owns half the columns of v
 #: and o (two column groups), the decode kernel's warp one key row
 WIDE_HEAD_DIMS = (160, 192, 224, 256)
-#: above this head dim the prefill routes sum S over k-slices and the
-#: decode kernel walks a key row in passes
+#: the widest head dim a kernel width serves; above it the decode kernel
+#: walks a key row in passes
 SLICED_ABOVE = 256
-WIDE_SLICE = 64        # columns of D in one k-slice of the wide prefill
-WIDE_GROUP = 128       # columns of v and o one wide prefill block owns
-#: shared memory of one wide prefill block: the Q and K slices and the V
-#: tile as float32 rows padded by 4 (csrc/flash_attention.cu, wide::kSmem)
-WIDE_SMEM_BYTES = (2 * 64 * (WIDE_SLICE + 4) + 64 * (WIDE_GROUP + 4)) * 4
+#: above this head dim a prefill goes to the wide kernel, by dtype: the
+#: widths where it beat the narrow kernel at every shape measured on the
+#: card (bf16 at D 224 and 256, not at 160 or 192; float32 at 160 to 256)
+WIDE_PREFILL_ABOVE = {torch.bfloat16: 192, torch.float32: 128}
+#: columns of D in a k-slice of the wide prefill, and of o in a chunk
+WIDE_SLICE = 64
+WIDE_GROUPS = 2        # consumer warpgroups of a wide prefill block
+WIDE_MAX_CHUNKS = 4    # chunks of o a warpgroup keeps in its accumulators
 DECODE_PASS = 256      # columns of a decode pass and of its column group
 MAX_GROUP = 8          # query heads of a KV head one decode block holds
 MAX_SPLIT = 8          # key splits: the portable thread-block cluster
@@ -114,12 +127,36 @@ def kernel_dim(d: int) -> int:
 
 
 def wide_tiling(d: int) -> Tuple[int, int, int]:
-    """``(k-slices, column groups, shared memory bytes)`` of the wide
-    prefill at head dim ``d`` (above ``SLICED_ABOVE``): S sums
-    ``ceil(d / WIDE_SLICE)`` slices, the grid holds ``ceil(d /
-    WIDE_GROUP)`` groups of v and o, and a block's shared memory is
-    ``WIDE_SMEM_BYTES`` whatever ``d``."""
-    return -(-d // WIDE_SLICE), -(-d // WIDE_GROUP), WIDE_SMEM_BYTES
+    """``(k-slices, columns of v and o a block covers, column blocks)`` of
+    the wide prefill at head dim ``d``: S sums ``ceil(d / WIDE_SLICE)``
+    k-slices; each of the ``WIDE_GROUPS`` warpgroups holds half of d's
+    chunks of ``WIDE_SLICE`` columns, from 2 to ``WIDE_MAX_CHUNKS``, so a
+    block covers all of d up to 512, and the grid's column blocks, each
+    computing S again, cover the rest."""
+    slices = -(-d // WIDE_SLICE)
+    chunks = min(WIDE_MAX_CHUNKS, max(2, -(-slices // WIDE_GROUPS)))
+    per_block = WIDE_GROUPS * chunks * WIDE_SLICE
+    return slices, per_block, -(-d // per_block)
+
+
+def wide_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Shared memory of one wide prefill block at head dim ``d``
+    (``csrc/flash_attention.cu``, ``wide::Layout``): in bf16 up to D 512
+    Q's slices resident (8 of 8 KB), then each warpgroup's ring of 6
+    stages of a K slice; above 512 stages of a Q and a K slice; in float32
+    2 stages of float32 Q and K slices beside 4 bf16 pair tiles; the two
+    warpgroups' halves of S (64 x 64 float32 each), the mbarriers, 1024
+    bytes of slack."""
+    tile = 64 * WIDE_SLICE * (4 if dtype == torch.float32 else 2)
+    if dtype == torch.float32:
+        rings, parts, resident = 2 * 2 * tile, 4 * 64 * WIDE_SLICE * 2, 0
+    else:
+        qr = d <= WIDE_GROUPS * WIDE_MAX_CHUNKS * WIDE_SLICE
+        rings, parts = 6 * (1 if qr else 2) * tile, 0
+        resident = WIDE_GROUPS * WIDE_MAX_CHUNKS * tile if qr else 0
+    stages = 2 if dtype == torch.float32 else 6
+    return (1024 + resident + WIDE_GROUPS * (rings + parts)
+            + WIDE_GROUPS * 16384 + WIDE_GROUPS * stages * 16 + 8)
 
 
 def decode_tiling(d: int, group: int) -> Tuple[int, int, int]:
@@ -241,7 +278,7 @@ def flash_attention_cuda(
     # element strides: batch, head and sequence of q, k, v and out
     strides = array.array("q", (*qs[:3], *ks[:3], *vs[:3],
                                 Hq * Sq * Dp, Sq * Dp, Dp))
-    wide = which != "decode" and Dp > SLICED_ABOVE
+    wide = which != "decode" and Dp > WIDE_PREFILL_ABOVE[dtype]
     fn = _launcher("wide" if wide else which)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Hq, Hkv)
@@ -260,5 +297,5 @@ def flash_attention_cuda(
             err = fn(*head, Sq, Skv, Dp, strides.buffer_info()[0], scale,
                      int(causal), stream)
     _cuda.check(f"flash_attention ({which})", err)
-    _cuda.add_launch(__name__, which)
+    _cuda.add_launch(__name__, which, "wide_launches" if wide else None)
     return out if Dp == D else out[..., :D].contiguous()

@@ -23,14 +23,19 @@ width N alone (:func:`route`):
   :func:`repro_torch.kernels.ref.mamba2_scan_chunks` on float32 inputs;
 * ``"f32_wide"`` (float32, N above 128) and ``"bf16_wide"`` (bfloat16, P
   or N above 128), the widths no configuration of the repo has and the
-  tensor-core kernels' registers do not hold, and a one-token step with N
-  above ``DECODE_MAX_N``: ``csrc/mamba2_scan.cu``'s
-  ``mamba2_scan_wide_launch``, float32 FMAs on the CUDA cores, bfloat16 x,
-  B and C widened to float32 and y rounded to bfloat16 once.  One kernel,
-  one route name per dtype, any P and any N: B and C pass through shared
-  memory in slices of ``N_SLICE`` columns, a block takes a tile of P's
-  columns, and the state tile stays in shared memory where it fits, else
-  in the output state in global memory (:func:`wide_tiling`).
+  tensor-core kernels above do not hold in registers, and a one-token step
+  with N above ``DECODE_MAX_N``: ``csrc/mamba2_scan.cu``'s
+  ``mamba2_scan_wide_launch``, chunk_tc's frame (wgmma fed by TMA) with
+  the roundings of the routes above but for one: in float32 the operands
+  of the sums over N (S = C B^T and C h^T) and of y's (M o S) x go as
+  three bf16 parts, since a pair misses the float32 tolerance in sums of
+  a few hundred terms.  Its plain version with the same roundings is
+  :func:`repro_torch.kernels.ref.mamba2_scan_chunks`, with ``parts=3`` in
+  float32.  One kernel, one route name per dtype, any P and any N: a
+  block takes a tile of ``N_SLICE`` columns of P, B and C pass through
+  shared memory in slices of ``N_SLICE`` columns of N, and the state's
+  slices stay in shared memory where they fit beside the rings, else in
+  the output state in global memory (:func:`wide_tiling`).
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ TC_MAX_WIDTH = 128
 #: the widest N the decode route takes (16 lanes a row, 16 values a lane)
 DECODE_MAX_N = 256
 _CHUNK = 64
-#: columns of N in one slice of the B and C chunks on the wide routes
+#: columns of N in one slice of the B and C chunks on the wide routes, and
+#: of P in one block's tile
 N_SLICE = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -91,41 +97,36 @@ def route(x: torch.Tensor, n: int = 0) -> str:
     return "f32_wide" if n > TC_MAX_WIDTH else "f32"
 
 
-def smem_bytes(P: int, N: int, resident: bool = True) -> int:
-    """Shared memory one block of the wide routes needs for a tile of P
-    columns and state width N, as ``csrc/mamba2_scan.cu``'s
-    ``smem_floats`` counts it: the x chunk and y's C h term (64 x P each),
-    the B and C slices (64 x ``N_SLICE`` each), M, three 64-vectors and,
-    with the state ``resident``, its tile (P x (N + 1)).  Without it the
-    bytes do not depend on N."""
-    return 4 * (2 * _CHUNK * P + 2 * _CHUNK * (N_SLICE + 1)
-                + _CHUNK * (_CHUNK + 1) + 3 * _CHUNK
-                + (P * (N + 1) if resident else 0))
+def smem_bytes(N: int, dtype: torch.dtype = torch.bfloat16,
+               resident: bool = True) -> int:
+    """Shared memory one block of the wide routes needs at state width N,
+    as ``csrc/mamba2_scan.cu``'s ``wide::Layout`` counts it: 1024 bytes of
+    slack, the x stages and the B and C stages of 64-token tiles as loaded
+    (two and three in bfloat16, one each in float32), the bf16 part tiles
+    (h^T's pair in bfloat16; in float32 its three parts and x's, B's and
+    C's), dt and each warp's L and dt, the mbarriers and, with the state
+    ``resident``, its ``n_slices(N)`` slices of 64 x 64 float32.  Without
+    it the bytes do not depend on N."""
+    f32 = dtype == torch.float32
+    tile = _CHUNK * N_SLICE * (4 if f32 else 2)
+    stages_x, stages_bc = (1, 1) if f32 else (2, 3)
+    parts = (12 if f32 else 2) * _CHUNK * N_SLICE * 2
+    floats = stages_x * _CHUNK + 4 * 2 * _CHUNK
+    fixed = (stages_x * tile + stages_bc * 2 * tile + parts + 4 * floats
+             + 16 * (stages_x + stages_bc))
+    return 1024 + fixed + (n_slices(N) * N_SLICE * N_SLICE * 4
+                           if resident else 0)
 
 
-def _fit_tile(P: int, N: int, resident: bool) -> int:
-    if smem_bytes(P, N, resident) <= SMEM_LIMIT:
-        return P
-    w = (P - 1) // 16 * 16
-    while w >= 16 and smem_bytes(w, N, resident) > SMEM_LIMIT:
-        w -= 16
-    if w < 16:
-        return 0
-    tiles = -(-P // w)
-    return -(-P // tiles)
-
-
-def wide_tiling(P: int, N: int) -> Tuple[int, bool]:
-    """``(columns of P one block takes, whether the state tile stays in
+def wide_tiling(P: int, N: int,
+                dtype: torch.dtype = torch.bfloat16) -> Tuple[int, bool]:
+    """``(columns of P one block takes, whether the state's slices stay in
     shared memory)`` on the wide routes, as ``csrc/mamba2_scan.cu``'s
-    ``p_tile`` chooses them: P where it fits with the state resident, else
-    the widest multiple of 16 that does, the tiles then evened out; where
-    not even 16 columns of state fit, the same choice with the state in
-    global memory, which always finds a tile."""
-    tile = _fit_tile(P, N, True)
-    if tile:
-        return tile, True
-    return _fit_tile(P, N, False), False
+    ``wide::launch`` chooses them: tiles of ``N_SLICE`` columns over the
+    grid (P itself when narrower), the state resident where
+    :func:`smem_bytes` fits ``SMEM_LIMIT``, else in global memory."""
+    return (min(P, N_SLICE),
+            smem_bytes(N, dtype, True) <= SMEM_LIMIT)
 
 
 def wide_p_tile(P: int, N: int) -> int:
@@ -239,7 +240,7 @@ def mamba2_scan_cuda(
         A = A.contiguous()
     ds = dt.stride()
     y_out = y
-    if which in ("chunk_tc", "f32"):
+    if which != "decode":
         # the TMA copies want 16-byte units: copy what is not
         x, Bmat, Cmat = (_tma_ready(x, xs), _tma_ready(Bmat, bs),
                          _tma_ready(Cmat, cs))

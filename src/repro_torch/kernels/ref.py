@@ -416,25 +416,38 @@ def _bf16_pair(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
 
 
-def _pair(v: torch.Tensor, terms: int):
+def _pair(v: torch.Tensor, terms: int, parts: int = 2):
     """``v`` as the kernels send it to the tensor cores, back in float32:
     ``(hi, lo)``, with ``lo`` None where the tensor is exact in bf16 (a
-    bf16 input) or ``terms == 1`` (hi alone)."""
+    bf16 input) or ``terms == 1`` (hi alone); with ``parts=3`` the three
+    bf16 parts ``(hi, mid, lo)``, ``mid = bf16(v - hi)``, ``lo = bf16(v -
+    hi - mid)``."""
     if v.dtype == torch.bfloat16:
         return v.to(torch.float32), None
     hi, lo = _bf16_pair(v.to(torch.float32))
-    return hi, (lo if terms == 3 else None)
+    if terms == 1:
+        return hi, None
+    if parts == 3:
+        mid, lo = _bf16_pair(v.to(torch.float32) - hi)
+        return hi, mid, lo
+    return hi, lo
 
 
 def _products(eq: str, a, b):
-    """The bf16 products of two pairs in the kernels' order: hi.hi, hi.lo,
-    lo.hi (lo.lo dropped), each an einsum in float32; a missing lo adds
-    no term."""
-    out = [torch.einsum(eq, a[0], b[0])]
-    if b[1] is not None:
-        out.append(torch.einsum(eq, a[0], b[1]))
-    if a[1] is not None:
-        out.append(torch.einsum(eq, a[1], b[0]))
+    """The bf16 products of two split operands in the kernels' order, each
+    an einsum in float32: part i of ``a`` with part j of ``b`` where i + j
+    is at most the number of parts less one (pairs: hi.hi, hi.lo, lo.hi,
+    lo.lo dropped; triples: the six products down to 2^-18 of the
+    product), by i + j, then by j from the largest; a missing part adds no
+    term."""
+    order = max(len(a), len(b)) - 1
+    out = []
+    for k in range(order + 1):
+        for j in range(k, -1, -1):
+            i = k - j
+            if (i < len(a) and j < len(b) and a[i] is not None
+                    and b[j] is not None):
+                out.append(torch.einsum(eq, a[i], b[j]))
     return out
 
 
@@ -451,7 +464,7 @@ def _sum(xs) -> torch.Tensor:
 
 
 def _rows(pair, sl: slice, dim: int):
-    """Both halves of a pair sliced along ``dim``."""
+    """Every part of a split operand sliced along ``dim``."""
     return tuple(None if t is None else t.narrow(dim, sl.start,
                                                   sl.stop - sl.start)
                  for t in pair)
@@ -526,10 +539,12 @@ def mamba2_scan_chunks(
     h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
     chunk: int = 64,
     terms: int = 3,
+    parts: int = 2,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked form with the operand roundings of the tensor-core
     kernels (``csrc/mamba2_scan.cu``: ``chunk_tc`` for bf16, the ``f32``
-    route's kernel for float32), their plain version.  Per chunk of
+    route's kernel for float32, the wide routes' kernel, with ``parts=3``
+    for float32), their plain version.  Per chunk of
     ``chunk`` tokens, L_t the cumulative sum of A dt_u:
 
         S   = C B^T
@@ -544,14 +559,23 @@ def mamba2_scan_chunks(
     is formed from B's pair, ``w (Bh + Bl)`` (the kernel keeps only the
     pair in shared memory).  h, M o S and w o B are computed in float32
     and split.  ``terms=1`` keeps hi.hi alone, the form whose error the
-    float32 tolerance must see.  Returns (y in x's dtype, the final state
-    float32), the function of :func:`mamba2_scan`.
+    float32 tolerance must see.  ``parts=3`` splits the float32 operands
+    of the two products summed over N, S = C B^T and C h^T, and of y's
+    (M o S) x (M o S grows with N) into three bf16 parts (hi, mid, lo) and
+    takes their six products down to 2^-18 of the product (hi.hi; hi.mid,
+    mid.hi; hi.lo, mid.mid, lo.hi), since a pair's 16 bits miss the
+    float32 tolerance in sums over N of a few hundred terms; w o B is then
+    formed from B's three parts, and the state update takes the pairs of
+    w o B and x (x's first two parts).  Returns (y in x's dtype, the final
+    state float32), the function of :func:`mamba2_scan`.
     """
     _check_terms(terms)
+    if parts not in (2, 3):
+        raise ValueError(f"parts must be 2 or 3, got {parts}")
     Bsz, L, H, P = x.shape
     N = Bmat.shape[-1]
     dev = x.device
-    xp, bp, cp = (_pair(t, terms) for t in (x, Bmat, Cmat))
+    xp, bp, cp = (_pair(t, terms, parts) for t in (x, Bmat, Cmat))
     dtf, Af = dt.to(torch.float32), A.to(torch.float32)
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
          if h0 is None else h0.to(torch.float32))
@@ -570,17 +594,17 @@ def mamba2_scan_chunks(
                         torch.exp(torch.where(tril[None, :, :, None], seg,
                                               0.0)) * dc[:, None, :, :],
                         0.0)
-        ms = _pair(m * s_cb[..., None], terms)               # (B, t, s, H)
-        z = _sum(_products("btn,bhpn->bthp", cc, _pair(h, terms)))
+        ms = _pair(m * s_cb[..., None], terms, parts)        # (B, t, s, H)
+        z = _sum(_products("btn,bhpn->bthp", cc, _pair(h, terms, parts)))
         y = _fold(torch.exp(lc)[..., None] * z,
                   _products("btsh,bshp->bthp", ms, xc))
         ys.append(y)
         l_last = lc[:, -1]                                   # (B, H)
         w = torch.exp(l_last[:, None, :] - lc) * dc          # (B, s, H)
-        b_eff = bc[0] if bc[1] is None else bc[0] + bc[1]
+        b_eff = _sum([t for t in bc if t is not None])
         wb = _pair(w[..., None] * b_eff[:, :, None, :], terms)
         h = _fold(torch.exp(l_last)[..., None, None] * h,
-                  _products("bshn,bshp->bhpn", wb, xc))
+                  _products("bshn,bshp->bhpn", wb, xc[:2]))
     y = (torch.cat(ys, dim=1) if ys
          else torch.zeros((Bsz, 0, H, P), dtype=torch.float32, device=dev))
     return y.to(x.dtype), h

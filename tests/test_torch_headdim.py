@@ -166,7 +166,7 @@ def test_bf16_plain_scan_wider_than_128_matches_reference(l, p, n, with_h0):
     h0 = rng.normal(size=(b, h, p, n)).astype(np.float32) if with_h0 \
         else None
     tx, tB, tC = (_t(a).to(torch.bfloat16) for a in (x, Bm, Cm))
-    # the route the card takes for these widths: the CUDA-core kernel
+    # the route the card takes for these widths: the wide kernel
     assert mamba2_scan.route(tx, n) == "bf16_wide"
     y, hN = ops.mamba2_scan(tx, _t(dt), _t(A), tB, tC,
                             h0=None if h0 is None else _t(h0))

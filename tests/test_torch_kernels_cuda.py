@@ -331,7 +331,7 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, sq, extra,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     again = ops.flash_attention(q, k, v, causal=causal)
     assert torch.equal(got, again)
-    # a head dim above 256 takes the k-sliced prefill: no refusal
+    # a head dim above 256 takes the wide prefill kernel: no refusal
     wide = _t(np.random.default_rng(264).normal(
         size=(1, 2, 3, 264)).astype(np.float32)).cuda().to(dt)
     np.testing.assert_allclose(
@@ -434,10 +434,10 @@ def test_flash_decode_kernel_at_head_dims_off_powers_of_two(group, skv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [257, 264, 320, 512])
 def test_flash_attention_refuses_head_dims_off_its_set(d):
-    # no head dim is off the set any more: above 256 the prefill routes sum
-    # S over k-slices (column groups of 128 of v and o) and the decode
-    # kernel walks a key row in passes, every route against its plain
-    # version and the same bits from run to run
+    # no head dim is off the set any more: above 256 the prefill routes
+    # take the wide kernel (S once per query tile over k-slices of D) and
+    # the decode kernel walks a key row in passes, every route against its
+    # plain version and the same bits from run to run
     _need_cuda()
     rng = np.random.default_rng(d)
     for dt in (torch.float32, torch.bfloat16):
@@ -461,15 +461,18 @@ def test_flash_attention_refuses_head_dims_off_its_set(d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [40, 72, 136, 200, 256, 8, 33, 144, 176, 250])
+@pytest.mark.parametrize("d", [40, 72, 136, 200, 256, 8, 33, 144, 176, 250,
+                               160, 192, 224, 288, 320, 512])
 @pytest.mark.parametrize("b, hq, hkv, sq, extra, causal", [
     (2, 4, 2, 100, 37, True), (1, 3, 1, 65, 0, False), (1, 2, 2, 1, 130, True),
     (2, 8, 2, 1, 1055, True)])
 def test_flash_attention_routes_at_any_head_dim(b, hq, hkv, sq, extra, causal,
                                                 d, dtype):
-    # every D up to 256 on a kernel: zero columns up to the kernel's width
+    # every D on a kernel: up to 256 zero columns up to the kernel's width
     # (a padded copy where a row is off 16-byte units), two column groups
-    # of v above 128; k and v a prefix of a longer cache
+    # of v above 128; a prefill above the dtype's WIDE_PREFILL_ABOVE (bf16
+    # 192, float32 128) on the wide kernel; k and v a prefix of a longer
+    # cache
     _need_cuda()
     rng = np.random.default_rng(sq + extra + d)
     dt = getattr(torch, dtype)
@@ -477,7 +480,11 @@ def test_flash_attention_routes_at_any_head_dim(b, hq, hkv, sq, extra, causal,
     q = _t(rng.normal(size=(b, hq, sq, d)).astype(np.float32)).cuda().to(dt)
     cache = _t(rng.normal(size=(2, b, hkv, skv + 29, d)).astype(np.float32))
     k, v = (c[:, :, :skv] for c in cache.cuda().to(dt))
+    wide = dict(flash_attention.wide_launches)
     got, which = _route_call(q, k, v, causal)
+    if which != "decode" and d > flash_attention.WIDE_PREFILL_ABOVE[dt]:
+        wide[which] += 1
+    assert flash_attention.wide_launches == wide
     assert which == flash_attention.route(q) and got.shape == q.shape
     assert got.dtype == dt and got.is_contiguous()
     want = ref.flash_attention(q, k, v, causal=causal)
@@ -686,9 +693,11 @@ def test_mamba2_scan_routes_on_card(dtype, l, p, n, with_h0, expect):
     assert y.dtype == args[0].dtype and y.shape == args[0].shape
     x, dt, A, Bm, Cm, h0 = args
     _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
-    if which == "chunk_tc":
-        _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(x, dt, A, Bm, Cm,
-                                                          h0=h0))
+    if which != "decode":
+        # the plain version with the kernel's roundings (f32_wide: three
+        # parts for the sums over N and y's product)
+        _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(
+            x, dt, A, Bm, Cm, h0=h0, parts=3 if which == "f32_wide" else 2))
     again = ops.mamba2_scan(x, dt, A, Bm, Cm, h0=h0)
     assert torch.equal(y, again[0]) and torch.equal(hN, again[1])
 
@@ -718,7 +727,7 @@ def test_mamba2_scan_routes_name_their_width_limits():
     # wider than the tensor-core and decode kernels go to the wide kernel;
     # it tiles P over the grid and passes B and C in slices of N, so no
     # width is refused: N above the old limit of 365 computes, with the
-    # state in global memory where no 16 columns of it fit a block
+    # state in global memory where its slices do not fit a block
     _need_cuda()
     rng = np.random.default_rng(9)
     args = _scan_inputs(rng, 1, 3, 1, 136, 16, torch.bfloat16, False)
@@ -734,6 +743,9 @@ def test_mamba2_scan_routes_name_their_width_limits():
                              else "bf16_wide")
             _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm,
                                                        h0=h0))
+            _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(
+                x, dt, A, Bm, Cm, h0=h0,
+                parts=3 if dtype == torch.float32 else 2))
 
 
 @pytest.mark.cuda
@@ -742,9 +754,9 @@ def test_mamba2_scan_routes_name_their_width_limits():
     (130, 160, 160, True), (70, 256, 192, False), (2, 256, 192, True),
     (1, 40, 365, True), (65, 33, 365, False)])
 def test_wide_scan_tiles_p_over_the_grid(l, p, n, with_h0, dtype):
-    # a state wider than a block's shared memory: tiles of P's columns,
-    # each the whole's values (every tile computes the same M in the same
-    # order), so the tiled scan equals the scan of each P slice
+    # tiles of 64 of P's columns over the grid, each the whole's values
+    # (every tile computes the same S and M in the same order), so the
+    # tiled scan equals the scan of each P slice
     _need_cuda()
     rng = np.random.default_rng(70 + l + p + n)
     dt_ = getattr(torch, dtype)
@@ -754,6 +766,8 @@ def test_wide_scan_tiles_p_over_the_grid(l, p, n, with_h0, dtype):
     y, hN, which = _scan_route_call(x, dt, A, Bm, Cm, h0)
     assert which == ("f32_wide" if dtype == "float32" else "bf16_wide")
     _assert_scan_close(y, hN, *ref.mamba2_scan(x, dt, A, Bm, Cm, h0=h0))
+    _assert_scan_close(y, hN, *ref.mamba2_scan_chunks(
+        x, dt, A, Bm, Cm, h0=h0, parts=3 if dtype == "float32" else 2))
     # one P slice through the kernel: its tile's values, bitwise
     cut = slice(p - 16, p)
     ys, hs = ops.mamba2_scan(x[..., cut], dt, A, Bm, Cm,

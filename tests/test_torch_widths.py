@@ -55,15 +55,28 @@ def test_kernel_dims_cover_every_head_dim_up_to_256():
         assert w in dims and w >= d
         # the narrowest width that holds d: 16s up to 128, then 32s
         assert w - d < (16 if d <= 128 else 32)
-    # above 256 no kernel width bounds D: the prefill sums S over k-slices
-    # of 64 columns and the grid holds groups of 128 columns of v and o,
-    # a block's shared memory the same at every D; the decode kernel walks
-    # a key row in passes of 256 columns, a block owning 256 of v and o
+    # above 256 no kernel width bounds D: the wide prefill sums S over
+    # k-slices of 64 columns, each of its two warpgroups holds up to four
+    # 64-column chunks of o, so a block covers all of D up to 512 and
+    # computes S once for them; column blocks over the grid cover a wider
+    # D, each computing S again.  The decode kernel walks a key row in
+    # passes of 256 columns, a block owning 256 of v and o
     for d in (257, 264, 288, 320, 384, 512, 1000, 4096):
-        slices, groups, smem = flash_attention.wide_tiling(d)
-        assert (slices, groups) == (-(-d // 64), -(-d // 128))
-        assert smem == flash_attention.WIDE_SMEM_BYTES \
-            <= mamba2_scan.SMEM_LIMIT
+        for dtype in (torch.bfloat16, torch.float32):
+            assert flash_attention.wide_smem_bytes(d, dtype) \
+                <= mamba2_scan.SMEM_LIMIT, (d, dtype)
+        slices, per_block, blocks = flash_attention.wide_tiling(d)
+        assert slices == -(-d // flash_attention.WIDE_SLICE)
+        chunks = per_block // (flash_attention.WIDE_GROUPS
+                               * flash_attention.WIDE_SLICE)
+        assert per_block == (flash_attention.WIDE_GROUPS * chunks
+                             * flash_attention.WIDE_SLICE)
+        assert 1 <= chunks <= flash_attention.WIDE_MAX_CHUNKS
+        # the column groups of the blocks span D, the last one reaching
+        # into it, and S is computed once a column block
+        assert (blocks - 1) * per_block < d <= blocks * per_block
+        assert blocks <= -(-d // per_block)
+        assert blocks == 1 if d <= 512 else per_block == 512
         passes, cgroups, gslices = flash_attention.decode_tiling(d, 16)
         assert passes == cgroups == -(-d // 256) and gslices == 2
         with pytest.raises(ValueError, match="head dim"):
@@ -154,25 +167,28 @@ def _scan_inputs(seed, b, l, h, p, n, with_h0):
     return x, dt, A, Bm, Cm, h0
 
 
-def test_wide_p_tile_fits_the_block_and_bounds_n():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_p_tile_fits_the_block_and_bounds_n(dtype):
     # any N: B and C pass through shared memory in slices of 64 columns,
-    # and the state tile leaves shared memory (for the output state in
-    # global memory) only where not even 16 of its columns fit
+    # P in tiles of at most 64 columns over the grid, and the state's
+    # slices leave shared memory (for the output state in global memory)
+    # only where they do not all fit beside the rings
     limit = mamba2_scan.SMEM_LIMIT
     for p, n in ((160, 160), (256, 192), (64, 64), (512, 300), (4, 365),
-                 (64, 384), (160, 512), (40, 3000), (16, 4096)):
-        tile, resident = mamba2_scan.wide_tiling(p, n)
-        assert 1 <= tile <= p
-        assert mamba2_scan.smem_bytes(tile, n, resident) <= limit
-        if mamba2_scan.smem_bytes(p, n) <= limit:
-            assert (tile, resident) == (p, True)  # the old one-tile launch
-    assert mamba2_scan.wide_p_tile(160, 160) == 80
-    assert mamba2_scan.wide_tiling(40, 3000) == (40, False)
-    assert mamba2_scan.wide_tiling(16, 4096) == (16, False)
+                 (64, 384), (160, 512), (40, 3000), (16, 4096), (40, 365)):
+        tile, resident = mamba2_scan.wide_tiling(p, n, dtype)
+        assert 1 <= tile <= min(p, 128) and tile == min(p, 64)
+        assert mamba2_scan.smem_bytes(n, dtype, resident) <= limit
+        assert resident == (mamba2_scan.smem_bytes(n, dtype) <= limit)
+    assert mamba2_scan.wide_p_tile(160, 160) == 64
+    assert mamba2_scan.wide_tiling(40, 3000, dtype) == (40, False)
+    assert mamba2_scan.wide_tiling(16, 4096, dtype) == (16, False)
+    # the state of zamba2-like widths stays in shared memory
+    assert mamba2_scan.wide_tiling(160, 160, dtype) == (64, True)
     assert [mamba2_scan.n_slices(n) for n in (64, 365, 384, 512)] == [
         1, 6, 6, 8]
     # without the resident state the bytes do not depend on N
-    assert len({mamba2_scan.smem_bytes(16, n, False)
+    assert len({mamba2_scan.smem_bytes(n, dtype, False)
                 for n in (1, 365, 366, 4096, 10 ** 5)}) == 1
     assert not hasattr(mamba2_scan, "WIDE_MAX_N")
 
@@ -204,8 +220,8 @@ def test_p_tiled_scan_equals_the_whole(l, p, n, with_h0):
     tile = mamba2_scan.wide_p_tile(p, n)
     assert 0 < tile <= p
     if tile == p:
-        # the state of all of P fits one block now that B and C pass in
-        # slices (P = 40, N = 365); the identity is checked on 16 columns
+        # P = 40 is one tile of the kernel; the identity is checked on 16
+        # columns
         tile = 16
     ys, hs = [], []
     for p0 in range(0, p, tile):
@@ -282,3 +298,82 @@ def test_plain_scan_above_365_matches_the_reference(l, p, n, with_h0):
     for yw, hw in wants:
         np.testing.assert_allclose(y.numpy(), np.asarray(yw), **F32_TOL)
         np.testing.assert_allclose(hN.numpy(), np.asarray(hw), **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the wide scan's roundings: the chunked form at P or N above 128
+# ---------------------------------------------------------------------------
+
+SSM_BF16_Y_TOL = dict(rtol=1e-2, atol=1e-2)   # chip_smoke.py, bf16 y
+WIDE_SCANS = [(160, 160), (256, 192), (64, 384), (40, 365)]
+
+
+def _wide_chunks(inp, dtype, terms=3, parts=2):
+    """``ref.mamba2_scan_chunks`` (chunks of 64, the wide kernel's
+    roundings: ``parts=3`` in float32) on x, B and C in ``dtype``; also the
+    float32 values the reference is given (bf16 inputs are exact in
+    float32)."""
+    x, dt, A, Bm, Cm, h0 = inp
+    tx, tB, tC = (_t(a).to(dtype) for a in (x, Bm, Cm))
+    y, hN = ref.mamba2_scan_chunks(tx, _t(dt), _t(A), tB, tC,
+                                   h0=None if h0 is None else _t(h0),
+                                   chunk=64, terms=terms, parts=parts)
+    vals = [a.float().numpy() for a in (tx, tB, tC)]
+    return y, hN, (vals[0], dt, A, vals[1], vals[2], h0)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype, parts", [(torch.bfloat16, 2),
+                                          (torch.float32, 2),
+                                          (torch.float32, 3)])
+@pytest.mark.parametrize("p, n", WIDE_SCANS)
+def test_chunked_scan_at_wide_widths_matches_reference_and_pallas(
+        p, n, dtype, parts, with_h0):
+    # the plain versions of the tensor-core roundings at the wide widths
+    # (pairs; bf16_wide's), and f32_wide's three-part form: y at 2e-4 in
+    # float32 (tests/test_kernels.py:330-331) and at 1e-2 in bf16 (y
+    # rounded once to bf16), the float32 state at 2e-4 in both, against
+    # the reference's sequential scan and its Pallas kernel in interpret
+    # mode
+    inp = _scan_inputs(p + n + with_h0, 1, 70, 2, p, n, with_h0)
+    y, hN, vals = _wide_chunks(inp, dtype, parts=parts)
+    assert y.dtype == dtype and tuple(y.shape) == (1, 70, 2, p)
+    assert hN.dtype == torch.float32 and tuple(hN.shape) == (1, 2, p, n)
+    ytol = F32_TOL if dtype == torch.float32 else SSM_BF16_Y_TOL
+    wants = [jax_ref.mamba2_scan(*vals[:5], h0=vals[5])]
+    if not with_h0:
+        wants.append(mamba2_scan_pallas(*vals[:5], cs=64, interpret=True))
+    for want_y, want_h in wants:
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y),
+                                   **ytol)
+        np.testing.assert_allclose(hN.numpy(), np.asarray(want_h),
+                                   **F32_TOL)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("p, n", WIDE_SCANS)
+def test_chunked_scan_at_wide_widths_one_term_fails_the_tolerance(p, n,
+                                                                  parts):
+    # hi.hi alone must miss the float32 tolerance, so it sees what the
+    # other parts add
+    inp = _scan_inputs(p + n, 1, 70, 2, p, n, True)
+    y, _, vals = _wide_chunks(inp, torch.float32, terms=1, parts=parts)
+    want_y, _ = jax_ref.mamba2_scan(*vals[:5], h0=vals[5])
+    assert not np.allclose(y.numpy(), np.asarray(want_y), **F32_TOL)
+
+
+def test_three_parts_hold_the_float32_tolerance_where_pairs_miss_it():
+    # a sum of 3000 terms over N: pairs (16 bits) miss 2e-4 in y, f32_wide's
+    # three parts hold it; the state sums over 64 tokens and holds either way
+    inp = _scan_inputs(3000, 1, 130, 2, 16, 3000, True)
+    want_y, want_h = jax_ref.mamba2_scan(*inp[:5], h0=inp[5])
+    got = {parts: _wide_chunks(inp, torch.float32, parts=parts)[:2]
+           for parts in (2, 3)}
+    assert not np.allclose(got[2][0].numpy(), np.asarray(want_y), **F32_TOL)
+    np.testing.assert_allclose(got[3][0].numpy(), np.asarray(want_y),
+                               **F32_TOL)
+    for parts in (2, 3):
+        np.testing.assert_allclose(got[parts][1].numpy(), np.asarray(want_h),
+                                   **F32_TOL)
+    with pytest.raises(ValueError, match="parts"):
+        ref.mamba2_scan_chunks(*(_t(a) for a in inp[:5]), parts=4)

@@ -22,7 +22,10 @@ runs the two wrappers of ``--kernel`` in turns (this, other, other, this;
   ``--dtype`` (bfloat16 by default, or float32: the ``f32`` routes):
   ``flash_attention`` at radar-lm-100m's (one query on a 1056-key prefix
   of a 2048-long cache; Sq = Skv = 1024, 12 query and 4 KV heads) and at
-  zamba2-1.2b's prefill (32 and 32), with SDPA on the same inputs as its
+  zamba2-1.2b's prefill (32 and 32), and with ``--head-dims`` at
+  stablelm-3b's prefill shape (32 and 32 heads, Sq = Skv = 1024) at each
+  head dim given (``prefill_D<d>``; the wide kernel above 192 in bf16,
+  128 in float32), with SDPA on the same inputs as its
   yardstick (``chip_smoke.sdpa``), ``mamba2_scan`` at zamba2-1.2b's (one
   token from a state; 1024 tokens from a state, B = 8, H = 64, P = N =
   64);
@@ -91,9 +94,10 @@ def load_ops(src, name: str):
     return importlib.import_module(f"{name}.ops")
 
 
-def kernel_calls(kernel: str, cs, randn):
+def kernel_calls(kernel: str, cs, randn, head_dims=()):
     """({call: a function of an ``ops`` module}, {call: the yardstick's
-    call}) for the timed calls, in ``randn``'s dtype."""
+    call}) for the timed calls, in ``randn``'s dtype; ``head_dims`` adds
+    flash_attention's prefill at stablelm-3b's shape at each."""
     import torch
 
     B, S = cs.LM_PROMPTS, cs.LM_PROMPT_LEN
@@ -107,6 +111,8 @@ def kernel_calls(kernel: str, cs, randn):
                "prefill": (randn(B, Hq, S, D), randn(B, Hkv, S, D),
                            randn(B, Hkv, S, D)),
                "zamba2_prefill": tuple(randn(B, 32, S, D) for _ in range(3))}
+        for d in head_dims:
+            qkv[f"prefill_D{d}"] = tuple(randn(B, 32, S, d) for _ in range(3))
         return ({call: (lambda ops, a=a: ops.flash_attention(*a))
                  for call, a in qkv.items()},
                 {call: (lambda a=a: cs.sdpa(*a, True))
@@ -290,6 +296,9 @@ def main() -> int:
                     default="bfloat16",
                     help="the calls' and the served model's dtype (float32: "
                          "the f32 prefill routes)")
+    ap.add_argument("--head-dims", default="",
+                    help="flash_attention: comma-separated head dims also "
+                         "timed at stablelm-3b's prefill shape")
     args = ap.parse_args()
     import torch
 
@@ -322,7 +331,8 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    calls, yardsticks = kernel_calls(args.kernel, cs, randn)
+    head_dims = [int(d) for d in args.head_dims.split(",") if d]
+    calls, yardsticks = kernel_calls(args.kernel, cs, randn, head_dims)
     cfg = get_any_config(arch)
     pcfg = ParallelConfig(compute_dtype=args.dtype,
                           kv_cache_dtype=args.dtype, remat="none")
