@@ -296,11 +296,14 @@ def card_peaks(name: str):
 
 def compare(name, got, want, *, rtol, atol) -> float:
     """Assert ``got`` ~ ``want`` (NaN where the other is NaN); returns the
-    largest absolute difference over finite entries."""
+    largest absolute difference over finite entries.  Computed on the card
+    where either tensor is (the host's copy and scan of the large tensors
+    of phase 3 took most of its time)."""
     import torch
 
-    got = got.float().cpu()
-    want = want.float().cpu()
+    dev = got.device if got.device.type == "cuda" else want.device
+    got = got.detach().to(dev, torch.float32)
+    want = want.detach().to(dev, torch.float32)
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -3646,6 +3649,125 @@ def drive_deepseek_path(archive, rows) -> None:
                      prefill_profiled=1)
 
 
+# 8c-ep: deepseek-v2-lite's MLA and MoE blocks at full width in float32
+# as the 8 ranks of a production mesh's ``model`` axis hold them (2 of
+# the 16 heads, 8 of the 64 experts each), one rank after another in
+# this process; a prefill of B 8 x 1024 tokens, then one decode token
+EP_RANKS = 8
+EP_BATCH, EP_PROMPT = 8, 1024
+EP_TOL = dict(rtol=1e-4, atol=1e-5)        # tests/test_torch_mesh_train.py
+
+
+def drive_expert_parallel(rows, card: str) -> None:
+    """8c-ep: one MLA block and one MoE block of deepseek-v2-lite at full
+    width, float32, from a seed.  Each of the ``EP_RANKS`` ranks' shards
+    (``sharding.model_shard``: the rank's heads of ``wq``/``w_uk``/
+    ``w_uv``/``wo``, ``w_dkv`` whole; its experts and shared-expert
+    columns, the router whole) computes its partial output with no
+    process group: the MLA block on the kernel route over a prefill into
+    its own latent cache (``flash_attention``'s float32 prefill at 2
+    heads of 192, counted) and one decode token (its ``decode`` kernel,
+    counted), the MoE block over the same tokens (the sorted dispatch,
+    then dropless).  The shards' sum is held against the whole block
+    within ``EP_TOL``; one rank's peak bytes beside the whole block's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import model_shard
+    from repro_torch.models import attention, moe
+
+    cfg = get_config(DEEPSEEK_ARCH)
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    mla = {k: v.detach() for k, v in attention.init_mla(
+        cfg, gen, torch.float32, DEV).items()}
+    ffn = {k: v.detach() for k, v in moe.init_moe(
+        cfg, gen, torch.float32, DEV).items()}
+    B, S, D = EP_BATCH, EP_PROMPT, cfg.d_model
+    x = torch.randn((B, S + 1, D), generator=gen, device=DEV)
+    pos = torch.arange(S + 1, device=DEV).expand(B, S + 1)
+    E = cfg.moe.n_experts
+
+    def block(m, f, offset):
+        """(MLA prefill, MLA decode, MoE prefill, MoE decode) outputs and
+        the peak bytes allocated above the start while they ran."""
+        sync()
+        base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            cache = attention.init_mla_cache(cfg, B, S + 1, torch.float32,
+                                             DEV)
+            outs = [attention.apply_mla(cfg, m, x[:, :S], pos[:, :S],
+                                        cache=cache, cache_index=0,
+                                        impl="kernel")[0],
+                    attention.apply_mla(cfg, m, x[:, S:], pos[:, S:],
+                                        cache=cache, cache_index=S,
+                                        impl="kernel")[0],
+                    moe.apply_moe(cfg, f, x[:, :S], expert_offset=offset)[0],
+                    moe.apply_moe(cfg, f, x[:, S:], dropless=True,
+                                  expert_offset=offset)[0]]
+            del cache
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base if DEV == "cuda"
+                else float("nan"))
+        return outs, peak
+
+    whole, whole_peak = block(mla, ffn, 0)
+    sums = [torch.zeros_like(o) for o in whole]
+    peaks = []
+    reset_launches()
+    t = time.perf_counter()
+    for r in range(EP_RANKS):
+        outs, peak = block(model_shard(mla, r, EP_RANKS),
+                           model_shard(ffn, r, EP_RANKS),
+                           r * E // EP_RANKS)
+        peaks.append(peak)
+        for acc, o in zip(sums, outs):
+            acc.add_(o)
+    shards_s = time.perf_counter() - t
+    launched, routes = read_launches(), read_routes()
+    fa = routes["flash_attention"]
+    if launched["flash_attention"] != 2 * EP_RANKS or \
+            fa["f32"] != EP_RANKS or fa["decode"] != EP_RANKS:
+        raise AssertionError(f"model-axis shards: flash_attention launches "
+                             f"{launched['flash_attention']}, by route {fa};"
+                             f" want {EP_RANKS} f32 prefills and "
+                             f"{EP_RANKS} decodes")
+    add_path_launches(rows, launched, routes)
+    add_wide_launches(rows)
+    errs = [compare(f"model-axis shards {name}: their sum vs the whole "
+                    f"block", got, want, **EP_TOL)
+            for name, got, want in zip(("MLA prefill", "MLA decode",
+                                        "MoE prefill", "MoE decode"),
+                                       sums, whole)]
+
+    def weight_bytes(tree):
+        return sum(v.numel() * v.element_size() for v in tree.values())
+
+    shard_w = (weight_bytes(model_shard(mla, 0, EP_RANKS))
+               + weight_bytes(model_shard(ffn, 0, EP_RANKS)))
+    say(f"model-axis shards ({card}): deepseek-v2-lite MLA + MoE blocks at "
+        f"full width, float32, B {B} x {S} prefill then 1 decode token; "
+        f"{EP_RANKS} ranks' shards ({cfg.n_heads // EP_RANKS} of "
+        f"{cfg.n_heads} heads, {E // EP_RANKS} of {E} experts each) "
+        f"summed against the whole block: max_abs_err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (MLA prefill, decode, MoE "
+        f"prefill, decode; rtol {EP_TOL['rtol']}, atol {EP_TOL['atol']}); "
+        f"flash_attention launches {launched['flash_attention']} ({fa}); "
+        f"weights a rank {shard_w / 2**30:.3f} GiB against "
+        f"{(weight_bytes(mla) + weight_bytes(ffn)) / 2**30:.3f} whole; peak "
+        f"bytes above them while computing: rank 0 "
+        f"{peaks[0] / 2**30:.3f} GiB (the largest rank "
+        f"{max(peaks) / 2**30:.3f}), whole block {whole_peak / 2**30:.3f}; "
+        f"the {EP_RANKS} ranks in turn {shards_s:.2f} s")
+    del mla, ffn, whole, sums, x
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
 def model_line(tag: str, cfg, params, seconds: float, per_call) -> None:
     """One line of what a serve path built: layers, widths, parameters,
     their dtype and the device memory they hold."""
@@ -4594,6 +4716,7 @@ DECODE_CORE_TOL = 2e-5
 DRY_CELLS = (("llama3.2-1b", "train_4k"),
              ("deepseek-v2-lite-16b", "prefill_32k"),
              ("deepseek-v2-lite-16b", "decode_32k"),
+             ("llama4-maverick-400b-a17b", "decode_32k"),
              ("zamba2-1.2b", "long_500k"))
 DRY_REAL = ("llama3.2-1b", "train_4k")
 DRY_REAL_BATCH = 2
@@ -4862,7 +4985,7 @@ def drive_decode_core(rows, peak_bw: float, card: str) -> None:
 
 def start_dry_runs(work: str):
     """10d, host only: each of ``DRY_CELLS`` in a process of its own (its
-    own fake process group; all four at once)."""
+    own fake process group; all five at once)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
@@ -5081,6 +5204,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 8c. the DeepSeek serve path (MLA at D = 192, the MoE FFN)
         drive_deepseek_path(archive, rows)
         elapsed("8c (deepseek-v2-lite-16b serve path)")
+        # 8c-ep. its MLA and MoE blocks as the model axis's 8 ranks hold them
+        drive_expert_parallel(rows, card_line())
+        elapsed("8c-ep (deepseek's model-axis shards)")
         # 8d. the xLSTM serve path (mLSTM and sLSTM, no hand kernel)
         drive_xlstm_path(archive, rows)
         elapsed("8d (xlstm-1.3b serve path)")
@@ -5104,7 +5230,7 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
             raise
         elapsed("10c (sequence-sharded decode core)")
         finish_dry_runs(procs, dry)
-        elapsed("10d (dry run of 4 cells)")
+        elapsed(f"10d (dry run of {len(DRY_CELLS)} cells)")
         drive_dry_real(card_line())
         elapsed("10d (the cut cell on the card)")
     finally:

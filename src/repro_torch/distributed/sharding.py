@@ -28,7 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig, ParallelConfig
-from .axes import axis_names, axis_sizes, current_mesh, fsdp_axes
+from .axes import (abstract_mesh, axis_names, axis_sizes, current_mesh,
+                   fsdp_axes)
 
 Spec = Tuple[Any, ...]
 
@@ -425,7 +426,13 @@ def _model_dim(leaf) -> Optional[int]:
 def _tp_block(cfg: ModelConfig, node: Dict[str, Any]) -> bool:
     """Whether a mixer or FFN dict computes tensor-parallel: a GQA block
     whose q, k, v columns and o rows are sharded over ``model`` in whole
-    heads, or a dense MLP whose hidden columns and rows are."""
+    heads; an MLA block whose ``wq``, ``w_uk`` and ``w_uv`` columns and
+    ``wo`` rows are (its ``w_dkv`` is gathered whole, :data:`_WHOLE`); a
+    dense MLP whose hidden columns and rows are; or a MoE FFN whose expert
+    stacks are sharded on their expert dim (expert parallel; its router is
+    whole, its shared experts column- and row-parallel where their width
+    divides ``model``, else whole).  A dim that does not divide ``model``
+    is replicated by the rules, and the block then computes whole."""
     leaf = next((v for v in node.values() if is_dtensor(v)), None)
     if leaf is None:
         return False
@@ -441,6 +448,13 @@ def _tp_block(cfg: ModelConfig, node: Dict[str, Any]) -> bool:
         return (cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
                 and all(col(k) for k in ("wq", "wk", "wv", "bq", "bk", "bv"))
                 and row("wo"))
+    if {"wq", "w_dkv", "w_uk", "w_uv", "wo"} <= set(node):
+        return (cfg.n_heads % m == 0
+                and all(col(k) for k in ("wq", "w_uk", "w_uv"))
+                and row("wo"))
+    if "router" in node and _MOE_EXPERT <= set(node):
+        return all(_model_dim(node[k]) == node[k].ndim - 3
+                   for k in _MOE_EXPERT)
     if "tokens" in node and cfg.n_codebooks == 1:
         # the vocabulary: the table's rows and the head's columns
         return (_model_dim(node["tokens"]) == node["tokens"].ndim - 2
@@ -450,6 +464,11 @@ def _tp_block(cfg: ModelConfig, node: Dict[str, Any]) -> bool:
         return (all(col(k) for k in ("w_gate", "w_up", "b_up"))
                 and row("w_down"))
     return False
+
+
+# leaves gathered whole over ``model`` in a block that is not: MLA's
+# down-projection feeds every head (the rules shard its columns)
+_WHOLE = {"w_dkv"}
 
 
 def _to_compute(leaf, keep_model: bool, grads: bool):
@@ -472,27 +491,63 @@ def _to_compute(leaf, keep_model: bool, grads: bool):
 
 
 def gather_for_compute(cfg: ModelConfig, tree: Any, *, tp: bool = True,
-                       grads: bool = False, attention: bool = True) -> Any:
+                       grads: bool = False, attention: bool = True,
+                       mla_heads: bool = True) -> Any:
     """A parameter (sub)tree of DTensors as the local tensors the model
     code computes on: gathered over the FSDP axes, and over ``model``
     except, with ``tp``, in the blocks that compute tensor-parallel
     (:func:`_tp_block`: each rank then holds whole heads of q, k, v and o,
-    or its columns of the MLP's hidden dim, and ``layers.copy_to_model`` /
-    ``reduce_from_model`` bracket the block).  ``attention=False``
-    gathers the attention blocks whole (serving: a cache holds every
-    head).  ``grads`` lets gradients flow back to the stored shards.
-    Leaves that are not DTensors pass through."""
+    its columns of the MLP's hidden dim, or its E/m experts, and
+    ``layers.copy_to_model`` / ``reduce_from_model`` bracket the block).
+    ``attention=False`` gathers the GQA blocks whole (serving: a cache
+    holds every head); ``mla_heads=False`` gathers the MLA blocks whole
+    (a decode step on the sequence-sharded latent cache; a prefill keeps
+    its heads local: the latent cache holds none).  ``grads`` lets
+    gradients flow back to the stored shards.  Leaves that are not
+    DTensors pass through."""
+    def keeps(node) -> bool:
+        if not (tp and _tp_block(cfg, node)):
+            return False
+        if "w_dkv" in node:
+            return mla_heads
+        return attention or "wq" not in node
+
     def walk(node, keep_model: bool):
         if isinstance(node, dict):
-            keep = tp and _tp_block(cfg, node) and (
-                attention or "wq" not in node)
-            return {k: walk(v, keep) for k, v in node.items()}
+            keep = keeps(node)
+            return {k: walk(v, keep and k not in _WHOLE)
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, keep_model) for v in node)
         if is_dtensor(node):
             return _to_compute(node, keep_model, grads)
         return node
     return walk(tree, False)
+
+
+def model_shard(block: Dict[str, torch.Tensor], rank: int,
+                m: int) -> Dict[str, torch.Tensor]:
+    """One layer's mixer or FFN block (plain tensors) as rank ``rank`` of
+    a ``model`` axis of ``m`` holds it under :func:`gather_for_compute`
+    where the block computes tensor-parallel: each leaf the rules shard
+    over ``model`` narrowed to the rank's slice (a view), the leaves of
+    :data:`_WHOLE` whole.  The block's function computes the rank's
+    partial output from it with no process group (the collective is a
+    step of its own), and the ``m`` partial outputs sum to the whole
+    block's; a MoE FFN's shard starts at expert ``rank · E / m``."""
+    mesh = abstract_mesh((m,), ("model",))
+    moe = "router" in block and _MOE_EXPERT <= set(block)
+    out = {}
+    for k, t in block.items():
+        spec = () if k in _WHOLE else _leaf_spec(
+            k, tuple(t.shape), n_stack=0, is_moe_ffn=moe, mesh=mesh,
+            fsdp_axes=(), fsdp_params=False)
+        for d, entry in enumerate(spec):
+            if entry == "model":
+                n = t.shape[d] // m
+                t = t.narrow(d, rank * n, n)
+        out[k] = t
+    return out
 
 
 def to_local(tree: Any) -> Any:

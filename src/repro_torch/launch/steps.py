@@ -188,7 +188,7 @@ def _build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def prefill_step(params, caches, batch):
         logits, new_caches = M.decode_step(
             cfg, pcfg, unstack(params), caches, _tokens(batch), 0,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, last_only=True)
         return logits[..., -1, :], new_caches
 
     return CellProgram(
@@ -216,7 +216,7 @@ def _build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh,
         # the seq_len-deep history — the steady-state decode cost
         logits, new_caches = M.decode_step(
             cfg, pcfg, unstack(params), caches, _tokens(batch), S - 1,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, last_only=True)
         return logits[..., -1, :], new_caches
 
     return CellProgram(

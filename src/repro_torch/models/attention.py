@@ -473,18 +473,28 @@ def apply_mla(
     The new latents and RoPE keys are written in place at ``cache_index``;
     only the filled ``latent[:, :cache_index + S]`` is expanded to per-head
     keys and values (the reference expands all ``max_len`` positions and
-    masks the tail, which adds nothing to any output)."""
+    masks the tail, which adds nothing to any output).
+
+    Under a mesh ``wq``, ``w_uk`` and ``w_uv``'s columns and ``wo``'s rows
+    may be this rank's ``model`` shard of whole heads
+    (``distributed.sharding.gather_for_compute``): H is read from ``wq``'s
+    width, the rank computes its H/m heads from the whole latent and one
+    ``reduce_from_model`` sums ``o @ wo``.  Without a model group the
+    partial output of those heads is returned."""
     m: MLAConfig = cfg.mla
     B, S, D = x.shape
-    H = cfg.n_heads
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
     qd = nope + rope
+    H = p["wq"].shape[-1] // qd
 
-    q = (x @ p["wq"]).reshape(B, S, H, qd).transpose(1, 2)   # (B, H, S, qd)
+    q = (copy_to_model(x, H, cfg.n_heads) @ p["wq"]) \
+        .reshape(B, S, H, qd).transpose(1, 2)                # (B, H, S, qd)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    dkv = x @ p["w_dkv"]
+    # w_dkv is whole on every rank, but its latent and RoPE key feed this
+    # rank's heads alone: their gradient is summed over the model group
+    dkv = copy_to_model(x @ p["w_dkv"], H, cfg.n_heads)
     latent, k_rope_flat = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
     # decoupled RoPE key: one shared "head"
     k_rope = apply_rope(k_rope_flat[:, None], positions,
@@ -518,4 +528,4 @@ def apply_mla(
     o = attention_core(q_full, k_full, vv, causal=True, scale=1.0 / qd ** 0.5,
                        impl=impl, kv_len=kv_len)[..., :m.v_head_dim]
     o = o.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
-    return o @ p["wo"], cache
+    return reduce_from_model(o @ p["wo"], H, cfg.n_heads), cache

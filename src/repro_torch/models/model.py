@@ -444,6 +444,7 @@ def decode_step(
     cache_index: int,                # tokens already in the cache
     *,
     attn_impl: str = "blocked",
+    last_only: bool = False,
 ) -> Tuple[torch.Tensor, Caches]:
     """Run S new tokens (S = 1 decode, S > 1 prefill or a prefill chunk)
     through the stack, writing their keys and values (an MLA layer's
@@ -451,10 +452,15 @@ def decode_step(
     new state (Mamba-2, mLSTM, sLSTM) over its old one, in place ->
     (float32 logits (B, S, V), caches).  MoE layers dispatch densely
     (exact, no drops) for S <= 64, as the reference serves a decode step,
-    and by sorted capacity dispatch for a longer prefill."""
+    and by sorted capacity dispatch for a longer prefill.  ``last_only``:
+    the last position's logits alone, (B, 1, V), without materializing
+    every position's: the serving steps (``serve.engine``) and the dry
+    run's prefill and decode cells keep only the last position's, and
+    XLA computes no more of the reference's."""
     compute_dtype = _dtype(pcfg.compute_dtype)
-    # on a mesh: the parameters gathered layer by layer (attention whole,
-    # MLPs tensor-parallel), the caches as laid out by cache_shardings
+    # on a mesh: the parameters gathered layer by layer (GQA attention
+    # whole; MLPs, MoE experts and a prefill's MLA heads tensor-parallel),
+    # the caches as laid out by cache_shardings
     cparams = compute_params(params, compute_dtype, gather=False)
     sharded = is_dtensor(cparams["final_norm"]["scale"])
     # a batch whose rows do not divide the data ranks is whole on each
@@ -488,7 +494,10 @@ def decode_step(
                             for i in range(len(unit))]
             up = cparams["groups"][gi][r]
             if sharded:
-                up = gather_for_compute(cfg, up, attention=False)
+                # GQA whole (its cache holds every head); MLA on this
+                # rank's heads for a prefill, whole for a decode step
+                up = gather_for_compute(cfg, up, attention=False,
+                                        mla_heads=S > 1)
                 layer_caches, write_back = _local_caches(
                     layer_caches, attn_impl == "flash_decode" and S == 1)
             x, _aux, _ = apply_unit(cfg, unit, up, shared, x, positions,
@@ -498,6 +507,8 @@ def decode_step(
                                     moe_replicated_rows=replicated_rows)
             if sharded:
                 write_back()
+    if last_only:
+        x = x[:, -1:]
     x = apply_norm(cfg, cparams["final_norm"], x)
     return unembed(cfg, cparams["embed"], x), caches
 
@@ -508,14 +519,19 @@ def _local_caches(layer_caches, keep_kv: bool):
     other dims (a view, where it is sharded on the batch alone), and a
     function that writes the updated rows back into the stored shards.
     With ``keep_kv`` (a flash-decode step) attention's ``k`` and ``v``
-    stay DTensors: the decode core reduces each rank's own keys."""
+    stay DTensors where their sequence is sharded: the decode core
+    reduces each rank's own keys (a sequence that does not divide the
+    ranks is replicated by the rules, and gathered as any other leaf)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     backs = []
 
     def local(name, c):
-        if not is_dtensor(c) or (keep_kv and name in ("k", "v")):
+        if not is_dtensor(c) or (
+                keep_kv and name in ("k", "v")
+                and any(isinstance(p, Shard) and p.dim == 2
+                        for p in c.placements)):
             return c
         mesh = c.device_mesh
         rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()

@@ -4,7 +4,7 @@ The port of the reference package's ``models/moe.py``.
 
 * ``sorted`` (default) — sort-based dispatch: the (token, k) assignments
   are stably sorted by expert id, truncated at per-expert capacity,
-  scattered into an ``(E, C, D)`` buffer, pushed through batched expert
+  gathered into an ``(E, C, D)`` buffer, pushed through batched expert
   GEMMs and combined.  Under a mesh of dp data ranks the reference sorts
   and truncates each of dp contiguous token shards alone, whenever the
   tokens divide the ranks.  The port does the same: where the batch's
@@ -19,14 +19,19 @@ The port of the reference package's ``models/moe.py``.
   axes before their product is formed.  The reference combines
   with a scatter-add over token ids; on the card ``index_add_`` uses
   atomics, whose order (and so whose bits) varies from run to run, so the
-  port un-permutes instead: ``order`` is a permutation of the T·K
-  assignments, each contribution goes back to its ``(T, K, D)`` slot, and
-  the K of a token are summed in a fixed order.  It is the same sum.
+  port gathers instead: each token reads its K slots in turn and sums
+  them in a fixed order.  It is the same sum.
 * ``einsum`` — the GShard one-hot dispatch (three dense einsums), kept as
   the reference keeps it: its (T, E, C) dispatch tensor is only for tiny
   token counts.
 * ``dropless`` — exact dense masked einsum over all experts; the serving
   path at decode (every expert's weights stream anyway once T·K ≳ E).
+
+Expert parallelism, as the reference's rules lay the experts out: on a
+mesh whose ``model`` axis of m ranks shards the expert stacks, each rank
+holds and computes E/m experts (the buffers of a dispatch are 1/m of the
+whole one's), the routing is computed whole on every rank, and one
+``reduce_from_model`` a layer sums the partial outputs.
 
 Aux losses (load balance and router z-loss) are returned for the train
 loop.  JAX promotes a float32 × bfloat16 product to float32; PyTorch's
@@ -37,7 +42,7 @@ reference).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,7 +52,8 @@ from ..configs.base import ModelConfig, MoEConfig
 from ..distributed.axes import current_mesh
 from ..distributed.sharding import (data_mean, data_rank, data_size,
                                     gather_rows)
-from .layers import Params, _normal, dense_init
+from .layers import (Params, _normal, copy_to_model, dense_init, model_rank,
+                     reduce_from_model)
 
 
 def init_moe(cfg: ModelConfig, gen, dtype, device) -> nn.ParameterDict:
@@ -94,43 +100,52 @@ def _expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
 
 def _dispatch_sorted(xt: torch.Tensor, gate_vals: torch.Tensor,
                      expert_idx: torch.Tensor, p: Params, *, n_experts: int,
-                     cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     cap: int, expert_offset: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch.  xt: (T, D); gate_vals/expert_idx:
-    (T, K).  Stable-sorts the T·K assignments by expert, keeps the first
-    ``cap`` of each expert, runs the batched expert GEMMs and combines ->
-    (y (T, D), the number of assignments dropped at capacity, a 0-d
-    tensor on the device)."""
+    (T, K).  Stable-sorts the T·K assignments by expert and keeps the
+    first ``cap`` of each expert's run: the sort and the capacity cover
+    all ``n_experts``, so every ``model`` rank drops the same assignments.
+    The buffer holds only ``p``'s E_l experts from ``expert_offset`` on,
+    (E_l, C, D), each slot gathered from its token; after the batched
+    expert GEMMs each token gathers its K slots in turn, zero where an
+    assignment is another rank's or dropped, and sums them in float32 in
+    that fixed order (no scatter-add, no atomics) -> (this rank's
+    experts' y (T, D), the number of assignments dropped at capacity, a
+    0-d tensor on the device)."""
     T, D = xt.shape
     K = expert_idx.shape[-1]
     E, C = n_experts, cap
+    El, e0 = p["w_gate"].shape[0], expert_offset
     TK = T * K
     dev = xt.device
 
     flat_eid = expert_idx.reshape(TK)
-    flat_gate = gate_vals.reshape(TK)
     order = torch.argsort(flat_eid, stable=True)           # (TK,)
     sorted_eid = flat_eid[order]
-    # position of each assignment within its expert's run: its distance
-    # from the run's first element (a running max of run-start indices)
-    ar = torch.arange(TK, device=dev)
-    starts = torch.ones(TK, dtype=torch.bool, device=dev)
-    starts[1:] = sorted_eid[1:] != sorted_eid[:-1]
-    run_start = torch.cummax(torch.where(starts, ar, 0), dim=0).values
-    pos_in_expert = ar - run_start
-    keep = pos_in_expert < C
-    slot = torch.where(keep, sorted_eid * C + pos_in_expert, E * C)
-    token_of = order // K                                   # (TK,)
+    experts = torch.arange(E, device=dev, dtype=sorted_eid.dtype)
+    first = torch.searchsorted(sorted_eid, experts)         # each run's start
+    count = torch.searchsorted(sorted_eid, experts, right=True) - first
+    # slot (e, c) of a local expert: the c-th assignment of e's run
+    c = torch.arange(C, device=dev)
+    filled = c < count[e0:e0 + El, None]                    # (El, C)
+    src = torch.where(filled, first[e0:e0 + El, None] + c, 0)
+    xe = xt[order[src] // K] * filled[..., None].to(xt.dtype)
+    ye = _expert_ffn(p, xe).reshape(El * C, D)
 
-    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev)
-    xe[slot] = xt[token_of]           # duplicates only in the drop slot
-    ye = _expert_ffn(p, xe[:-1].reshape(E, C, D)).reshape(E * C, D)
-    ye = torch.cat([ye, torch.zeros((1, D), dtype=ye.dtype, device=dev)])
-    contrib = ye[slot] * (flat_gate[order] * keep)[:, None].to(ye.dtype)
-    # un-permute: assignment order[j] is (token order[j] // K, k order[j] % K)
-    per_k = torch.empty((TK, D), dtype=contrib.dtype, device=dev)
-    per_k[order] = contrib
-    y = per_k.reshape(T, K, D).sum(dim=1).to(xt.dtype)
-    return y, TK - keep.sum()
+    # each assignment's place in its expert's run (its sorted position
+    # less the run's start), and its local slot where it has one
+    sorted_pos = torch.empty_like(order)
+    sorted_pos[order] = torch.arange(TK, device=dev)
+    pos = sorted_pos - first[flat_eid]
+    keep = pos < C
+    local = keep & (flat_eid >= e0) & (flat_eid < e0 + El)
+    slot = torch.where(local, (flat_eid - e0) * C + pos, 0).reshape(T, K)
+    w = (gate_vals.reshape(TK) * local).reshape(T, K).to(ye.dtype)
+    y = torch.zeros((T, D), dtype=torch.float32, device=dev)
+    for k in range(K):
+        y = y + (ye[slot[:, k]] * w[:, k, None]).to(torch.float32)
+    return y.to(xt.dtype), TK - keep.sum()
 
 
 def _shard_drops(expert_idx: torch.Tensor, n_shards: int, n_experts: int,
@@ -146,34 +161,6 @@ def _shard_drops(expert_idx: torch.Tensor, n_shards: int, n_experts: int,
     counts = torch.zeros(n_shards * n_experts, dtype=torch.long,
                          device=dev).index_add_(0, key, torch.ones_like(key))
     return torch.clamp(counts - cap, min=0).sum()
-
-
-def _dispatch_shards(cfg: ModelConfig, p: Params, xt: torch.Tensor,
-                     gate_vals: torch.Tensor, expert_idx: torch.Tensor,
-                     replicated_rows: bool
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sorted dispatch of this call's T tokens as the reference lays
-    it out on the ambient mesh's dp data ranks -> (y, dropped).  With
-    ``replicated_rows`` (every rank holds the whole batch) and T % dp ==
-    0, rank r dispatches tokens [r·T/dp, (r+1)·T/dp) at that shard's
-    capacity and the shards' outputs are gathered; otherwise the T tokens
-    (this rank's own rows, or a batch that does not divide) are one
-    dispatch."""
-    m: MoEConfig = cfg.moe
-    mesh = current_mesh()
-    T = xt.shape[0]
-    dp = data_size(mesh)
-    if not replicated_rows or dp == 1 or T % dp:
-        return _dispatch_sorted(xt, gate_vals, expert_idx, p,
-                                n_experts=m.n_experts, cap=capacity(cfg, T))
-    Tl = T // dp
-    cap = capacity(cfg, Tl)
-    r = data_rank(mesh)
-    mine = slice(r * Tl, (r + 1) * Tl)
-    y, _ = _dispatch_sorted(xt[mine], gate_vals[mine], expert_idx[mine], p,
-                            n_experts=m.n_experts, cap=cap)
-    return (gather_rows(y, mesh),
-            _shard_drops(expert_idx, dp, m.n_experts, cap))
 
 
 def _shared(p: Params, xt: torch.Tensor) -> torch.Tensor:
@@ -216,7 +203,8 @@ dropped = 0
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
               dropless: bool = False, dispatch: str = "sorted",
-              replicated_rows: bool = False
+              replicated_rows: bool = False,
+              expert_offset: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux losses).
 
@@ -224,14 +212,31 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     experts, no drops.  ``dropless=False`` (training, a long prefill):
     capacity dispatch, ``dispatch="sorted"`` (default) or ``"einsum"``.
     ``replicated_rows``: on a mesh, ``x`` is the whole batch on every data
-    rank (its rows did not divide the ranks), not this rank's rows; the
-    sorted dispatch then splits the tokens into the reference's data
-    shards (:func:`_dispatch_shards`).
+    rank (its rows did not divide the ranks), not this rank's rows; where
+    the tokens divide the dp data ranks, rank r then dispatches tokens
+    [r·T/dp, (r+1)·T/dp) at that shard's capacity and the shards' outputs
+    are gathered (``sharding.gather_rows``), as the reference sorts each
+    data shard alone.
+
+    Expert parallelism: ``p``'s expert stacks may hold E_l of the E
+    experts, from ``expert_offset`` on (by default this rank's ``model``
+    coordinate times E_l where E_l < E, else 0), and its shared experts their ``model`` shard
+    of columns and rows (``distributed.sharding.gather_for_compute``).
+    The router, top-k and aux losses run whole on every rank, so every
+    rank routes alike; each dispatch computes the local experts only, and
+    one ``reduce_from_model`` sums the partial outputs.  Without a model
+    group that sum is the caller's: the partial output is returned.
     """
     global dropped
     m: MoEConfig = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
+    El = p["w_gate"].shape[0]
+    if expert_offset is None:
+        # stacks that hold every expert (a block the rules replicate, as
+        # where E does not divide ``model``, or gathered whole) start at 0
+        expert_offset = model_rank() * El if El < E else 0
+    e0 = expert_offset
     T = B * S
     xt = x.reshape(T, D)
 
@@ -245,31 +250,60 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if kind not in dispatches:
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     dispatches[kind] += 1
+    # the region on this rank's experts: the router is whole on every
+    # rank, but its gates (and the tokens) feed the local experts alone,
+    # so their gradients are summed over the model group
+    xe = copy_to_model(xt, El, E)
+    gates = copy_to_model(gate_vals, El, E)
+    shared_local = bool(m.n_shared) and \
+        p["shared_gate"].shape[-1] < m.d_ff_expert * m.n_shared
+    rows = slice(None)
+    mesh = current_mesh()
+    dp = data_size(mesh)
+    shards = (kind == "sorted" and replicated_rows and dp > 1
+              and T % dp == 0)
+    if shards:
+        Tl = T // dp
+        r = data_rank(mesh)
+        rows = slice(r * Tl, (r + 1) * Tl)
     if dropless:
-        gates = torch.zeros((T, E), dtype=xt.dtype, device=x.device)
-        gates.scatter_add_(1, expert_idx, gate_vals.to(xt.dtype))
-        h = F.silu(torch.matmul(xt, p["w_gate"])) \
-            * torch.matmul(xt, p["w_up"])                   # (E, T, F)
-        h = h * gates.T[:, :, None]
+        dense = torch.zeros((T, E), dtype=xt.dtype, device=x.device)
+        dense.scatter_add_(1, expert_idx, gates.to(xt.dtype))
+        h = F.silu(torch.matmul(xe, p["w_gate"])) \
+            * torch.matmul(xe, p["w_up"])                   # (E_l, T, F)
+        h = h * dense[:, e0:e0 + El].T[:, :, None]
         y = torch.bmm(h, p["w_down"]).sum(dim=0)            # (T, D)
-    elif dispatch == "sorted":
-        y, n_dropped = _dispatch_shards(cfg, p, xt, gate_vals, expert_idx,
-                                        replicated_rows)
-        dropped = dropped + n_dropped
+    elif kind == "sorted":
+        cap = capacity(cfg, T // dp if shards else T)
+        y, n_dropped = _dispatch_sorted(
+            xe[rows], gates[rows], expert_idx[rows], p, n_experts=E,
+            cap=cap, expert_offset=e0)
+        dropped = dropped + (_shard_drops(expert_idx, dp, E, cap)
+                             if shards else n_dropped)
     else:
-        y = _dispatch_einsum(cfg, p, xt, gate_vals, expert_idx)
-    if m.n_shared:
+        y = _dispatch_einsum(cfg, p, xe, gates, expert_idx, e0)
+    if shared_local:
+        y = y + _shared(p, xe[rows])
+    # one sum of the partial outputs over the model group; of a data
+    # shard's rows before they are gathered, which moves 1 / dp of the
+    # bytes a sum of the gathered (T, D) would
+    y = reduce_from_model(y, El, E)
+    if shards:
+        y = gather_rows(y, mesh)
+    if m.n_shared and not shared_local:
         y = y + _shared(p, xt)
     return y.reshape(B, S, D), _aux(m, logits, probs, expert_idx)
 
 
 def _dispatch_einsum(cfg: ModelConfig, p: Params, xt: torch.Tensor,
-                     gate_vals: torch.Tensor,
-                     expert_idx: torch.Tensor) -> torch.Tensor:
-    """The GShard one-hot dispatch and combine."""
+                     gate_vals: torch.Tensor, expert_idx: torch.Tensor,
+                     expert_offset: int = 0) -> torch.Tensor:
+    """The GShard one-hot dispatch and combine, over ``p``'s E_l experts
+    from ``expert_offset`` on (positions and capacity over all E)."""
     m: MoEConfig = cfg.moe
     T, K = expert_idx.shape
     E = m.n_experts
+    local = slice(expert_offset, expert_offset + p["w_gate"].shape[0])
     cap = capacity(cfg, T)
     # position of each (token, k) within its expert's capacity buffer
     onehot = F.one_hot(expert_idx, E)                       # (T, K, E)
@@ -280,9 +314,9 @@ def _dispatch_einsum(cfg: ModelConfig, p: Params, xt: torch.Tensor,
     kf = keep.to(xt.dtype)
     pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap] \
         .to(xt.dtype)                                       # (T, K, C)
-    exp_oh = onehot.to(xt.dtype)
+    exp_oh = onehot[..., local].to(xt.dtype)                # (T, K, E_l)
     dispatch = torch.einsum("tke,tkc->tec", exp_oh, pos_oh * kf[..., None])
     combine = torch.einsum("tke,tkc,tk->tec", exp_oh, pos_oh,
                            gate_vals.to(xt.dtype) * kf)
-    xe = torch.einsum("tec,td->ecd", dispatch, xt)          # (E, C, D)
+    xe = torch.einsum("tec,td->ecd", dispatch, xt)          # (E_l, C, D)
     return torch.einsum("tec,ecd->td", combine, _expert_ffn(p, xe))

@@ -57,13 +57,14 @@ def prefill(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
     S = tokens.shape[-1]
     if chunk is None or chunk >= S:
         logits, caches = M.decode_step(cfg, pcfg, params, caches, tokens, 0,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl, last_only=True)
         return _last_pos(logits), caches
     logits = None
     for start in range(0, S, chunk):
         piece = tokens[..., start:start + chunk]
         logits, caches = M.decode_step(cfg, pcfg, params, caches, piece,
-                                       start, attn_impl=attn_impl)
+                                       start, attn_impl=attn_impl,
+                                       last_only=True)
     return _last_pos(logits), caches
 
 
@@ -72,7 +73,8 @@ def decode(cfg: ModelConfig, pcfg: ParallelConfig, params: Params,
            *, attn_impl: str = "kernel") -> Tuple[torch.Tensor, M.Caches]:
     """One new token per sequence -> (vocab logits, updated caches)."""
     logits, caches = M.decode_step(cfg, pcfg, params, caches, tokens,
-                                   cache_index, attn_impl=attn_impl)
+                                   cache_index, attn_impl=attn_impl,
+                                   last_only=True)
     return _last_pos(logits), caches
 
 

@@ -1,10 +1,11 @@
-"""The reference's training step on a data mesh of host devices, run in a
+"""The reference's training step on a mesh of host devices, run in a
 subprocess.
 
-``reference_mesh_losses(cases)`` starts one Python process with
-``XLA_FLAGS=--xla_force_host_platform_device_count=<data>``, lays the
-reference's training state and batch out on ``make_host_mesh(1)`` (a mesh
-of ``data`` by one ``model``) with its own sharding rules, takes one
+``reference_mesh_losses(cases, data=, model=)`` starts one Python process
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=<data · model>``,
+lays the reference's training state and batch out on
+``make_host_mesh(model)`` (a mesh of ``data`` by ``model``) with its own
+sharding rules, takes one
 ``make_train_step`` step under ``jax.jit`` for each case and returns each
 case's ``loss_total``.  A case is ``(arch, batch, seq, n_microbatches)``:
 the arch's ``.reduced()`` configuration in float32 with ``remat="none"``,
@@ -22,27 +23,29 @@ import sys
 LIMIT_S = 600.0
 
 
-def reference_mesh_losses(cases, *, data: int = 2, limit_s: float = LIMIT_S):
+def reference_mesh_losses(cases, *, data: int = 2, model: int = 1,
+                          limit_s: float = LIMIT_S):
     """``[loss_total of one reference step for each case]`` on a mesh of
-    ``data`` host devices by one."""
+    ``data`` by ``model`` host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(os.path.dirname(here), "src")
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_"
-                        f"platform_device_count={data}").strip()
+                        f"platform_device_count={data * model}").strip()
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__),
-         json.dumps([list(c) for c in cases])],
+         json.dumps([list(c) for c in cases]), str(model)],
         env=env, capture_output=True, text=True, timeout=limit_s)
     if proc.returncode != 0:
-        raise AssertionError(f"the reference on a mesh of {data} failed:\n"
+        raise AssertionError(f"the reference on a mesh of {data} x {model} "
+                             f"failed:\n"
                              f"{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def _main(cases) -> None:
+def _main(cases, model: int) -> None:
     import jax
 
     from repro import train as jtrain
@@ -54,7 +57,7 @@ def _main(cases) -> None:
     from repro.launch.mesh import make_host_mesh
     from repro.launch.steps import opt_shardings_like
 
-    mesh = make_host_mesh(1)
+    mesh = make_host_mesh(model)
     out = []
     for arch, batch, seq, n in cases:
         cfg = get_any_config(arch).reduced()
@@ -80,4 +83,4 @@ def _main(cases) -> None:
 
 
 if __name__ == "__main__":
-    _main(json.loads(sys.argv[1]))
+    _main(json.loads(sys.argv[1]), int(sys.argv[2]))

@@ -195,8 +195,64 @@ def serve_worker(rank, world, arch, seed, steps):
     return out
 
 
-def mesh_step_worker(rank, world, cases, trees):
-    """One training step of the port on a ``(world, 1)`` mesh for each
+@contextlib.contextmanager
+def recording_shards():
+    """A context that records what each MoE and MLA block computed on:
+    ``experts``, the expert stacks' leading dim (E_l) of every MoE call
+    by dispatch; ``buffers``, the leading dim of every capacity
+    dispatch's expert buffer; ``mla_heads``, the heads of every MLA core
+    call as ``(H, query tokens > 1)``."""
+    from repro_torch.models import attention, moe
+    seen = {"experts": set(), "buffers": set(), "mla_heads": set()}
+    apply_moe, ffn, apply_mla = (moe.apply_moe, moe._expert_ffn,
+                                 attention.apply_mla)
+
+    def rec_moe(cfg, p, x, **kw):
+        kind = "dropless" if kw.get("dropless") else kw.get("dispatch",
+                                                             "sorted")
+        seen["experts"].add((kind, p["w_gate"].shape[0]))
+        return apply_moe(cfg, p, x, **kw)
+
+    def rec_ffn(p, xe):
+        seen["buffers"].add(xe.shape[0])
+        return ffn(p, xe)
+
+    def rec_mla(cfg, p, x, positions, **kw):
+        qd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        seen["mla_heads"].add((p["wq"].shape[-1] // qd, x.shape[1] > 1))
+        return apply_mla(cfg, p, x, positions, **kw)
+
+    # the layers call both through their modules' attributes
+    moe._expert_ffn, moe.apply_moe = rec_ffn, rec_moe
+    attention.apply_mla = rec_mla
+    try:
+        yield seen
+    finally:
+        moe._expert_ffn = ffn
+        moe.apply_moe = apply_moe
+        attention.apply_mla = apply_mla
+
+
+def expert_parallel_worker(rank, world, jobs, capacity_factor=None):
+    """Each of ``jobs`` on this rank in turn: ``("train", argv)``
+    (:func:`train_worker` at ``capacity_factor``) or ``("serve", arch,
+    seed, steps)`` (:func:`serve_worker`); returns, per job, its result
+    and what its MoE and MLA blocks computed on
+    (:func:`recording_shards`)."""
+    out = []
+    for job in jobs:
+        with recording_shards() as seen:
+            if job[0] == "train":
+                res = train_worker(rank, world, job[1], capacity_factor)
+            else:
+                res = serve_worker(rank, world, *job[1:])
+        out.append((res, seen))
+    return out
+
+
+def mesh_step_worker(rank, world, cases, trees, model=1):
+    """One training step of the port on a ``(world / model, model)`` mesh
+    for each
     ``(arch, batch, seq, n_microbatches)`` of ``cases``: the arch's
     ``.reduced()`` configuration in float32 with ``remat="none"``, the
     parameters ``trees[arch]`` (the reference's tree as numpy) laid out
@@ -214,7 +270,7 @@ def mesh_step_worker(rank, world, cases, trees):
     from repro_torch.models.convert import from_reference, to_reference
     from repro_torch.train import (AdamWConfig, TrainState, make_adamw,
                                    make_train_step)
-    mesh = make_host_mesh(1, device_type="cpu")
+    mesh = make_host_mesh(model, device_type="cpu")
     out = []
     for arch, batch, seq, n in cases:
         cfg = get_any_config(arch).reduced()

@@ -3,7 +3,8 @@ of 256 and 512 ranks: ``prefill_32k`` (MLA and the MoE FFN, costed from
 the probes) and ``decode_32k`` (one token a step on the sequence-sharded
 flash-decode core), each in a subprocess so its fake group never meets
 another test; both meshes traced, the parameters' bytes per device the
-reference's specs' (``tests/test_torch_dryrun.py`` holds the rest)."""
+reference's specs' (``tests/test_torch_dryrun.py`` holds the rest); and
+llama4-maverick's ``decode_32k``, its experts sharded over ``model``."""
 
 import pytest
 
@@ -27,3 +28,26 @@ def test_deepseek_serving_cells_on_fake_groups(shape, tmp_path):
     else:
         assert set(pod["cost_parts"]) == {"group0_x1", "group1_x26",
                                           "boundary"}
+        # each MoE layer sums its experts' and its MLA heads' partial
+        # outputs over ``model``: two all-reduces of a rank's (T, D) rows
+        # (T = 32 768 tokens, D = 2048, bf16) a layer, on every device
+        moe = pod["cost_parts"]["group1_x26"]["per_collective"]
+        assert moe["all-reduce"] >= 26 * 256 * 2 * 32768 * 2048 * 2
+        # at most half the peak a device predicted while every expert and
+        # head was gathered whole on each rank (21.26 and 611.18 GiB)
+        peaks = {k: m["memory"]["peak_bytes_per_device"] / 2**30
+                 for k, m in rec["meshes"].items()}
+        assert peaks["pod"] <= 21.26 / 2 and peaks["multipod"] <= 611.18 / 2
+
+
+def test_maverick_decode_cell_holds_its_ranks_experts(tmp_path):
+    """llama4-maverick's 128 experts (30 GiB a MoE layer in bf16) are
+    sharded over ``model`` and each rank computes its 16: a decode step's
+    temporary bytes a device stay at least 20 GiB under the 54.46 and
+    59.15 GiB predicted while each rank gathered them all."""
+    arch, shape = "llama4-maverick-400b-a17b", "decode_32k"
+    rec = run_dryrun(tmp_path, arch, shape)
+    check_cell(rec, arch, shape)
+    temp = {k: m["memory"]["temp_bytes_per_device"] / 2**30
+            for k, m in rec["meshes"].items()}
+    assert temp["pod"] <= 54.46 - 20 and temp["multipod"] <= 59.15 - 20

@@ -21,7 +21,9 @@ MoE dispatch of a batch whose one row does not divide the data ranks
 (the reference sorts each data shard of the tokens alone) and
 microbatches cut from the global rows before they are shared out over
 the data ranks, as the reference cuts them, for deepseek-v2-lite's MoE
-and for a dense model.
+and for a dense model; and one step of deepseek-v2-lite on a model axis
+of 2 (its experts and MLA heads split over the two ranks) against the
+reference on a ``(1, 2)`` mesh of host devices.
 """
 
 import numpy as np
@@ -226,6 +228,21 @@ def test_a_data_mesh_of_2_gives_the_references_loss(mesh_losses, case):
     want, ranks = mesh_losses[case]
     for rank, got in enumerate(ranks):
         assert abs(got - want) <= MESH_LOSS_ATOL, (case, rank, got, want)
+
+
+def test_a_model_axis_of_2_gives_the_references_loss(tmp_path):
+    """deepseek-v2-lite's step on a ``(data, model) = (1, 2)`` mesh: the
+    port computes each rank's 2 of the 4 experts and 2 of the 4 MLA heads
+    and sums them over ``model``, the reference lays the same weights out
+    by its rules on two host devices; one step's ``loss_total`` agrees
+    within ``MESH_LOSS_ATOL`` on both ranks."""
+    case = ("deepseek-v2-lite-16b", 4, 32, 1)
+    want, = reference_mesh_losses([case], data=1, model=2)
+    trees = {case[0]: jax.tree.map(np.asarray, JM.init_params(
+        jax_config(case[0]).reduced(), jax.random.key(0)))}
+    got = run_ranks(mesh_step_worker, 2, tmp_path, [case], trees, 2)
+    for rank, (loss,) in enumerate(got):
+        assert abs(loss - want) <= MESH_LOSS_ATOL, (rank, loss, want)
 
 
 def test_the_moe_step_without_a_mesh_is_unchanged():
