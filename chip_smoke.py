@@ -5125,6 +5125,203 @@ def drive_dry_real(card: str) -> None:
 
 
 # the TPU kernel each hand-written kernel replaces (wrapper function)
+# 8c-rec: zamba2-1.2b's Mamba-2 block at full width as the 8 ranks of a
+# production mesh's ``model`` axis hold it (8 of the 64 heads each), one
+# rank after another in this process, in bf16 (``chunk_tc``) and float32
+# (``f32``); a prefill of B 8 x 1024 tokens from a zeroed state
+REC_RANKS = 8
+REC_BATCH, REC_PROMPT = 8, 1024
+# float32: the same sums over ``model`` as 8c-ep's.  bf16: the whole
+# block rounds one product over 4096 channels to bf16, the shards 8
+# products over 512 each (summed here in float32), and the narrowed
+# projection's bf16 outputs may round apart, carried through the scan; a
+# few bf16 steps (2**-8 of the output's magnitude, about 2) apart
+REC_TOL = {"float32": EP_TOL, "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def peak_of(fn):
+    """``(fn(), the peak bytes allocated above the start while it ran)``
+    (NaN off the card), under ``inference_mode``."""
+    import torch
+
+    sync()
+    base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = fn()
+    sync()
+    peak = (torch.cuda.max_memory_allocated() - base if DEV == "cuda"
+            else float("nan"))
+    return out, peak
+
+
+def drive_recurrent_parallel(rows, card: str, peak_bw: float,
+                             peak_tc: float) -> None:
+    """8c-rec: one Mamba-2 block of zamba2-1.2b at full width, from a
+    seed, in bf16 and in float32.  Each of the ``REC_RANKS`` ranks' shards
+    (``sharding.model_shard``: the z, x and dt columns of ``w_in`` and the
+    x channels of ``conv`` of its 8 heads, ``B`` and ``C`` whole, its rows
+    of ``w_out``) computes in turn with no process group, on the kernel
+    route, over a B 8 x 1024 prefill from a zeroed state of its own
+    (``ssm.mamba2_mix``: ``mamba2_scan`` at 8 heads, counted).  The gated
+    norm divides by the root mean square over every rank's channels, so
+    the ranks' sums of squares are summed first, then each rank's
+    ``layers.rms_project`` and the partial outputs summed: the block's
+    own two steps, around what its ``sum_over_model`` and
+    ``reduce_from_model`` sum on a mesh.  The sum is held against the
+    whole block (``ssm.apply_mamba2``) within ``REC_TOL``, each rank's
+    heads of the new state against the whole's; rank 0's scan against
+    its plain versions at 8 heads and timed beside the whole block's at
+    64; one rank's transient peak bytes beside the whole block's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import model_shard
+    from repro_torch.kernels import mamba2_scan, ops, ref
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_project
+
+    cfg = get_config(ZAMBA_ARCH)
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    P, N = s.head_dim, s.d_state
+    H = d_inner // P
+    hl = H // REC_RANKS
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    base = {k: v.detach() for k, v in ssm.init_mamba2(
+        cfg, gen, torch.float32, DEV).items()}
+    B, S = REC_BATCH, REC_PROMPT
+    x32 = torch.randn((B, S, cfg.d_model), generator=gen, device=DEV)
+    scan = ops.mamba2_scan
+    calls = []
+
+    def recording(*args, h0=None):
+        # the start state as it was: the block writes the new one over it
+        calls.append((args, None if h0 is None else h0.clone()))
+        return scan(*args, h0=h0)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        tol = REC_TOL[tag]
+        which = "chunk_tc" if dtype == torch.bfloat16 else "f32"
+        # every leaf in the compute dtype, as compute_params casts the
+        # stacked tree's
+        p = {k: v.to(dtype) for k, v in base.items()}
+        x = x32.to(dtype)
+
+        def whole():
+            state = ssm.init_mamba2_state(cfg, B, DEV)
+            return ssm.apply_mamba2(cfg, p, x, state=state,
+                                    impl="kernel")[0], state
+
+        calls.clear()
+        ops.mamba2_scan = recording
+        try:
+            (want, want_state), whole_peak = peak_of(whole)
+            whole_args = calls[0]
+            calls.clear()
+            reset_launches()
+            t = time.perf_counter()
+            ranks = []
+            for r in range(REC_RANKS):
+                shard = model_shard(p, r, REC_RANKS)
+
+                def mix(shard=shard, off=r * hl):
+                    state = ssm.init_mamba2_state(cfg, B, DEV)
+                    yf, sq, _ = ssm.mamba2_mix(cfg, shard, x, state=state,
+                                               impl="kernel", head_offset=off)
+                    return yf, sq, state
+                (yf, sq, state), peak = peak_of(mix)
+                ranks.append([shard, yf, sq, state, peak])
+            sq = sum(rank[2] for rank in ranks)
+            out = torch.zeros_like(want, dtype=torch.float32)
+            for rank in ranks:
+                shard, yf = rank[:2]
+                part, peak = peak_of(lambda: rms_project(
+                    yf, sq, d_inner, shard["norm_scale"], shard["w_out"],
+                    dtype))
+                out += part.float()
+                rank[4] = max(rank[4], peak)
+            shards_s = time.perf_counter() - t
+        finally:
+            ops.mamba2_scan = scan
+        launched, routes = read_launches(), read_routes()
+        if launched["mamba2_scan"] != REC_RANKS or \
+                routes["mamba2_scan"][which] != REC_RANKS:
+            raise AssertionError(f"Mamba-2 shards {tag}: mamba2_scan "
+                                 f"launches {launched['mamba2_scan']}, by "
+                                 f"route {routes['mamba2_scan']}; want "
+                                 f"{REC_RANKS} on {which}")
+        add_path_launches(rows, launched, routes)
+        err = compare(f"Mamba-2 shards {tag}: combined vs the whole block",
+                      out, want, **tol)
+        serr = 0.0
+        for r, rank in enumerate(ranks):
+            heads, cols = (slice(r * hl, (r + 1) * hl),
+                           slice(r * hl * P, (r + 1) * hl * P))
+            state = rank[3]
+            serr = max(serr, compare(
+                f"Mamba-2 shards {tag}: rank {r}'s heads of the state",
+                state["ssm"][:, heads], want_state["ssm"][:, heads],
+                **SSM_TOL))
+            for c in (cols, slice(d_inner, None)):
+                serr = max(serr, compare(
+                    f"Mamba-2 shards {tag}: rank {r}'s conv window",
+                    state["conv"][..., c], want_state["conv"][..., c],
+                    **SSM_TOL))
+
+        # rank 0's scan (8 heads, x a strided slice of the fused
+        # projection) against its plain versions, and timed beside the
+        # whole block's (64 heads); these launches count on no path
+        args, h0 = calls[0]
+        got = ops.mamba2_scan(*args, h0=h0, mode="kernel")
+        ytol = SSM_TOL if dtype == torch.float32 else SSM_BF16_Y_TOL
+        kerr = 0.0
+        for label, plain in (
+                ("the recurrence", ref.mamba2_scan(*args, h0=h0)),
+                ("mamba2_scan_chunks", ref.mamba2_scan_chunks(*args,
+                                                               h0=h0))):
+            kerr = max(kerr, compare(
+                f"mamba2_scan {which} at {hl} heads vs {label} y", got[0],
+                plain[0], **ytol), compare(
+                f"mamba2_scan {which} at {hl} heads vs {label} state",
+                got[1], plain[1], **SSM_TOL))
+        ms = {name: time_cuda(lambda a=a, h=h: ops.mamba2_scan(
+            *a, h0=h, mode="kernel")) if DEV == "cuda" else float("nan")
+            for name, (a, h) in (("8", (args, h0)), ("64", whole_args))}
+        plain_ms = time_cuda(lambda: ref.mamba2_scan(*args, h0=h0), reps=2,
+                             inner=1) if DEV == "cuda" else float("nan")
+        nbytes, nops = ssd_cost(B, S, hl, P, N, x.element_size(), True)
+        # the tensor cores' bound, three bf16 products a float32 one as
+        # rows 6a and 6c count them
+        bound = max(nbytes / peak_bw, (3 if dtype == torch.float32 else 1)
+                    * nops / peak_tc) * 1e3
+        say(f"model-axis Mamba-2 shards ({card}): zamba2-1.2b block at full "
+            f"width, {tag}, B {B} x {S} prefill from a zeroed state; "
+            f"{REC_RANKS} ranks' shards ({hl} of {H} heads each) in turn: "
+            f"combined output vs the whole block max_abs_err {err:.3e} "
+            f"(rtol {tol['rtol']}, atol {tol['atol']}), each rank's heads of "
+            f"the new state and conv window {serr:.3e} (SSM_TOL); "
+            f"mamba2_scan {launched['mamba2_scan']} launches on {which}; "
+            f"rank 0's scan at {hl} heads vs the recurrence and "
+            f"mamba2_scan_chunks {kerr:.3e}, {ms['8']:.4f} ms (CUDA "
+            f"events; the whole block's at {H} heads {ms['64']:.4f}; plain "
+            f"at {hl} heads {plain_ms:.4f}; bound {bound:.4f}, "
+            f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP); transient peak bytes: rank 0 "
+            f"{ranks[0][4] / 2**30:.3f} GiB (the largest rank "
+            f"{max(rank[4] for rank in ranks) / 2**30:.3f}), whole block "
+            f"{whole_peak / 2**30:.3f}; the {REC_RANKS} ranks in turn "
+            f"{shards_s:.2f} s")
+        del ranks, out, want, want_state, p, x, calls[:]
+    del base, x32
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
 REPLACES = {
     "qvp_reduce": "src/repro/kernels/qvp_reduce.py:43",
     "zr_accum": "src/repro/kernels/zr_accum.py:44",
@@ -5207,6 +5404,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 8c-ep. its MLA and MoE blocks as the model axis's 8 ranks hold them
         drive_expert_parallel(rows, card_line())
         elapsed("8c-ep (deepseek's model-axis shards)")
+        # 8c-rec. zamba2's Mamba-2 block as the model axis's 8 ranks hold it
+        drive_recurrent_parallel(rows, card_line(), peak_bw, peak_tc)
+        elapsed("8c-rec (zamba2's Mamba-2 model-axis shards)")
         # 8d. the xLSTM serve path (mLSTM and sLSTM, no hand kernel)
         drive_xlstm_path(archive, rows)
         elapsed("8d (xlstm-1.3b serve path)")

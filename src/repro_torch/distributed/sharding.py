@@ -428,15 +428,26 @@ def _tp_block(cfg: ModelConfig, node: Dict[str, Any]) -> bool:
     whose q, k, v columns and o rows are sharded over ``model`` in whole
     heads; an MLA block whose ``wq``, ``w_uk`` and ``w_uv`` columns and
     ``wo`` rows are (its ``w_dkv`` is gathered whole, :data:`_WHOLE`); a
-    dense MLP whose hidden columns and rows are; or a MoE FFN whose expert
+    dense MLP whose hidden columns and rows are; a MoE FFN whose expert
     stacks are sharded on their expert dim (expert parallel; its router is
     whole, its shared experts column- and row-parallel where their width
-    divides ``model``, else whole).  A dim that does not divide ``model``
-    is replicated by the rules, and the block then computes whole."""
+    divides ``model``, else whole); a Mamba-2 block whose H = d_inner / P
+    heads divide ``model``; or an mLSTM block whose ``w_q``, ``w_k`` and
+    ``w_v`` are sharded on their head dim (H divides ``model``).  The two
+    recurrent blocks compute the rank's heads (:func:`_recurrent_heads`).
+    A dim that does not divide ``model`` is replicated by the rules, and
+    the block then computes whole; so does a Mamba-2 block whose heads do
+    not divide ``model``."""
     leaf = next((v for v in node.values() if is_dtensor(v)), None)
     if leaf is None:
         return False
     m = axis_sizes(leaf.device_mesh).get("model", 1)
+    kind = _recurrent_kind(node)
+    if kind == "mamba2":
+        return node["A_log"].shape[-1] % m == 0
+    if kind == "mlstm":
+        return all(_model_dim(node[k]) == node[k].ndim - 3
+                   for k in ("w_q", "w_k", "w_v"))
 
     def col(k):
         return k not in node or _model_dim(node[k]) == node[k].ndim - 1
@@ -471,11 +482,110 @@ def _tp_block(cfg: ModelConfig, node: Dict[str, Any]) -> bool:
 _WHOLE = {"w_dkv"}
 
 
-def _to_compute(leaf, keep_model: bool, grads: bool):
+def _recurrent_kind(node: Dict[str, Any]) -> Optional[str]:
+    """``"mamba2"`` or ``"mlstm"`` for those blocks' parameter dicts, else
+    ``None``."""
+    if {"w_in", "conv", "A_log"} <= set(node):
+        return "mamba2"
+    if {"w_up", "w_q", "w_k", "w_v", "w_gates"} <= set(node):
+        return "mlstm"
+    return None
+
+
+def _head_slices(shapes: Dict[str, Tuple[int, ...]], key: str, rank: int,
+                 m: int) -> Tuple[int, List[Tuple[int, int]]]:
+    """Where leaf ``key`` of a Mamba-2 or mLSTM block (its leaves'
+    ``shapes``) holds rank ``rank``'s H/m heads of ``m``: a negative dim
+    and the ``(start, length)`` pieces along it, in order.  Mamba-2's
+    fused ``w_in`` is ``[z | x | B | C | dt]`` and its ``conv`` ``[x | B |
+    C]``: the rank's columns of z, x and dt and every column of ``B`` and
+    ``C``.  The mLSTM's ``w_up`` is ``[x_m | z]``, its ``gate_bias``
+    ``[input gates | forget gates]``.  The widths come from the shapes
+    (H from ``A_log`` or ``w_q``, d_inner from ``norm_scale``)."""
+    d_inner = shapes["norm_scale"][-1]
+    if "A_log" in shapes:
+        H = shapes["A_log"][-1]
+        N = (shapes["conv"][-1] - d_inner) // 2
+    else:
+        H = shapes["w_q"][-3]
+    if H % m:
+        raise ValueError(f"{H} heads do not divide a model axis of {m}")
+    hl, h0 = H // m, rank * (H // m)
+    w, c0 = d_inner // m, rank * (d_inner // m)
+    if "A_log" in shapes:
+        pieces = {
+            "w_in": (-1, [(c0, w), (d_inner + c0, w), (2 * d_inner, 2 * N),
+                          (2 * d_inner + 2 * N + h0, hl)]),
+            "conv": (-1, [(c0, w), (d_inner, 2 * N)]),
+            "w_out": (-2, [(c0, w)]),
+            "A_log": (-1, [(h0, hl)]), "D": (-1, [(h0, hl)]),
+            "dt_bias": (-1, [(h0, hl)]),
+        }
+    else:
+        pieces = {
+            "w_up": (-1, [(c0, w), (d_inner + c0, w)]),
+            "conv": (-1, [(c0, w)]),
+            "w_q": (-3, [(h0, hl)]), "w_k": (-3, [(h0, hl)]),
+            "w_v": (-3, [(h0, hl)]),
+            "w_gates": (-2, [(c0, w)]),
+            "gate_bias": (-1, [(h0, hl), (H + h0, hl)]),
+            "w_down": (-2, [(c0, w)]),
+        }
+    pieces["norm_scale"] = (-1, [(c0, w)])
+    return pieces[key]
+
+
+def _narrow(t: torch.Tensor, dim: int,
+            pieces: List[Tuple[int, int]]) -> torch.Tensor:
+    """The ``pieces`` of ``t`` along ``dim``, concatenated (a view where
+    they are one run)."""
+    runs: List[List[int]] = []
+    for start, n in pieces:
+        if runs and runs[-1][0] + runs[-1][1] == start:
+            runs[-1][1] += n
+        else:
+            runs.append([start, n])
+    if len(runs) == 1:
+        start, n = runs[0]
+        return t if n == t.shape[dim] else t.narrow(dim, start, n)
+    return torch.cat([t.narrow(dim, a, n) for a, n in runs], dim=dim)
+
+
+def _recurrent_heads(node: Dict[str, Any], grads: bool) -> Dict[str, Any]:
+    """A Mamba-2 or mLSTM block's leaves (DTensors) as this rank's heads
+    (:func:`_head_slices`).  A leaf whose stored ``model`` shard is those
+    heads' slice keeps it (the mLSTM's ``w_q``, ``w_k``, ``w_v``, ``conv``
+    and ``w_down``); any other is gathered whole, transient, and narrowed.
+    The reference's rules split the fused columns contiguously, so a
+    stored shard of ``w_in`` is not the rank's heads.  A narrowed leaf's
+    gradient is this rank's part alone, zero outside its slice and, for
+    ``B``/``C`` and ``w_gates``, a partial sum: it flows back as
+    ``Partial`` over ``model``, so the stored shards receive the sum over
+    the model ranks."""
+    mesh = next(iter(node.values())).device_mesh
+    m = axis_sizes(mesh)["model"]
+    rank = mesh.get_local_rank("model")
+    shapes = {k: tuple(v.shape) for k, v in node.items()}
+    out = {}
+    for k, v in node.items():
+        dim, pieces = _head_slices(shapes, k, rank, m)
+        n = v.shape[dim] // m
+        if pieces == [(rank * n, n)] and _model_dim(v) == v.ndim + dim:
+            out[k] = _to_compute(v, True, grads)
+        else:
+            out[k] = _narrow(_to_compute(v, False, grads, model_partial=True),
+                             dim, pieces)
+    return out
+
+
+def _to_compute(leaf, keep_model: bool, grads: bool,
+                model_partial: bool = False):
     """One DTensor leaf gathered over the data axes (and over ``model``
     unless ``keep_model``), as a local tensor.  Its gradient flows back as
     a partial sum over the data axes (each rank's batch differs), so the
-    stored shard receives the reduce-scatter of it."""
+    stored shard receives the reduce-scatter of it; with
+    ``model_partial`` over ``model`` too (a leaf gathered whole of which
+    each model rank computes a part)."""
     from torch.distributed.tensor import Partial, Replicate
     names = axis_names(leaf.device_mesh)
     target, grad_pl = [], []
@@ -485,36 +595,42 @@ def _to_compute(leaf, keep_model: bool, grads: bool):
             grad_pl.append(pl)
         else:
             target.append(Replicate())
-            grad_pl.append(Partial() if name != "model" else Replicate())
+            grad_pl.append(Partial() if name != "model" or model_partial
+                           else Replicate())
     full = leaf.redistribute(leaf.device_mesh, target)
     return full.to_local(grad_placements=grad_pl if grads else None)
 
 
 def gather_for_compute(cfg: ModelConfig, tree: Any, *, tp: bool = True,
                        grads: bool = False, attention: bool = True,
-                       mla_heads: bool = True) -> Any:
+                       heads: bool = True) -> Any:
     """A parameter (sub)tree of DTensors as the local tensors the model
     code computes on: gathered over the FSDP axes, and over ``model``
     except, with ``tp``, in the blocks that compute tensor-parallel
     (:func:`_tp_block`: each rank then holds whole heads of q, k, v and o,
-    its columns of the MLP's hidden dim, or its E/m experts, and
-    ``layers.copy_to_model`` / ``reduce_from_model`` bracket the block).
-    ``attention=False`` gathers the GQA blocks whole (serving: a cache
-    holds every head); ``mla_heads=False`` gathers the MLA blocks whole
-    (a decode step on the sequence-sharded latent cache; a prefill keeps
-    its heads local: the latent cache holds none).  ``grads`` lets
-    gradients flow back to the stored shards.  Leaves that are not
-    DTensors pass through."""
+    its columns of the MLP's hidden dim, its E/m experts, or its H/m
+    heads of a Mamba-2 or mLSTM block, and ``layers.copy_to_model`` /
+    ``reduce_from_model`` bracket the block).  ``attention=False`` gathers
+    the GQA blocks whole (serving: a cache holds every head);
+    ``heads=False`` gathers the MLA, Mamba-2 and mLSTM blocks whole (a
+    decode step: MLA's on the sequence-sharded latent cache, the
+    recurrent blocks' a step of every head; a prefill keeps its heads
+    local: the latent cache holds none, and the recurrent blocks
+    all-gather their new states' heads).  ``grads`` lets gradients flow
+    back to the stored shards.  Leaves that are not DTensors pass
+    through."""
     def keeps(node) -> bool:
         if not (tp and _tp_block(cfg, node)):
             return False
-        if "w_dkv" in node:
-            return mla_heads
+        if "w_dkv" in node or _recurrent_kind(node):
+            return heads
         return attention or "wq" not in node
 
     def walk(node, keep_model: bool):
         if isinstance(node, dict):
             keep = keeps(node)
+            if keep and _recurrent_kind(node):
+                return _recurrent_heads(node, grads)
             return {k: walk(v, keep and k not in _WHOLE)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -531,10 +647,21 @@ def model_shard(block: Dict[str, torch.Tensor], rank: int,
     a ``model`` axis of ``m`` holds it under :func:`gather_for_compute`
     where the block computes tensor-parallel: each leaf the rules shard
     over ``model`` narrowed to the rank's slice (a view), the leaves of
-    :data:`_WHOLE` whole.  The block's function computes the rank's
-    partial output from it with no process group (the collective is a
-    step of its own), and the ``m`` partial outputs sum to the whole
-    block's; a MoE FFN's shard starts at expert ``rank · E / m``."""
+    :data:`_WHOLE` whole; a Mamba-2 or mLSTM block's leaves narrowed to
+    the rank's H/m heads (:func:`_head_slices`; a copy where the pieces
+    are apart).  The block's function computes the rank's partial output
+    from it with no process group (the collective is a step of its own),
+    and the ``m`` partial outputs sum to the whole block's; a MoE FFN's
+    shard starts at expert ``rank · E / m``.  A recurrent block's gated
+    norm reads a sum of squares over every rank's channels, so Mamba-2's
+    shards combine in two steps (``ssm.mamba2_mix`` at ``head_offset =
+    rank · H / m``, the sums of squares summed, then
+    ``layers.rms_project``); an mLSTM's gates read every channel too, and
+    its shards combine through a model group."""
+    if _recurrent_kind(block):
+        shapes = {k: tuple(t.shape) for k, t in block.items()}
+        return {k: _narrow(t, *_head_slices(shapes, k, rank, m))
+                for k, t in block.items()}
     mesh = abstract_mesh((m,), ("model",))
     moe = "router" in block and _MOE_EXPERT <= set(block)
     out = {}

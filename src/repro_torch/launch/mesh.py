@@ -25,8 +25,6 @@ Importing this module touches no process group and no device.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.distributed as dist
 
@@ -38,15 +36,22 @@ PRODUCTION_SHAPE = {False: ((32, 8), ("data", "model")),
                     True: ((2, 32, 8), ("pod", "data", "model"))}
 
 
-def _device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+def _checked(device_type: str) -> None:
+    """Raise where ``device_type`` is ``"cuda"`` and there is no GPU: a
+    mesh is never moved to the CPU behind its caller's back."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a cuda mesh needs a GPU, and there is none; "
+                           "pass device_type='cpu' for a mesh on the host")
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: Optional[str] = None):
+                         device_type: str = "cuda"):
     """The production H100 mesh (one or two groups of 32 nodes), over the
-    default process group, whose world size must be 256 or 512."""
+    default process group, whose world size must be 256 or 512; on the
+    GPUs unless ``device_type`` says otherwise (``"cpu"``: the dry run's
+    fake group)."""
     from torch.distributed.device_mesh import init_device_mesh
+    _checked(device_type)
     shape, names = PRODUCTION_SHAPE[bool(multi_pod)]
     want = 1
     for s in shape:
@@ -56,16 +61,16 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise ValueError(f"the production mesh {dict(zip(names, shape))} "
                          f"needs a world of {want}, the process group has "
                          f"{world}")
-    return init_device_mesh(device_type or _device_type(), shape,
-                            mesh_dim_names=names)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def make_host_mesh(model_axis: int = 1, *,
-                   device_type: Optional[str] = None):
+def make_host_mesh(model_axis: int = 1, *, device_type: str = "cuda"):
     """A ``("data", "model")`` mesh over the caller's process group (NCCL
-    on the card, gloo on the CPU): ``world // model_axis`` by
-    ``model_axis``."""
+    on the card, gloo on the CPU with ``device_type="cpu"``): ``world //
+    model_axis`` by ``model_axis``.  Raises where ``device_type`` is
+    ``"cuda"`` and there is no GPU."""
     from torch.distributed.device_mesh import init_device_mesh
+    _checked(device_type)
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialized process "
                            "group (torch.distributed.init_process_group)")
@@ -73,8 +78,7 @@ def make_host_mesh(model_axis: int = 1, *,
     if model_axis < 1 or world % model_axis:
         raise ValueError(f"world size {world} is not a multiple of "
                          f"model_axis {model_axis}")
-    return init_device_mesh(device_type or _device_type(),
-                            (world // model_axis, model_axis),
+    return init_device_mesh(device_type, (world // model_axis, model_axis),
                             mesh_dim_names=("data", "model"))
 
 

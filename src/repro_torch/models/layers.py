@@ -333,6 +333,50 @@ def reduce_from_model(y: torch.Tensor, shard_width: int,
     return _ReduceFromModel.apply(y, group)
 
 
+def sum_over_model(s: torch.Tensor, shard_width: int,
+                   full_width: int) -> torch.Tensor:
+    """A statistic each rank forms from its ``shard_width`` of
+    ``full_width`` channels (a partial sum), summed over ``model``, in
+    the forward pass and in the backward: every rank reads the whole sum,
+    but only for its own channels, so each holds a part of its gradient.
+    Unchanged when the channels are whole."""
+    return copy_to_model(reduce_from_model(s, shard_width, full_width),
+                         shard_width, full_width)
+
+
+def rms_project(yf: torch.Tensor, sq: torch.Tensor, full_width: int,
+                scale: torch.Tensor, w: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``yf`` (float32, this rank's channels of ``full_width``) divided by
+    the root mean square over all ``full_width`` channels, from ``sq``,
+    their sum of squares (:func:`sum_over_model`), then scaled by
+    ``scale``, cast to ``dtype`` and projected by ``w``: a recurrent
+    block's gated RMSNorm and its out-projection, the rank's partial
+    output where ``w`` holds its rows."""
+    yf = yf * torch.rsqrt(sq / full_width + 1e-6) * scale.to(torch.float32)
+    return yf.to(dtype) @ w
+
+
+def write_heads(dst: torch.Tensor, part: torch.Tensor, dim: int,
+                start: int) -> None:
+    """Write ``part``, this rank's slice of ``dst`` along ``dim`` from
+    ``start``, into ``dst`` in place.  On a ``model`` group every rank's
+    slice is all-gathered (in rank order), so each rank holds the whole;
+    with no group the slice alone is written (one rank's shard computed
+    on its own, ``distributed.sharding.model_shard``).  Forward only: a
+    serving state's heads."""
+    group = model_group()
+    if part.shape[dim] != dst.shape[dim] and group is not None:
+        ops = torch.ops._c10d_functional
+        part = ops.wait_tensor(ops.all_gather_into_tensor(
+            part.movedim(dim, 0).contiguous(), group.size(),
+            group.group_name)).movedim(0, dim)
+    if part.shape[dim] == dst.shape[dim]:
+        dst.copy_(part)
+    else:
+        dst.narrow(dim, start, part.shape[dim]).copy_(part)
+
+
 def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """-> (B, S, V) or (B, K, S, V) logits, float32."""
     if cfg.n_codebooks == 1:

@@ -459,8 +459,8 @@ def decode_step(
     XLA computes no more of the reference's."""
     compute_dtype = _dtype(pcfg.compute_dtype)
     # on a mesh: the parameters gathered layer by layer (GQA attention
-    # whole; MLPs, MoE experts and a prefill's MLA heads tensor-parallel),
-    # the caches as laid out by cache_shardings
+    # whole; MLPs, MoE experts and a prefill's MLA, Mamba-2 and mLSTM
+    # heads tensor-parallel), the caches as laid out by cache_shardings
     cparams = compute_params(params, compute_dtype, gather=False)
     sharded = is_dtensor(cparams["final_norm"]["scale"])
     # a batch whose rows do not divide the data ranks is whole on each
@@ -494,10 +494,12 @@ def decode_step(
                             for i in range(len(unit))]
             up = cparams["groups"][gi][r]
             if sharded:
-                # GQA whole (its cache holds every head); MLA on this
-                # rank's heads for a prefill, whole for a decode step
+                # GQA whole (its cache holds every head); MLA, Mamba-2
+                # and mLSTM on this rank's heads for a prefill (the
+                # recurrent blocks all-gather their new states' heads),
+                # whole for a decode step
                 up = gather_for_compute(cfg, up, attention=False,
-                                        mla_heads=S > 1)
+                                        heads=S > 1)
                 layer_caches, write_back = _local_caches(
                     layer_caches, attn_impl == "flash_decode" and S == 1)
             x, _aux, _ = apply_unit(cfg, unit, up, shared, x, positions,

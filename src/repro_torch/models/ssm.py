@@ -31,7 +31,9 @@ from torch.nn import functional as F
 from ..configs.base import ModelConfig, SSMConfig
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import Params, _normal, dense_init
+from .layers import (Params, _normal, copy_to_model, dense_init, model_rank,
+                     reduce_from_model, rms_project, sum_over_model,
+                     write_heads)
 
 
 def _dims(cfg: ModelConfig):
@@ -147,46 +149,85 @@ def apply_mamba2(
     ``state["ssm"]`` and ``state["conv"]`` in place (the reference returns
     new arrays), and the returned state is the same dict; the caches keep
     their float32 type.
-    """
+
+    Under a mesh ``p`` may hold this rank's heads alone
+    (``distributed.sharding.gather_for_compute``: the z, x and dt columns
+    of ``w_in`` and the x channels of ``conv`` of its heads, ``B`` and
+    ``C`` whole, its rows of ``w_out``): the rank scans its H/m heads
+    (:func:`mamba2_mix`), the gated norm's sum of squares is summed over
+    ``model`` (``layers.sum_over_model``) and one ``reduce_from_model``
+    sums ``yf @ w_out``."""
+    d_inner = _dims(cfg)[1]
+    width = p["norm_scale"].shape[-1]
+    x = copy_to_model(x, width, d_inner)
+    yf, sq, new_state = mamba2_mix(cfg, p, x, state=state, impl=impl)
+    sq = sum_over_model(sq, width, d_inner)
+    out = rms_project(yf, sq, d_inner, p["norm_scale"], p["w_out"], x.dtype)
+    return reduce_from_model(out, width, d_inner), new_state
+
+
+def mamba2_mix(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    *,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+    impl: str = "chunked",
+    head_offset: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The block up to its gated norm, on the heads ``p`` holds (all, or
+    a rank's, :func:`apply_mamba2`) -> (the gated output ``yf``, float32
+    (B, S, w) over those heads' w channels; its sum of squares over them,
+    (B, S, 1); the state).  Those heads' slice of a ``state`` is read
+    and written back (``layers.write_heads``); ``head_offset`` (default:
+    the rank's ``model`` coordinate times H/m) places them there."""
     s, d_inner, H = _dims(cfg)
     N, P = s.d_state, s.head_dim
     B, S, D = x.shape
+    width, Hl = p["norm_scale"].shape[-1], p["A_log"].shape[-1]
+    off = 0
+    if Hl < H:
+        off = model_rank() * Hl if head_offset is None else head_offset
+    cols = off * P
 
     proj = x @ p["w_in"]
     z, xin, Bm, Cm, dt_raw = torch.split(
-        proj, [d_inner, d_inner, N, N, H], dim=-1)
+        proj, [width, width, N, N, Hl], dim=-1)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_state = None if state is None else state["conv"]
+    conv_state = h0 = None
+    if state is not None:
+        conv_state, h0 = state["conv"], state["ssm"]
+        if Hl < H:
+            conv_state = torch.cat([conv_state[..., cols:cols + width],
+                                    conv_state[..., d_inner:]], dim=-1)
+            h0 = h0[:, off:off + Hl]
     conv_out, new_conv = _causal_conv(conv_in, p["conv"], conv_state)
-    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    xin, Bm, Cm = torch.split(conv_out, [width, N, N], dim=-1)
 
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])    # (B,S,H)
-    A = -torch.exp(p["A_log"])                        # (H,) negative
-    xh = xin.reshape(B, S, H, P)       # a view: strided over S
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])    # (B,S,Hl)
+    A = -torch.exp(p["A_log"])                        # (Hl,) negative
+    xh = xin.reshape(B, S, Hl, P)      # a view: strided over S
 
     if impl == "kernel":
-        y, h = kops.mamba2_scan(xh, dt, A, Bm, Cm,
-                                h0=None if state is None else state["ssm"])
+        y, h = kops.mamba2_scan(xh, dt, A, Bm, Cm, h0=h0)
     elif state is not None:
-        y, h = kref.mamba2_scan(xh, dt, A, Bm, Cm, h0=state["ssm"])
+        y, h = kref.mamba2_scan(xh, dt, A, Bm, Cm, h0=h0)
     elif impl == "chunked":
         y = _chunked_ssd(xh, dt, A, Bm, Cm, s.chunk)
     else:
         y, _ = kref.mamba2_scan(xh, dt, A, Bm, Cm)
-    new_state = None
     if state is not None:
-        state["ssm"].copy_(h)
-        state["conv"].copy_(new_conv)
-        new_state = state
+        write_heads(state["ssm"], h, 1, off)
+        write_heads(state["conv"][..., :d_inner], new_conv[..., :width], -1,
+                    cols)
+        state["conv"][..., d_inner:].copy_(new_conv[..., width:])
 
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    # gated RMSNorm (Mamba2 norm-before-out)
+    y = y.reshape(B, S, width).to(x.dtype)
+    # gated RMSNorm (Mamba2 norm-before-out): the gate here, the norm in
+    # layers.rms_project
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    ms = torch.mean(yf * yf, dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"].to(torch.float32)
-    out = yf.to(x.dtype) @ p["w_out"]
-    return out, new_state
+    return yf, torch.sum(yf * yf, dim=-1, keepdim=True), state
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int,

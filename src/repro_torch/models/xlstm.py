@@ -29,7 +29,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig, XLSTMConfig
-from .layers import Params, _normal, dense_init
+from .layers import (Params, _normal, copy_to_model, dense_init, model_rank,
+                     reduce_from_model, rms_project, sum_over_model,
+                     write_heads)
 from .ssm import _causal_conv
 
 State = Dict[str, torch.Tensor]
@@ -173,35 +175,65 @@ def apply_mlstm(
     state: Optional[State] = None,       # {"C", "conv"}
 ) -> Tuple[torch.Tensor, Optional[State]]:
     """One mLSTM block, optionally carrying recurrent state (updated in
-    place; the returned state is the same dict)."""
+    place; the returned state is the same dict).
+
+    Under a mesh ``p`` may hold this rank's heads alone
+    (``distributed.sharding.gather_for_compute``: the x_m and z columns of
+    ``w_up``, the channels of ``conv``, the rows of ``w_gates`` and
+    ``w_down`` of its heads, its ``w_q``/``w_k``/``w_v`` and its gates'
+    ``gate_bias``).  The gate pre-activations read every channel, so each
+    rank's channels give a partial sum, summed over ``model``
+    (``layers.sum_over_model``) before the rank takes its heads' input and
+    forget gates; the norm's sum of squares is summed alike and one
+    ``reduce_from_model`` sums ``hf @ w_down``.  The rank's ``model``
+    coordinate places its heads among all the gates and in a whole
+    state."""
     xcfg, d_inner, H, dh = _mlstm_dims(cfg)
     B, S, D = x.shape
+    width = p["norm_scale"].shape[-1]
+    Hl = width // dh
+    off = model_rank() * Hl if Hl < H else 0
+    cols = off * dh
+    x = copy_to_model(x, width, d_inner)
     up = x @ p["w_up"]
-    xm, z = up[..., :d_inner], up[..., d_inner:]
-    conv_out, new_conv = _causal_conv(
-        xm, p["conv"], None if state is None else state["conv"])
-    conv_h = conv_out.reshape(B, S, H, dh)
-    xm_h = xm.reshape(B, S, H, dh)
+    xm, z = up[..., :width], up[..., width:]
+    conv_state = None
+    if state is not None:
+        conv_state = state["conv"][..., cols:cols + width]
+    conv_out, new_conv = _causal_conv(xm, p["conv"], conv_state)
+    conv_h = conv_out.reshape(B, S, Hl, dh)
+    xm_h = xm.reshape(B, S, Hl, dh)
     q = torch.einsum("bshd,hde->bshe", conv_h, p["w_q"])
     k = torch.einsum("bshd,hde->bshe", conv_h, p["w_k"])
     v = torch.einsum("bshd,hde->bshe", xm_h, p["w_v"])
-    gates = (conv_out @ p["w_gates"]).to(torch.float32) + p["gate_bias"]
-    log_i = F.logsigmoid(gates[..., :H])
-    log_f = F.logsigmoid(gates[..., H:])
+    gates = sum_over_model((conv_out @ p["w_gates"]).to(torch.float32),
+                           width, d_inner)
+    if Hl < H:
+        gates = torch.cat([gates[..., off:off + Hl],
+                           gates[..., H + off:H + off + Hl]], dim=-1)
+    gates = gates + p["gate_bias"]
+    log_i = F.logsigmoid(gates[..., :Hl])
+    log_f = F.logsigmoid(gates[..., Hl:])
 
     if state is None:
         h = _mlstm_chunked(q, k, v, log_f, log_i, xcfg.chunk)
     else:
         f32 = torch.float32
+        C = state["C"] if Hl == H else \
+            state["C"][:, off:off + Hl].contiguous()
         h = _mlstm_recurrent(q.to(f32), k.to(f32), v.to(f32), log_f, log_i,
-                             state["C"])
-        state["conv"].copy_(new_conv)
+                             C)
+        if Hl < H:
+            write_heads(state["C"], C, 1, off)
+        write_heads(state["conv"], new_conv, -1, cols)
 
-    h = h.reshape(B, S, d_inner)
+    h = h.reshape(B, S, width)
     hf = h * F.silu(z.to(torch.float32))
-    ms = torch.mean(hf * hf, dim=-1, keepdim=True)
-    hf = hf * torch.rsqrt(ms + 1e-6) * p["norm_scale"].to(torch.float32)
-    return hf.to(x.dtype) @ p["w_down"], state
+    sq = sum_over_model(torch.sum(hf * hf, dim=-1, keepdim=True), width,
+                        d_inner)
+    out = rms_project(hf, sq, d_inner, p["norm_scale"], p["w_down"],
+                      x.dtype)
+    return reduce_from_model(out, width, d_inner), state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> State:

@@ -138,15 +138,29 @@ def with_capacity(train, capacity_factor):
         train.get_any_config = orig
 
 
-def train_worker(rank, world, argv, capacity_factor=None):
+@contextlib.contextmanager
+def with_adam_eps(train, eps):
+    """A context in which ``train`` (``repro_torch.launch.train``) builds
+    its AdamW configuration with ``eps`` (unchanged with ``None``)."""
+    orig = train.AdamWConfig
+    if eps is not None:
+        train.AdamWConfig = lambda **kw: orig(eps=eps, **kw)
+    try:
+        yield
+    finally:
+        train.AdamWConfig = orig
+
+
+def train_worker(rank, world, argv, capacity_factor=None, adam_eps=None):
     """``launch.train.main(argv)`` on this rank (at the MoE capacity
-    factor ``capacity_factor`` where given); rank 0's losses and the
-    final parameters gathered whole."""
+    factor ``capacity_factor`` and the AdamW ``eps`` ``adam_eps`` where
+    given); rank 0's losses and the final parameters gathered whole."""
     _src()
     from repro_torch.distributed.sharding import gather_full
     from repro_torch.launch import train
     from repro_torch.train.tree import leaves_with_paths
-    with with_capacity(train, capacity_factor):
+    with with_capacity(train, capacity_factor), \
+            with_adam_eps(train, adam_eps):
         rec = train.main(argv)
     params = gather_full(rec["state"].params)
     if rank:
@@ -154,11 +168,12 @@ def train_worker(rank, world, argv, capacity_factor=None):
     return rec["losses"], {p: t.numpy() for p, t in leaves_with_paths(params)}
 
 
-def serve_worker(rank, world, arch, seed, steps):
+def serve_worker(rank, world, arch, seed, steps, prefill_caches=False):
     """Prefill and greedy decode steps of a reduced ``arch`` with DTensor
     parameters and caches on a ``(1, world)`` mesh (the caches' sequence
     over ``model``, ``flash_decode`` steps); returns the logits of every
-    step."""
+    step and, with ``prefill_caches``, the caches after the prefill,
+    gathered whole (``[group][position] -> {name: array}``)."""
     _src()
     import torch
     from repro_torch.configs import get_any_config
@@ -185,6 +200,9 @@ def serve_worker(rank, world, arch, seed, steps):
     with set_mesh(mesh):
         logits, caches = M.decode_step(cfg, pcfg, params, caches, toks, 0,
                                        attn_impl="blocked")
+        after = prefill_caches and [
+            [{k: c.full_tensor().clone().numpy() for k, c in d.items()}
+             for d in group] for group in caches]
         out.append(logits[:, -1].numpy())
         nxt = logits[:, -1].argmax(-1)[:, None]
         for i in range(steps):
@@ -192,20 +210,54 @@ def serve_worker(rank, world, arch, seed, steps):
                                            S + i, attn_impl="flash_decode")
             out.append(logits[:, -1].numpy())
             nxt = logits[:, -1].argmax(-1)[:, None]
-    return out
+    return (out, after) if prefill_caches else out
+
+
+def block_worker(rank, world, arch, seed, batch, seq):
+    """A Mamba-2 or mLSTM block of a reduced ``arch`` (float32,
+    from ``seed``) on a ``(1, world)`` mesh: this rank's
+    ``sharding.model_shard`` run through the block's own collectives,
+    without a state and as a prefill of ``batch`` x ``seq`` from a zeroed
+    state; returns both outputs and the state."""
+    _src()
+    import torch
+    from repro_torch.configs import get_any_config
+    from repro_torch.distributed.sharding import model_shard
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import ssm, xlstm
+    cfg = get_any_config(arch).reduced()
+    gen = torch.Generator().manual_seed(seed)
+    mamba = cfg.ssm is not None
+    init, init_state, apply = (
+        (ssm.init_mamba2, ssm.init_mamba2_state, ssm.apply_mamba2) if mamba
+        else (xlstm.init_mlstm, xlstm.init_mlstm_state, xlstm.apply_mlstm))
+    p = {k: v.detach() for k, v in init(cfg, gen, torch.float32,
+                                        "cpu").items()}
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen)
+    mesh = make_host_mesh(world, device_type="cpu")
+    shard = model_shard(p, rank, world)
+    state = init_state(cfg, batch, "cpu")
+    with set_mesh(mesh), torch.no_grad():
+        y, _ = apply(cfg, shard, x)
+        y_state, _ = apply(cfg, shard, x, state=state)
+    return (y.numpy(), y_state.numpy(),
+            {k: v.numpy() for k, v in state.items()})
 
 
 @contextlib.contextmanager
 def recording_shards():
-    """A context that records what each MoE and MLA block computed on:
-    ``experts``, the expert stacks' leading dim (E_l) of every MoE call
-    by dispatch; ``buffers``, the leading dim of every capacity
-    dispatch's expert buffer; ``mla_heads``, the heads of every MLA core
-    call as ``(H, query tokens > 1)``."""
-    from repro_torch.models import attention, moe
-    seen = {"experts": set(), "buffers": set(), "mla_heads": set()}
+    """A context that records what each MoE, MLA, Mamba-2 and mLSTM block
+    computed on: ``experts``, the expert stacks' leading dim (E_l) of
+    every MoE call by dispatch; ``buffers``, the leading dim of every
+    capacity dispatch's expert buffer; ``mla_heads``, ``ssm_heads`` and
+    ``mlstm_heads``, the heads of every MLA, Mamba-2 and mLSTM call as
+    ``(H, tokens > 1)``."""
+    from repro_torch.models import attention, moe, ssm, xlstm
+    seen = {"experts": set(), "buffers": set(), "mla_heads": set(),
+            "ssm_heads": set(), "mlstm_heads": set()}
     apply_moe, ffn, apply_mla = (moe.apply_moe, moe._expert_ffn,
                                  attention.apply_mla)
+    apply_mamba2, apply_mlstm = ssm.apply_mamba2, xlstm.apply_mlstm
 
     def rec_moe(cfg, p, x, **kw):
         kind = "dropless" if kw.get("dropless") else kw.get("dispatch",
@@ -222,30 +274,45 @@ def recording_shards():
         seen["mla_heads"].add((p["wq"].shape[-1] // qd, x.shape[1] > 1))
         return apply_mla(cfg, p, x, positions, **kw)
 
-    # the layers call both through their modules' attributes
+    def rec_mamba2(cfg, p, x, **kw):
+        seen["ssm_heads"].add((p["A_log"].shape[-1], x.shape[1] > 1))
+        return apply_mamba2(cfg, p, x, **kw)
+
+    def rec_mlstm(cfg, p, x, **kw):
+        seen["mlstm_heads"].add((p["w_q"].shape[0], x.shape[1] > 1))
+        return apply_mlstm(cfg, p, x, **kw)
+
+    # the layers call them through their modules' attributes
     moe._expert_ffn, moe.apply_moe = rec_ffn, rec_moe
     attention.apply_mla = rec_mla
+    ssm.apply_mamba2, xlstm.apply_mlstm = rec_mamba2, rec_mlstm
     try:
         yield seen
     finally:
         moe._expert_ffn = ffn
         moe.apply_moe = apply_moe
         attention.apply_mla = apply_mla
+        ssm.apply_mamba2, xlstm.apply_mlstm = apply_mamba2, apply_mlstm
 
 
 def expert_parallel_worker(rank, world, jobs, capacity_factor=None):
-    """Each of ``jobs`` on this rank in turn: ``("train", argv)``
-    (:func:`train_worker` at ``capacity_factor``) or ``("serve", arch,
-    seed, steps)`` (:func:`serve_worker`); returns, per job, its result
-    and what its MoE and MLA blocks computed on
-    (:func:`recording_shards`)."""
+    """Each of ``jobs`` on this rank in turn: ``("train", argv[,
+    adam_eps])`` (:func:`train_worker` at ``capacity_factor``), ``("serve", arch,
+    seed, steps[, prefill_caches])`` (:func:`serve_worker`),
+    ``("block", arch, seed, batch, seq)`` (:func:`block_worker`) or
+    ``("step", cases, trees, model)`` (:func:`mesh_step_worker`);
+    returns, per job, its result and what its MoE, MLA, Mamba-2 and
+    mLSTM blocks computed on (:func:`recording_shards`)."""
+    workers = {"serve": serve_worker, "block": block_worker,
+               "step": mesh_step_worker}
     out = []
     for job in jobs:
         with recording_shards() as seen:
             if job[0] == "train":
-                res = train_worker(rank, world, job[1], capacity_factor)
+                res = train_worker(rank, world, job[1], capacity_factor,
+                                   *job[2:])
             else:
-                res = serve_worker(rank, world, *job[1:])
+                res = workers[job[0]](rank, world, *job[1:])
         out.append((res, seen))
     return out
 

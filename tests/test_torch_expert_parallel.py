@@ -238,7 +238,7 @@ def test_gather_for_compute_keeps_the_ranks_experts_and_heads():
     def shapes(mesh, layer):
         tp = gather_for_compute(cfg, layer)
         decode = gather_for_compute(cfg, layer, attention=False,
-                                    mla_heads=False)
+                                    heads=False)
         return ({k: tuple(v.shape) for k, v in tp["mixer"].items()},
                 {k: tuple(v.shape) for k, v in tp["ffn"].items()},
                 {k: tuple(v.shape) for k, v in decode["mixer"].items()})
