@@ -516,9 +516,9 @@ def bits_equal(got, want) -> bool:
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
     nan = torch.isnan(got)
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
     return bool(torch.equal(nan, torch.isnan(want))
-                and torch.equal(got[~nan].view(torch.int32),
-                                want[~nan].view(torch.int32)))
+                and torch.equal(got[~nan].view(bits), want[~nan].view(bits)))
 
 
 def site_geometry():
@@ -5322,6 +5322,192 @@ def drive_recurrent_parallel(rows, card: str, peak_bw: float,
         torch.cuda.empty_cache()
 
 
+# 8c-gqa: a GQA attention block at full width as the 8 ranks of a
+# production mesh's ``model`` axis hold it in a serving prefill (4 of 32
+# query heads each), one rank after another in this process, in bf16
+# (``tc_prefill``) and float32 (``f32``); a prefill of B 8 x 1024 tokens
+# into each rank's heads of one cache of 1056 positions, then one decode
+# token on the filled cache
+GQA_RANKS = 8
+GQA_BATCH, GQA_PROMPT, GQA_LEN = 8, 1024, 1056
+# zamba2's shared block (32 of 32 heads of 64), llama's (32 query and 8
+# KV heads of 64)
+GQA_ARCHS = (ZAMBA_ARCH, "llama3.2-1b")
+# float32: the same sums over ``model`` as 8c-ep's.  bf16: the whole
+# block rounds one product over 2048 channels to bf16, the shards 8
+# products over 256 each (summed here in float32): a few bf16 steps of
+# outputs near 1 apart, as 8c-rec's
+GQA_TOL = REC_TOL
+# the cache the shards fill against the whole block's: bit for bit in
+# bf16; in float32 cuBLAS sums the rank's 256- or 64-column projection in
+# another order than the whole 2048- or 512-column one (on the card the
+# narrow product alone differs from the whole one's columns, by up to
+# 2.3e-6), so there the keys and values are held as float32 sums of 2048
+# products
+GQA_F32_CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def drive_attention_parallel(rows, card: str, peak_bw: float,
+                             peak_tc: float) -> None:
+    """8c-gqa: zamba2-1.2b's shared attention block and llama3.2-1b's
+    attention block at full width, from a seed, in bf16 and in float32.
+    Each of the ``GQA_RANKS`` ranks' shards (``sharding.model_shard``: the
+    columns of ``wq``, ``wk`` and ``wv`` and the rows of ``wo`` of its
+    heads) computes in turn with no process group, on the kernel route,
+    over a B 8 x 1024 prefill that writes its heads' slice of one cache
+    of ``GQA_LEN`` positions (``flash_attention`` at Hq/8 heads, counted),
+    then one decode token on that cache (its ``decode`` kernel, counted).
+    The partial outputs' sum is held against the whole block's within
+    ``GQA_TOL``, and the cache the shards filled against the whole
+    block's: bit for bit in bf16, within ``GQA_F32_CACHE_TOL`` in
+    float32.  Rank 0's prefill kernel is held against its plain
+    version and timed beside the whole block's; one rank's transient peak
+    bytes beside the whole block's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import model_shard
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+
+    B, S, L = GQA_BATCH, GQA_PROMPT, GQA_LEN
+    fa = ops.flash_attention
+    calls = []
+
+    def recording(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return fa(q, k, v, **kw)
+
+    for arch in GQA_ARCHS:
+        cfg = get_config(arch)
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        n = Hkv // GQA_RANKS
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        base = {k: v.detach() for k, v in attention.init_attn(
+            cfg, gen, torch.float32, DEV).items()}
+        x32 = torch.randn((B, S + 1, cfg.d_model), generator=gen, device=DEV)
+        pos = torch.arange(S + 1, device=DEV).expand(B, S + 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            tol = GQA_TOL[tag]
+            which = "tc_prefill" if dtype == torch.bfloat16 else "f32"
+            p = {k: v.to(dtype) for k, v in base.items()}
+            x = x32.to(dtype)
+
+            def block(params, cache):
+                """The prefill's and the decode token's outputs."""
+                return [attention.apply_attn(
+                    cfg, params, x[:, a:b], pos[:, a:b], cache=cache,
+                    cache_index=a, impl="kernel")[0]
+                    for a, b in ((0, S), (S, S + 1))]
+
+            want_cache = attention.init_kv_cache(cfg, B, L, dtype, DEV)
+            want, whole_peak = peak_of(lambda: block(p, want_cache))
+            cache = attention.init_kv_cache(cfg, B, L, dtype, DEV)
+            sums = [torch.zeros_like(o, dtype=torch.float32) for o in want]
+            peaks = []
+            reset_launches()
+            t = time.perf_counter()
+            for r in range(GQA_RANKS):
+                shard = model_shard(p, r, GQA_RANKS)
+                heads = {k: c[:, r * n:(r + 1) * n] for k, c in cache.items()}
+                outs, peak = peak_of(lambda: block(shard, heads))
+                peaks.append(peak)
+                for acc, o in zip(sums, outs):
+                    acc.add_(o.float())
+            shards_s = time.perf_counter() - t
+            launched, routes = read_launches(), read_routes()
+            split = routes["flash_attention"]
+            if launched["flash_attention"] != 2 * GQA_RANKS or \
+                    split[which] != GQA_RANKS or \
+                    split["decode"] != GQA_RANKS:
+                raise AssertionError(
+                    f"GQA shards {arch} {tag}: flash_attention launches "
+                    f"{launched['flash_attention']}, by route {split}; want "
+                    f"{GQA_RANKS} on {which} and {GQA_RANKS} decodes")
+            add_path_launches(rows, launched, routes)
+            add_wide_launches(rows)
+            errs = [compare(f"GQA shards {arch} {tag} {name}: their sum vs "
+                            f"the whole block", got, ref_o, **tol)
+                    for name, got, ref_o in zip(("prefill", "decode"), sums,
+                                                want)]
+            apart = 0
+            for k in ("k", "v"):
+                if dtype == torch.bfloat16:
+                    if not bits_equal(cache[k], want_cache[k]):
+                        raise AssertionError(
+                            f"GQA shards {arch} {tag}: the cache's {k} the "
+                            f"shards filled is not the whole block's bit "
+                            f"for bit")
+                else:
+                    compare(f"GQA shards {arch} {tag}: the cache's {k} the "
+                            f"shards filled vs the whole block's", cache[k],
+                            want_cache[k], **GQA_F32_CACHE_TOL)
+                    apart += int((cache[k] != want_cache[k]).sum())
+            filled = ("equals the whole block's bit for bit"
+                      if dtype == torch.bfloat16 else
+                      f"is within rtol {GQA_F32_CACHE_TOL['rtol']}, atol "
+                      f"{GQA_F32_CACHE_TOL['atol']} of the whole block's "
+                      f"({apart} of {2 * cache['k'].numel()} values apart)")
+
+            # rank 0's prefill kernel (Hq/8 heads, its keys a strided
+            # slice of the cache) against its plain version, timed beside
+            # the whole block's; these launches count on no path
+            calls.clear()
+            ops.flash_attention = recording
+            try:
+                scratch = attention.init_kv_cache(cfg, B, L, dtype, DEV)
+                with torch.inference_mode():
+                    block(model_shard(p, 0, GQA_RANKS),
+                          {k: c[:, :n] for k, c in scratch.items()})
+                    block(p, scratch)
+            finally:
+                ops.flash_attention = fa
+            rank0, whole_call = calls[0], calls[2]
+            q, k, v, kw = rank0
+            got = fa(q, k, v, mode="kernel", **kw)
+            ktol = FA_F32_TOL if dtype == torch.float32 else FA_BF16_TOL
+            kerr = compare(f"flash_attention {which} at {Hq // GQA_RANKS} "
+                           f"heads vs its plain version", got,
+                           ref.flash_attention(q, k, v, **kw), **ktol)
+            ms = {name: time_cuda(lambda c=c: fa(c[0], c[1], c[2],
+                                                 mode="kernel", **c[3]))
+                  for name, c in (("rank", rank0), ("whole", whole_call))}
+            plain_ms = time_cuda(lambda: ref.flash_attention(q, k, v, **kw),
+                                 reps=2, inner=1)
+            nbytes, nops = attention_cost(B, q.shape[1], k.shape[1], S, S,
+                                          q.shape[3], True, q.element_size())
+            # the tensor cores' bound, three bf16 products a float32 one
+            # as row 5c counts them
+            bound = max(nbytes / peak_bw, (3 if dtype == torch.float32
+                                           else 1) * nops / peak_tc) * 1e3
+            say(f"model-axis GQA shards ({card}): {arch} attention block at "
+                f"full width, {tag}, B {B} x {S} prefill into a cache of {L} "
+                f"then 1 decode token; {GQA_RANKS} ranks' shards ({Hq // GQA_RANKS}"
+                f" of {Hq} query and {n} of {Hkv} KV heads each) in turn: "
+                f"summed against the whole block max_abs_err "
+                f"{errs[0]:.3e} (prefill), {errs[1]:.3e} (decode) (rtol "
+                f"{tol['rtol']}, atol {tol['atol']}); the cache they filled "
+                f"{filled}; flash_attention "
+                f"{launched['flash_attention']} launches ({split}); rank "
+                f"0's {which} prefill at {Hq // GQA_RANKS} heads vs plain "
+                f"{kerr:.3e}, {ms['rank']:.4f} ms (CUDA events; the whole "
+                f"block's at {Hq} heads {ms['whole']:.4f}; plain at "
+                f"{Hq // GQA_RANKS} heads {plain_ms:.4f}; bound {bound:.4f},"
+                f" {nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP); transient"
+                f" peak bytes: rank 0 {peaks[0] / 2**30:.3f} GiB (the "
+                f"largest rank {max(peaks) / 2**30:.3f}), whole block "
+                f"{whole_peak / 2**30:.3f}; the {GQA_RANKS} ranks in turn "
+                f"{shards_s:.2f} s")
+            del want, want_cache, cache, scratch, sums, calls[:], p, x
+        del base, x32, pos
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
 REPLACES = {
     "qvp_reduce": "src/repro/kernels/qvp_reduce.py:43",
     "zr_accum": "src/repro/kernels/zr_accum.py:44",
@@ -5407,6 +5593,9 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         # 8c-rec. zamba2's Mamba-2 block as the model axis's 8 ranks hold it
         drive_recurrent_parallel(rows, card_line(), peak_bw, peak_tc)
         elapsed("8c-rec (zamba2's Mamba-2 model-axis shards)")
+        # 8c-gqa. zamba2's and llama's GQA blocks as the 8 ranks hold them
+        drive_attention_parallel(rows, card_line(), peak_bw, peak_tc)
+        elapsed("8c-gqa (GQA model-axis shards)")
         # 8d. the xLSTM serve path (mLSTM and sLSTM, no hand kernel)
         drive_xlstm_path(archive, rows)
         elapsed("8d (xlstm-1.3b serve path)")

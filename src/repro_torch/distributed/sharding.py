@@ -611,12 +611,14 @@ def gather_for_compute(cfg: ModelConfig, tree: Any, *, tp: bool = True,
     its columns of the MLP's hidden dim, its E/m experts, or its H/m
     heads of a Mamba-2 or mLSTM block, and ``layers.copy_to_model`` /
     ``reduce_from_model`` bracket the block).  ``attention=False`` gathers
-    the GQA blocks whole (serving: a cache holds every head);
-    ``heads=False`` gathers the MLA, Mamba-2 and mLSTM blocks whole (a
-    decode step: MLA's on the sequence-sharded latent cache, the
-    recurrent blocks' a step of every head; a prefill keeps its heads
-    local: the latent cache holds none, and the recurrent blocks
-    all-gather their new states' heads).  ``grads`` lets gradients flow
+    the GQA blocks whole and ``heads=False`` the MLA, Mamba-2 and mLSTM
+    blocks: a serving decode step passes both (GQA's and MLA's cores read
+    every head of a sequence-sharded cache, the recurrent blocks step
+    every head).  A prefill keeps every block's heads local: GQA's new
+    keys and values move into the cache's layout by an all-to-all
+    (:func:`kv_heads_local`), MLA's latent cache holds no heads, and the
+    recurrent blocks all-gather their new states' heads; training keeps
+    them local too.  ``grads`` lets gradients flow
     back to the stored shards.  Leaves that are not DTensors pass
     through."""
     def keeps(node) -> bool:
@@ -675,6 +677,74 @@ def model_shard(block: Dict[str, torch.Tensor], rank: int,
                 t = t.narrow(d, rank * n, n)
         out[k] = t
     return out
+
+
+def _over_model(x: torch.Tensor, mesh, *, to_all: bool) -> torch.Tensor:
+    """``x`` (contiguous) over ``mesh``'s ``model`` group along dim 0:
+    its ``m`` equal chunks sent to the ``m`` ranks in order and the chunks
+    received stacked in rank order (``to_all``, an all-to-all), or every
+    rank's ``x`` stacked in rank order (an all-gather)."""
+    ops = torch.ops._c10d_functional
+    group = mesh.get_group("model")
+    m = group.size()
+    if to_all:
+        splits = [x.shape[0] // m] * m
+        out = ops.all_to_all_single(x, splits, splits, group.group_name)
+    else:
+        out = ops.all_gather_into_tensor(x, m, group.group_name)
+    return ops.wait_tensor(out)
+
+
+def kv_heads_local(c):
+    """A GQA layer's stored ``k`` or ``v`` cache, a DTensor ``(B, Hkv, L,
+    dh)`` laid out by :func:`cache_shardings`, as the plain tensor a rank
+    computing its ``n = Hkv / m`` heads writes into and attends over:
+    ``(B_l, n, L, dh)``, its batch rows as stored and rank ``r``'s heads
+    ``[r·n, (r+1)·n)``, the slice its ``wk`` and ``wv`` shards hold; and a
+    function that writes that tensor back into the stored shard, every
+    position of it (those the call did not write come back unchanged).
+    Where the sequence is on ``model`` both moves are an all-to-all over
+    ``model``, heads for positions; where the rules replicate it there,
+    the tensor is a narrow of the rank's shard and the write-back
+    all-gathers every rank's heads.  Where the data axes shard the
+    sequence too (a batch that does not divide them; ``model`` splits
+    each data rank's block), the blocks are all-gathered over them, and
+    the rank's own block written back."""
+    from torch.distributed.tensor import Shard
+    mesh = c.device_mesh
+    names = axis_names(mesh)
+    seq = [a for a, p in zip(names, c.placements)
+           if isinstance(p, Shard) and p.dim == 2]
+    local = c.to_local()
+    m = mesh.size(names.index("model"))
+    B, Hkv, Ls, dh = local.shape
+    n = Hkv // m
+    by_model, over_data = "model" in seq, len(seq) > ("model" in seq)
+    if by_model:
+        # the heads leading: chunk j is rank j's heads at this rank's
+        # positions; received, chunk j is this rank's heads at rank j's
+        got = _over_model(local.movedim(1, 0).contiguous(), mesh,
+                          to_all=True)
+        view = got.reshape(m, n, B, Ls, dh).permute(2, 1, 0, 3, 4) \
+            .reshape(B, n, m * Ls, dh)
+    else:
+        view = local.narrow(1, mesh.get_local_rank("model") * n, n)
+    block = view.shape[2]
+    if over_data:
+        view = _over_data(view.movedim(2, 0), mesh, gather=True) \
+            .movedim(0, 2).contiguous()
+
+    def write_back():
+        part = view.narrow(2, data_rank(mesh) * block, block) \
+            if over_data else view
+        if by_model:
+            parts = part.reshape(B, n, m, Ls, dh).permute(2, 1, 0, 3, 4)
+            back = _over_model(parts.contiguous(), mesh, to_all=True)
+        else:
+            back = _over_model(part.movedim(1, 0).contiguous(), mesh,
+                               to_all=False)
+        local.copy_(back.reshape(Hkv, B, Ls, dh).movedim(0, 1))
+    return view, write_back
 
 
 def to_local(tree: Any) -> Any:

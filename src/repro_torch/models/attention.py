@@ -374,7 +374,13 @@ def apply_attn(
 
     The new keys and values are written in place into the preallocated
     cache at ``cache_index`` (the reference's ``dynamic_update_slice``
-    returns a new array); the returned cache is the same dict.
+    returns a new array); the returned cache is the same dict.  On a mesh
+    a serving prefill's rank holds its Hq/m and Hkv/m heads: ``p``'s
+    ``wq``/``wk``/``wv`` columns and ``wo`` rows of them, and ``cache``
+    plain tensors of its Hkv/m heads over the whole sequence
+    (``sharding.kv_heads_local``); its output is a partial sum that
+    ``reduce_from_model`` completes.  A decode step holds every head, its
+    cache a DTensor where the sequence is sharded (``flash_decode``).
     """
     B, S, D = x.shape
     dh = cfg.head_dim

@@ -31,7 +31,7 @@ from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
 from ..distributed.sharding import (constrain_like_params,
                                     gather_for_compute, is_dtensor,
-                                    rows_sharded, to_local)
+                                    kv_heads_local, rows_sharded, to_local)
 from .layers import (DP, apply_norm, constrain, embed_tokens,
                      init_embeddings, init_norm, unembed,
                      vocab_parallel_terms)
@@ -458,15 +458,16 @@ def decode_step(
     run's prefill and decode cells keep only the last position's, and
     XLA computes no more of the reference's."""
     compute_dtype = _dtype(pcfg.compute_dtype)
-    # on a mesh: the parameters gathered layer by layer (GQA attention
-    # whole; MLPs, MoE experts and a prefill's MLA, Mamba-2 and mLSTM
-    # heads tensor-parallel), the caches as laid out by cache_shardings
+    # on a mesh: the parameters gathered layer by layer (MLPs and MoE
+    # experts tensor-parallel, and a prefill's GQA, MLA, Mamba-2 and mLSTM
+    # heads; a decode step's attention and recurrent heads whole), the
+    # caches as laid out by cache_shardings
     cparams = compute_params(params, compute_dtype, gather=False)
     sharded = is_dtensor(cparams["final_norm"]["scale"])
     # a batch whose rows do not divide the data ranks is whole on each
     replicated_rows = False
     if sharded:
-        cparams = {k: v if k == "groups" else
+        cparams = {k: v if k in ("groups", "shared") else
                    gather_for_compute(cfg, v, tp=False)
                    for k, v in cparams.items()}
         replicated_rows = not rows_sharded(tokens_or_embeds)
@@ -486,7 +487,7 @@ def decode_step(
     emb0 = x
     shared = cparams.get("shared")
     if sharded and shared is not None:
-        shared = gather_for_compute(cfg, shared, attention=False)
+        shared = gather_for_compute(cfg, shared, attention=S > 1)
     dropless = S <= 64
     for gi, (reps, unit) in enumerate(layer_groups(cfg)):
         for r in range(reps):
@@ -494,14 +495,15 @@ def decode_step(
                             for i in range(len(unit))]
             up = cparams["groups"][gi][r]
             if sharded:
-                # GQA whole (its cache holds every head); MLA, Mamba-2
-                # and mLSTM on this rank's heads for a prefill (the
-                # recurrent blocks all-gather their new states' heads),
-                # whole for a decode step
-                up = gather_for_compute(cfg, up, attention=False,
+                # a prefill on this rank's heads (a GQA cache moved to
+                # them and back, the recurrent blocks all-gathering their
+                # new states' heads), a decode step on every head
+                up = gather_for_compute(cfg, up, attention=S > 1,
                                         heads=S > 1)
                 layer_caches, write_back = _local_caches(
-                    layer_caches, attn_impl == "flash_decode" and S == 1)
+                    layer_caches, attn_impl == "flash_decode" and S == 1,
+                    [_gqa_heads_local(cfg, spec, up, shared, i)
+                     for i, spec in enumerate(unit)])
             x, _aux, _ = apply_unit(cfg, unit, up, shared, x, positions,
                                     caches=layer_caches, cache_index=start,
                                     attn_impl=attn_impl, emb0=emb0,
@@ -515,21 +517,41 @@ def decode_step(
     return unembed(cfg, cparams["embed"], x), caches
 
 
-def _local_caches(layer_caches, keep_kv: bool):
+def _gqa_heads_local(cfg: ModelConfig, spec: LayerSpec, up, shared,
+                    i: int) -> bool:
+    """Whether unit position ``i`` (``spec``) is a GQA block whose
+    gathered weights (``up``, the unit's; ``shared``, zamba2's shared
+    block) hold fewer than the model's KV heads: it computes the rank's
+    heads, on a cache view of those heads."""
+    if spec.mixer not in ("attn", "shared_attn"):
+        return False
+    p = shared["mixer"] if spec.mixer == "shared_attn" \
+        else up[f"layer_{i}"]["mixer"]
+    return p["wk"].shape[-1] < cfg.n_kv_heads * cfg.head_dim
+
+
+def _local_caches(layer_caches, keep_kv: bool, heads: List[bool]):
     """One layer's DTensor caches as the tensors its mixer updates in
     place: each leaf gathered to this rank's batch rows whole along its
     other dims (a view, where it is sharded on the batch alone), and a
     function that writes the updated rows back into the stored shards.
-    With ``keep_kv`` (a flash-decode step) attention's ``k`` and ``v``
-    stay DTensors where their sequence is sharded: the decode core
-    reduces each rank's own keys (a sequence that does not divide the
-    ranks is replicated by the rules, and gathered as any other leaf)."""
+    Where ``heads[i]`` holds, unit position ``i``'s ``k`` and ``v`` are
+    this rank's KV heads instead (:func:`sharding.kv_heads_local`: a
+    prefill's GQA block computing its heads).  With ``keep_kv`` (a
+    flash-decode step) attention's ``k`` and ``v`` stay DTensors where
+    their sequence is sharded: the decode core reduces each rank's own
+    keys (a sequence that does not divide the ranks is replicated by the
+    rules, and gathered as any other leaf)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     backs = []
 
-    def local(name, c):
+    def local(name, c, by_heads):
+        if by_heads and name in ("k", "v") and is_dtensor(c):
+            view, back = kv_heads_local(c)
+            backs.append(back)
+            return view
         if not is_dtensor(c) or (
                 keep_kv and name in ("k", "v")
                 and any(isinstance(p, Shard) and p.dim == 2
@@ -541,19 +563,23 @@ def _local_caches(layer_caches, keep_kv: bool):
         if list(c.placements) == rows:
             return c.to_local()
         full = c.redistribute(mesh, rows).to_local()
-        backs.append((c, full, rows))
-        return full
 
-    out = [{k: local(k, c) for k, c in lc.items()} for lc in layer_caches]
-
-    def write_back():
-        for c, full, rows in backs:
+        def back():
             lshape, off = compute_local_shape_and_global_offset(
-                c.shape, c.device_mesh, c.placements)
+                c.shape, mesh, c.placements)
             _ls, off_full = compute_local_shape_and_global_offset(
-                c.shape, c.device_mesh, rows)
+                c.shape, mesh, rows)
             part = full
             for d in range(full.ndim):
                 part = part.narrow(d, off[d] - off_full[d], lshape[d])
             c.to_local().copy_(part)
+        backs.append(back)
+        return full
+
+    out = [{k: local(k, c, h) for k, c in lc.items()}
+           for lc, h in zip(layer_caches, heads)]
+
+    def write_back():
+        for back in backs:
+            back()
     return out, write_back

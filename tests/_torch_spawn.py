@@ -246,17 +246,19 @@ def block_worker(rank, world, arch, seed, batch, seq):
 
 @contextlib.contextmanager
 def recording_shards():
-    """A context that records what each MoE, MLA, Mamba-2 and mLSTM block
-    computed on: ``experts``, the expert stacks' leading dim (E_l) of
-    every MoE call by dispatch; ``buffers``, the leading dim of every
-    capacity dispatch's expert buffer; ``mla_heads``, ``ssm_heads`` and
-    ``mlstm_heads``, the heads of every MLA, Mamba-2 and mLSTM call as
-    ``(H, tokens > 1)``."""
+    """A context that records what each MoE, GQA, MLA, Mamba-2 and mLSTM
+    block computed on: ``experts``, the expert stacks' leading dim (E_l)
+    of every MoE call by dispatch; ``buffers``, the leading dim of every
+    capacity dispatch's expert buffer; ``attn_weights``, the shapes of
+    every GQA call's ``wq`` and ``wo`` as ``(wq, wo, tokens > 1)``;
+    ``mla_heads``, ``ssm_heads`` and ``mlstm_heads``, the heads of every
+    MLA, Mamba-2 and mLSTM call as ``(H, tokens > 1)``."""
     from repro_torch.models import attention, moe, ssm, xlstm
-    seen = {"experts": set(), "buffers": set(), "mla_heads": set(),
-            "ssm_heads": set(), "mlstm_heads": set()}
+    seen = {"experts": set(), "buffers": set(), "attn_weights": set(),
+            "mla_heads": set(), "ssm_heads": set(), "mlstm_heads": set()}
     apply_moe, ffn, apply_mla = (moe.apply_moe, moe._expert_ffn,
                                  attention.apply_mla)
+    apply_attn = attention.apply_attn
     apply_mamba2, apply_mlstm = ssm.apply_mamba2, xlstm.apply_mlstm
 
     def rec_moe(cfg, p, x, **kw):
@@ -268,6 +270,11 @@ def recording_shards():
     def rec_ffn(p, xe):
         seen["buffers"].add(xe.shape[0])
         return ffn(p, xe)
+
+    def rec_attn(cfg, p, x, positions, **kw):
+        seen["attn_weights"].add((tuple(p["wq"].shape), tuple(p["wo"].shape),
+                                  x.shape[1] > 1))
+        return apply_attn(cfg, p, x, positions, **kw)
 
     def rec_mla(cfg, p, x, positions, **kw):
         qd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
@@ -284,14 +291,14 @@ def recording_shards():
 
     # the layers call them through their modules' attributes
     moe._expert_ffn, moe.apply_moe = rec_ffn, rec_moe
-    attention.apply_mla = rec_mla
+    attention.apply_mla, attention.apply_attn = rec_mla, rec_attn
     ssm.apply_mamba2, xlstm.apply_mlstm = rec_mamba2, rec_mlstm
     try:
         yield seen
     finally:
         moe._expert_ffn = ffn
         moe.apply_moe = apply_moe
-        attention.apply_mla = apply_mla
+        attention.apply_mla, attention.apply_attn = apply_mla, apply_attn
         ssm.apply_mamba2, xlstm.apply_mlstm = apply_mamba2, apply_mlstm
 
 
@@ -299,12 +306,15 @@ def expert_parallel_worker(rank, world, jobs, capacity_factor=None):
     """Each of ``jobs`` on this rank in turn: ``("train", argv[,
     adam_eps])`` (:func:`train_worker` at ``capacity_factor``), ``("serve", arch,
     seed, steps[, prefill_caches])`` (:func:`serve_worker`),
-    ``("block", arch, seed, batch, seq)`` (:func:`block_worker`) or
-    ``("step", cases, trees, model)`` (:func:`mesh_step_worker`);
-    returns, per job, its result and what its MoE, MLA, Mamba-2 and
-    mLSTM blocks computed on (:func:`recording_shards`)."""
+    ``("block", arch, seed, batch, seq)`` (:func:`block_worker`),
+    ``("step", cases, trees, model)`` (:func:`mesh_step_worker`) or
+    ``("chunks", arch, kv_heads, max_len, batch, model[, fill,
+    prefill_impl])``
+    (:func:`chunked_serve_worker`); returns, per job, its result and what
+    its MoE, GQA, MLA, Mamba-2 and mLSTM blocks computed on
+    (:func:`recording_shards`)."""
     workers = {"serve": serve_worker, "block": block_worker,
-               "step": mesh_step_worker}
+               "step": mesh_step_worker, "chunks": chunked_serve_worker}
     out = []
     for job in jobs:
         with recording_shards() as seen:
@@ -374,3 +384,110 @@ def gather_rows_worker(rank, world, rows):
     weights = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape)
     (y * weights).sum().backward()
     return r, y.detach().numpy(), x.grad.numpy()
+
+
+# the chunked serving run: a prefill of PREFILL tokens (at cache index
+# FILLED_START where the cache starts filled), a second chunk of CHUNK
+# tokens after it, DECODES flash-decode steps
+PREFILL, CHUNK, DECODES, FILLED_START = 8, 4, 4, 2
+
+
+def chunked_config(arch, kv_heads=None):
+    """``arch``'s ``.reduced()`` configuration, with ``n_kv_heads``
+    replaced where ``kv_heads`` is given."""
+    from repro_torch.configs import get_any_config
+    cfg = get_any_config(arch).reduced()
+    return cfg if kv_heads is None else dataclasses.replace(
+        cfg, n_kv_heads=kv_heads)
+
+
+def serve_chunks(cfg, batch, max_len, mesh=None, fill=False,
+                 prefill_impl="blocked"):
+    """A prefill of ``PREFILL`` tokens at cache index 0 (``FILLED_START``
+    with ``fill``), a second chunk of ``CHUNK`` tokens and ``DECODES`` greedy flash-decode steps of
+    ``cfg`` in float32 from seed 0, on ``mesh`` (parameters, caches and
+    tokens laid out by the rules) or in one process.  ``fill``: every
+    attention cache's head ``h`` starts filled with ``h + 1`` (``k``) and
+    ``-(h + 1)`` (``v``): the positions before the prefill hold them.
+    The prefill chunks run on the ``prefill_impl`` core, the decode
+    steps on ``flash_decode`` over the tokens after the chunk (not
+    greedy: each rank's logits are its own rows).  Returns this rank's first batch row, each step's last-position logits
+    of its rows, and the caches gathered whole after each prefill chunk
+    and after the last step (``[group][position] -> {name: array}``)."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  cache_shardings,
+                                                  distribute,
+                                                  param_shardings,
+                                                  shard_region)
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference, unstack
+    pcfg = ParallelConfig(compute_dtype="float32", kv_cache_dtype="float32",
+                          remat="none")
+    params = to_reference(M.init_params(cfg, 0, device="cpu"))
+    caches = M.init_caches(cfg, pcfg, batch, max_len, device="cpu")
+    if fill:
+        for group in caches:
+            for c in group:
+                if "k" in c:
+                    heads = torch.arange(1, cfg.n_kv_heads + 1,
+                                         dtype=torch.float32)
+                    c["k"].copy_(heads[None, None, :, None, None]
+                                 .expand_as(c["k"]))
+                    c["v"].copy_(-c["k"])
+    toks = torch.randint(0, cfg.vocab_size,
+                         (batch, PREFILL + CHUNK + DECODES),
+                         generator=torch.Generator().manual_seed(1))
+    row0 = 0
+
+    def lay(tokens):
+        if mesh is None:
+            return tokens
+        return distribute({"t": tokens}, batch_shardings(
+            mesh, {"t": tokens}), mesh)["t"]
+
+    def whole(cs):
+        return [[{k: (c.full_tensor() if mesh is not None else c)
+                  .clone().numpy() for k, c in d.items()} for d in group]
+                for group in cs]
+
+    if mesh is not None:
+        params = distribute(params, param_shardings(cfg, pcfg, params, mesh),
+                            mesh)
+        caches = distribute(caches, cache_shardings(mesh, caches), mesh)
+        row0 = shard_region(tuple(toks.shape), batch_shardings(
+            mesh, {"t": toks})["t"], mesh)[0].start
+    params = unstack(params)
+    logits, after = [], []
+    start = FILLED_START if fill else 0
+    with (set_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        for at, piece in ((start, toks[:, :PREFILL]),
+                          (start + PREFILL, toks[:, PREFILL:PREFILL + CHUNK])):
+            out, caches = M.decode_step(cfg, pcfg, params, caches,
+                                        lay(piece), at,
+                                        attn_impl=prefill_impl,
+                                        last_only=True)
+            logits.append(out[:, -1].numpy())
+            after.append(whole(caches))
+        at = start + PREFILL + CHUNK
+        for i in range(DECODES):
+            out, caches = M.decode_step(
+                cfg, pcfg, params, caches,
+                lay(toks[:, PREFILL + CHUNK + i:][:, :1]), at + i,
+                attn_impl="flash_decode", last_only=True)
+            logits.append(out[:, -1].numpy())
+        after.append(whole(caches))
+    return row0, logits, after
+
+
+def chunked_serve_worker(rank, world, arch, kv_heads, max_len, batch, model,
+                         fill=False, prefill_impl="blocked"):
+    """:func:`serve_chunks` of ``chunked_config(arch, kv_heads)`` on a
+    ``(world / model, model)`` mesh."""
+    _src()
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model, device_type="cpu")
+    return serve_chunks(chunked_config(arch, kv_heads), batch, max_len,
+                        mesh, fill, prefill_impl)

@@ -3,8 +3,9 @@ of 256 and 512 ranks: ``prefill_32k`` (MLA and the MoE FFN, costed from
 the probes) and ``decode_32k`` (one token a step on the sequence-sharded
 flash-decode core), each in a subprocess so its fake group never meets
 another test; both meshes traced, the parameters' bytes per device the
-reference's specs' (``tests/test_torch_dryrun.py`` holds the rest); and
-llama4-maverick's ``decode_32k``, its experts sharded over ``model``."""
+reference's specs' (``tests/test_torch_dryrun.py`` holds the rest);
+llama4-maverick's ``decode_32k``, its experts sharded over ``model``;
+and llama3.2-1b's ``prefill_32k``, its GQA heads over ``model``."""
 
 import pytest
 
@@ -51,3 +52,18 @@ def test_maverick_decode_cell_holds_its_ranks_experts(tmp_path):
     temp = {k: m["memory"]["temp_bytes_per_device"] / 2**30
             for k, m in rec["meshes"].items()}
     assert temp["pod"] <= 54.46 - 20 and temp["multipod"] <= 59.15 - 20
+
+
+def test_llama_prefill_cell_computes_its_ranks_heads(tmp_path):
+    """llama3.2-1b's prefill computes 4 of 32 query heads and 1 of 8 KV
+    heads a rank on ``(32, 8)``, each layer's keys and values moved
+    between its heads and the cache's sequence shard by an all-to-all:
+    the peak a device is at most half the 17.96 GiB predicted while each
+    rank computed every head."""
+    arch, shape = "llama3.2-1b", "prefill_32k"
+    rec = run_dryrun(tmp_path, arch, shape)
+    check_cell(rec, arch, shape)
+    pod = rec["meshes"]["pod"]
+    assert pod["memory"]["peak_bytes_per_device"] / 2**30 <= 17.96 / 2
+    # the traced step's own collectives (the probes run without caches)
+    assert pod["runtime_cost"]["per_collective"]["all-to-all"] > 0
