@@ -1316,6 +1316,18 @@ def profiled_kernel_names(fn, tries: int = 3) -> str:
                                            key=lambda kv: -kv[1]))
 
 
+def first_kernels(names: str, n: int = 3, width: int = 60) -> str:
+    """The first ``n`` kernels of :func:`profiled_kernel_names`' list,
+    each name cut to ``width`` characters, and how many more it named."""
+    parts = names.split("; ")
+    out = []
+    for part in parts[:n]:
+        name, sep, ms = part.rpartition(" ms")[0].rpartition(" ")
+        out.append(f"{name[:width]} {ms} ms" if sep else part[:width])
+    more = f"; {len(parts) - n} more" if len(parts) > n else ""
+    return "; ".join(out) + more
+
+
 def rejected(label: str, what: str, bad, want, tol) -> None:
     """``bad`` (what a faulty kernel would give) must fail the elementwise
     check ``tol`` against ``want``."""
@@ -3656,6 +3668,18 @@ def drive_deepseek_path(archive, rows) -> None:
 EP_RANKS = 8
 EP_BATCH, EP_PROMPT = 8, 1024
 EP_TOL = dict(rtol=1e-4, atol=1e-5)        # tests/test_torch_mesh_train.py
+# 8c-ep's decode step on the latent cache's sequence shards: one cache of
+# EP_SEQ_LEN positions (8 shards of 132, as 8c-gqa's), the step at each
+# kv_len of EP_SEQ_KV: every shard filled (the last in part), and inside
+# rank 0's shard (the other 7 hold no filled position)
+EP_SEQ_LEN = 1056
+EP_SEQ_KV = (1025, 100)
+# float32: the partials' float32 sums in 8 chunks against the whole
+# block's in one, as 8c-ep's.  bf16: both sum in float32 too, but the
+# attention output is rounded to bf16 before ``wo`` and the token after
+# it, where one ulp of a rounding that falls apart moves an output near 1
+# by 2**-8 (REC_TOL's)
+EP_SEQ_TOL = {"float32": EP_TOL, "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
 
 def drive_expert_parallel(rows, card: str) -> None:
@@ -3762,6 +3786,7 @@ def drive_expert_parallel(rows, card: str) -> None:
         f"{peaks[0] / 2**30:.3f} GiB (the largest rank "
         f"{max(peaks) / 2**30:.3f}), whole block {whole_peak / 2**30:.3f}; "
         f"the {EP_RANKS} ranks in turn {shards_s:.2f} s")
+    drive_mla_sequence_shards(cfg, mla, card)
     del mla, ffn, whole, sums, x
     gc.collect()
     if DEV == "cuda":
@@ -5129,6 +5154,120 @@ def drive_dry_real(card: str) -> None:
 # production mesh's ``model`` axis hold it (8 of the 64 heads each), one
 # rank after another in this process, in bf16 (``chunk_tc``) and float32
 # (``f32``); a prefill of B 8 x 1024 tokens from a zeroed state
+def drive_mla_sequence_shards(cfg, mla, card: str) -> None:
+    """8c-ep's decode step on a sequence-sharded latent cache, as the
+    ``model`` ranks of a mesh run it (``decode_step(attn_impl=
+    "flash_decode")``): deepseek-v2-lite's MLA block ``mla`` at full
+    width (every head; ``wq``, ``w_uk``, ``w_uv`` and ``wo`` whole) in
+    float32 and bf16, a latent cache of ``EP_SEQ_LEN`` positions filled
+    from a seed up to ``kv_len - 1``, and the ``EP_RANKS`` ranks' shards
+    of it in turn, with no process group: the shard that holds position
+    ``kv_len - 1`` takes the new token (``attention.write_rows``), each
+    expands all 16 heads over its positions below ``kv_len`` and no
+    others (``attention.mla_shard_partials``), and the partials meet in
+    ``attention.combine_shards``.  Held against the whole block's decode
+    token (``apply_mla`` on the whole cache, ``flash_decode``) within
+    ``EP_SEQ_TOL`` at each of ``EP_SEQ_KV``, the cache the shards wrote
+    against the whole block's bit for bit; rank 0's transient peak bytes
+    beside the whole block's."""
+    import torch
+    from repro_torch.models import attention
+
+    B, L, n = EP_BATCH, EP_SEQ_LEN, EP_SEQ_LEN // EP_RANKS
+    H = cfg.n_heads
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    x32 = torch.randn((B, 1, cfg.d_model), generator=gen, device=DEV)
+    filled32 = {k: torch.randn((B, L, w), generator=gen, device=DEV)
+                for k, w in (("latent", cfg.mla.kv_lora_rank),
+                             ("k_rope", cfg.mla.qk_rope_head_dim))}
+    expand = attention._mla_expand
+    expanded = []
+
+    def counting_expand(cfg_, p_, latent, k_rope, heads):
+        expanded.append((heads, latent.shape[1]))
+        return expand(cfg_, p_, latent, k_rope, heads)
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        tol = EP_SEQ_TOL[tag]
+        p = {k: v.to(dtype) for k, v in mla.items()}
+        x = x32.to(dtype)
+        for kv_len in EP_SEQ_KV:
+            start = kv_len - 1
+            pos = torch.full((B, 1), start, device=DEV)
+            below = torch.arange(L, device=DEV)[None, :, None] < start
+            base = {k: torch.where(below, c, 0).to(dtype)
+                    for k, c in filled32.items()}
+            whole_cache = {k: c.clone() for k, c in base.items()}
+            want, whole_peak = peak_of(lambda: attention.apply_mla(
+                cfg, p, x, pos, cache=whole_cache, cache_index=start,
+                impl="flash_decode")[0])
+            cache = {k: c.clone() for k, c in base.items()}
+            with torch.inference_mode():
+                q, latent, k_rope = attention.mla_project(cfg, p, x, pos)
+            parts, peaks = [], []
+            expanded.clear()
+            attention._mla_expand = counting_expand
+            try:
+                t = time.perf_counter()
+                for r in range(EP_RANKS):
+                    shard = {k: c[:, r * n:(r + 1) * n]
+                             for k, c in cache.items()}
+
+                    def rank_step(r=r, shard=shard):
+                        if r * n <= start < (r + 1) * n:
+                            for k, rows in (("latent", latent),
+                                            ("k_rope", k_rope)):
+                                attention.write_rows(shard[k], rows,
+                                                     start - r * n, 1)
+                        return attention.mla_shard_partials(
+                            cfg, p, q, shard["latent"], shard["k_rope"],
+                            offset=r * n, kv_len=kv_len)
+                    part, peak = peak_of(rank_step)
+                    parts.append(part)
+                    peaks.append(peak)
+                with torch.inference_mode():
+                    o = attention.combine_shards(
+                        [torch.cat(t, dim=3) for t in zip(*parts)])
+                    got = o.to(dtype).transpose(1, 2).reshape(B, 1, -1) \
+                        @ p["wo"]
+                sync()
+                shards_s = time.perf_counter() - t
+            finally:
+                attention._mla_expand = expand
+            want_expanded = [(H, max(0, min(n, kv_len - r * n)))
+                             for r in range(EP_RANKS)]
+            if expanded != want_expanded:
+                raise AssertionError(
+                    f"MLA sequence shards {tag} kv_len {kv_len}: the ranks "
+                    f"expanded (heads, positions) {expanded}, want "
+                    f"{want_expanded}")
+            for k in cache:
+                if not bits_equal(cache[k], whole_cache[k]):
+                    raise AssertionError(
+                        f"MLA sequence shards {tag} kv_len {kv_len}: the "
+                        f"cache's {k} the shards wrote is not the whole "
+                        f"block's bit for bit")
+            err = compare(f"MLA sequence shards {tag} kv_len {kv_len}: the "
+                          f"combined decode token vs the whole block's",
+                          got, want, **tol)
+            say(f"model-axis MLA sequence shards ({card}): deepseek-v2-lite "
+                f"MLA block at full width, {tag}, B {B}, one decode token on "
+                f"a latent cache of {L} positions at kv_len {kv_len}; "
+                f"{EP_RANKS} ranks' shards of {n} positions in turn, each "
+                f"expanding all {H} heads over its filled positions "
+                f"({', '.join(str(e[1]) for e in expanded)}), the partials "
+                f"combined: vs the whole block max_abs_err {err:.3e} (rtol "
+                f"{tol['rtol']}, atol {tol['atol']}); the cache bit for bit;"
+                f" transient peak bytes: rank 0 {peaks[0] / 2**30:.4f} GiB "
+                f"(the largest rank {max(peaks) / 2**30:.4f}), whole block "
+                f"{whole_peak / 2**30:.4f}; the {EP_RANKS} ranks in turn "
+                f"{shards_s:.3f} s")
+            del want, whole_cache, cache, parts, o, got, base
+    say(f"model-axis MLA sequence shards: {time.perf_counter() - t0:.2f} s")
+
+
 REC_RANKS = 8
 REC_BATCH, REC_PROMPT = 8, 1024
 # float32: the same sums over ``model`` as 8c-ep's.  bf16: the whole
@@ -5348,7 +5487,7 @@ GQA_F32_CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def drive_attention_parallel(rows, card: str, peak_bw: float,
-                             peak_tc: float) -> None:
+                             peak_flops: float, peak_tc: float) -> None:
     """8c-gqa: zamba2-1.2b's shared attention block and llama3.2-1b's
     attention block at full width, from a seed, in bf16 and in float32.
     Each of the ``GQA_RANKS`` ranks' shards (``sharding.model_shard``: the
@@ -5361,7 +5500,8 @@ def drive_attention_parallel(rows, card: str, peak_bw: float,
     ``GQA_TOL``, and the cache the shards filled against the whole
     block's: bit for bit in bf16, within ``GQA_F32_CACHE_TOL`` in
     float32.  Rank 0's prefill kernel is held against its plain
-    version and timed beside the whole block's; one rank's transient peak
+    version and timed beside the whole block's and SDPA's at its heads,
+    its decode kernel the same beside SDPA; one rank's transient peak
     bytes beside the whole block's."""
     import torch
     from repro_torch.configs import get_config
@@ -5477,12 +5617,40 @@ def drive_attention_parallel(rows, card: str, peak_bw: float,
                   for name, c in (("rank", rank0), ("whole", whole_call))}
             plain_ms = time_cuda(lambda: ref.flash_attention(q, k, v, **kw),
                                  reps=2, inner=1)
+            # SDPA at the rank's heads, the library time of rows 5a (bf16)
+            # and 5c (float32, its kernel named); never called by the port
+            sdpa_ms = time_cuda(lambda: sdpa(q, k, v, True))
+            sdpa_kernel = (first_kernels(profiled_kernel_names(
+                lambda: sdpa(q, k, v, True))) if dtype == torch.float32
+                else None)
             nbytes, nops = attention_cost(B, q.shape[1], k.shape[1], S, S,
                                           q.shape[3], True, q.element_size())
             # the tensor cores' bound, three bf16 products a float32 one
             # as row 5c counts them
             bound = max(nbytes / peak_bw, (3 if dtype == torch.float32
                                            else 1) * nops / peak_tc) * 1e3
+            # rank 0's decode call (8 of the phase's 32 decode launches are
+            # this arch and dtype's, one a rank): its kernel against its
+            # plain version, timed by events and the profiler beside SDPA,
+            # bound as row 5b bounds it
+            dq, dk, dv, dkw = calls[1]
+
+            def dkern():
+                return fa(dq, dk, dv, mode="kernel", **dkw)
+            derr = compare(f"flash_attention decode at {Hq // GQA_RANKS} "
+                           f"heads vs its plain version", dkern(),
+                           ref.flash_attention(dq, dk, dv, **dkw), **ktol)
+            dec = {"ms": time_cuda(dkern),
+                   "device_ms": profiled_device_ms(dkern, "flash_decode"),
+                   "plain_ms": time_cuda(
+                       lambda: ref.flash_attention(dq, dk, dv, **dkw),
+                       reps=3, inner=3),
+                   "library_ms": time_cuda(lambda: sdpa(dq, dk, dv, True))}
+            dbytes, dops = attention_cost(B, dq.shape[1], dk.shape[1], 1,
+                                          dk.shape[2], dq.shape[3], True,
+                                          dq.element_size())
+            dec_bound = max(dbytes / peak_bw, dops / (
+                peak_tc if dtype == torch.bfloat16 else peak_flops)) * 1e3
             say(f"model-axis GQA shards ({card}): {arch} attention block at "
                 f"full width, {tag}, B {B} x {S} prefill into a cache of {L} "
                 f"then 1 decode token; {GQA_RANKS} ranks' shards ({Hq // GQA_RANKS}"
@@ -5495,8 +5663,16 @@ def drive_attention_parallel(rows, card: str, peak_bw: float,
                 f"0's {which} prefill at {Hq // GQA_RANKS} heads vs plain "
                 f"{kerr:.3e}, {ms['rank']:.4f} ms (CUDA events; the whole "
                 f"block's at {Hq} heads {ms['whole']:.4f}; plain at "
-                f"{Hq // GQA_RANKS} heads {plain_ms:.4f}; bound {bound:.4f},"
-                f" {nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} GFLOP); transient"
+                f"{Hq // GQA_RANKS} heads {plain_ms:.4f}; SDPA at "
+                f"{Hq // GQA_RANKS} heads {sdpa_ms:.4f}"
+                f"{f' ({sdpa_kernel})' if sdpa_kernel else ''}; bound "
+                f"{bound:.4f}, {nbytes / 1e6:.2f} MB, {nops / 1e9:.2f} "
+                f"GFLOP); rank 0's decode at {Hq // GQA_RANKS} heads on "
+                f"{dk.shape[2]} keys vs plain {derr:.3e}, events "
+                f"{dec['ms']:.4f} ms, device {fmt_ms(dec['device_ms'])} "
+                f"(plain {dec['plain_ms']:.4f}, SDPA "
+                f"{dec['library_ms']:.4f}, bound {dec_bound:.4f}, "
+                f"{dbytes / 1e6:.3f} MB); transient"
                 f" peak bytes: rank 0 {peaks[0] / 2**30:.3f} GiB (the "
                 f"largest rank {max(peaks) / 2**30:.3f}), whole block "
                 f"{whole_peak / 2**30:.3f}; the {GQA_RANKS} ranks in turn "
@@ -5594,7 +5770,8 @@ def run_phases(peak_bw: float, peak_flops: float, peak_tc: float):
         drive_recurrent_parallel(rows, card_line(), peak_bw, peak_tc)
         elapsed("8c-rec (zamba2's Mamba-2 model-axis shards)")
         # 8c-gqa. zamba2's and llama's GQA blocks as the 8 ranks hold them
-        drive_attention_parallel(rows, card_line(), peak_bw, peak_tc)
+        drive_attention_parallel(rows, card_line(), peak_bw, peak_flops,
+                                 peak_tc)
         elapsed("8c-gqa (GQA model-axis shards)")
         # 8d. the xLSTM serve path (mLSTM and sLSTM, no hand kernel)
         drive_xlstm_path(archive, rows)

@@ -172,6 +172,13 @@ _CACHE_DIMS = {
 }
 
 
+def cache_seq_dim(name: str) -> Optional[int]:
+    """The sequence dim of one layer's cache leaf ``name`` (the unstacked
+    layout), or ``None`` for a state of O(1) size."""
+    dims = _CACHE_DIMS.get(name)
+    return None if dims is None else dims[2]
+
+
 def _cache_leaf(name: str, shape: Tuple[int, ...], mesh) -> Spec:
     dp, dp_size = _dp(mesh)
     model_size = axis_sizes(mesh).get("model", 1)

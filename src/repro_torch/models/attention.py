@@ -30,7 +30,9 @@ slices the output back, as the reference does.
 Two more cores, as in the reference: ``impl="flash_decode"``
 (:func:`_flash_decode_core`), decode attention over a cache whose sequence
 dim is split in chunks (over the mesh's ``model`` axis: each rank reduces
-its own keys and only ``(B, H, 1, D)`` partials cross the links), and
+its own keys and only ``(B, H, 1, D)`` partials cross the links; an MLA
+decode step expands every head over the rank's own positions of the
+latent cache, :func:`mla_shard_partials`), and
 ``impl="kernel_proxy"`` (:func:`_kernel_proxy_core`), the costing probe's
 byte model of the fused kernel.
 """
@@ -210,50 +212,81 @@ def _combine_chunks(m_c, l_c, o_c, all_max=None, all_sum=None):
     return lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
 
 
+def seq_shard(c, dim: int):
+    """Where a DTensor cache ``c`` whose dim ``dim`` is its sequence lies:
+    ``(the global position of this rank's first one, the mesh dims that
+    shard it)``; the cache must be sharded on its batch (dim 0) and
+    sequence dims alone."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if any(isinstance(p, Shard) and p.dim not in (0, dim)
+           for p in c.placements):
+        raise ValueError(f"the cache is sharded off its batch and sequence "
+                         f"dims: {c.placements}")
+    _shape, offset = compute_local_shape_and_global_offset(
+        c.shape, c.device_mesh, c.placements)
+    return offset[dim], [i for i, p in enumerate(c.placements)
+                         if isinstance(p, Shard) and p.dim == dim]
+
+
+def shard_partials(q, k, v, *, scale: float, offset: int, limit: int):
+    """One sequence shard's flash-decoding partials, as one chunk of
+    :func:`_chunk_partials`: ``q`` (B, Hq, 1, D) the step's query rows,
+    ``k`` (B, Hkv, Sl, D) and ``v`` (B, Hkv, Sl, Dv) the keys and values
+    at global positions ``offset ...``, masked from ``limit`` on.  A
+    shard of no keys gives the neutral partial (m = -1e30, l = 0, o = 0),
+    which the combine weighs at 0."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sl, Dv = v.shape
+    if Sq > 1:
+        raise ValueError("the sequence-sharded decode core takes one query "
+                         "token a step")
+    G = Hq // Hkv
+    if Sl == 0:
+        dev = q.device
+        return (torch.full((B, Hkv, G, 1, Sq), NEG_INF, device=dev),
+                torch.zeros((B, Hkv, G, 1, Sq), device=dev),
+                torch.zeros((B, Hkv, G, 1, Sq, Dv), device=dev))
+    qg = (q.reshape(B, Hkv, G, Sq, D) * scale).to(torch.float32)
+    kpos = offset + torch.arange(Sl, device=q.device)[None, :]
+    return _chunk_partials(qg, k[:, :, None], v[:, :, None], kpos, limit)
+
+
+def combine_shards(parts, mesh=None, dims=()):
+    """Attention output (B, Hq, 1, Dv), float32, from sequence shards'
+    :func:`shard_partials`: ``parts`` this rank's, its max and sums
+    all-reduced over ``mesh``'s ``dims`` (one MAX, one SUM); or the
+    partials of every shard concatenated along dim 3, with no mesh."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def all_reduce(x, op):
+        for d in dims:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
+        return x
+
+    out = _combine_chunks(*parts, all_max=lambda m: all_reduce(m, "max"),
+                          all_sum=lambda lo: all_reduce(lo, "sum"))
+    B, Hkv, G, Sq, Dv = out.shape
+    return out.reshape(B, Hkv * G, Sq, Dv)
+
+
 def _sharded_flash_decode(q, k, v, *, scale: float, kv_len=None):
     """:func:`_flash_decode_core` on DTensor ``k``/``v`` whose sequence
     dim is sharded (see there).  ``q`` is this rank's batch rows (as the
     cache's batch dim is laid out; a DTensor is taken by its local shard)
     and so is the output."""
-    from torch.distributed import _functional_collectives as funcol
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    mesh = k.device_mesh
     if tuple(v.placements) != tuple(k.placements):
         raise ValueError(f"k {k.placements} and v {v.placements} must be "
                          "laid out alike")
-    if any(isinstance(p, Shard) and p.dim not in (0, 2)
-           for p in k.placements):
-        raise ValueError(f"the cache is sharded off its batch and sequence "
-                         f"dims: {k.placements}")
-    seq_dims = [i for i, p in enumerate(k.placements)
-                if isinstance(p, Shard) and p.dim == 2]
+    offset, dims = seq_shard(k, 2)
     ql = q.to_local() if is_dtensor(q) else q
-    kl, vl = k.to_local(), v.to_local()
-    _shape, offset = compute_local_shape_and_global_offset(
-        k.shape, mesh, k.placements)
-    B, Hq, Sq, D = ql.shape
-    _, Hkv, Sl, _ = kl.shape
-    if Sq > 1:
-        raise ValueError("the sequence-sharded decode core takes one query "
-                         "token a step")
-    G = Hq // Hkv
-    qg = (ql.reshape(B, Hkv, G, Sq, D) * scale).to(torch.float32)
-    kpos = offset[2] + torch.arange(Sl, device=ql.device)[None, :]
-
-    def all_reduce(x, op):
-        for d in seq_dims:
-            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
-        return x
-
     # this rank's shard is its one chunk
-    out = _combine_chunks(
-        *_chunk_partials(qg, kl[:, :, None], vl[:, :, None], kpos,
-                         k.shape[2] if kv_len is None else int(kv_len)),
-        all_max=lambda m: all_reduce(m, "max"),
-        all_sum=lambda lo: all_reduce(lo, "sum"))
-    return out.reshape(B, Hq, Sq, D).to(ql.dtype)
+    parts = shard_partials(ql, k.to_local(), v.to_local(), scale=scale,
+                           offset=offset,
+                           limit=k.shape[2] if kv_len is None
+                           else int(kv_len))
+    return combine_shards(parts, k.device_mesh, dims).to(ql.dtype)
 
 
 def write_rows(cache, rows: torch.Tensor, start: int, dim: int) -> None:
@@ -464,6 +497,66 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
+def mla_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor):
+    """An MLA block's projections of ``x`` (B, S, D): the queries (B, H,
+    S, qd) of the heads ``wq`` holds, RoPE applied to their last
+    ``qk_rope_head_dim`` columns, and the new latents (B, S, kv_lora) and
+    shared RoPE keys (B, S, rope)."""
+    m: MLAConfig = cfg.mla
+    B, S, D = x.shape
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    qd = nope + rope
+    H = p["wq"].shape[-1] // qd
+
+    q = (copy_to_model(x, H, cfg.n_heads) @ p["wq"]) \
+        .reshape(B, S, H, qd).transpose(1, 2)                # (B, H, S, qd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # w_dkv is whole on every rank, but its latent and RoPE key feed this
+    # rank's heads alone: their gradient is summed over the model group
+    dkv = copy_to_model(x @ p["w_dkv"], H, cfg.n_heads)
+    latent, k_rope_flat = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    # decoupled RoPE key: one shared "head"
+    k_rope = apply_rope(k_rope_flat[:, None], positions,
+                        cfg.rope_theta)[:, 0]                 # (B, S, rope)
+    return torch.cat([q_nope, q_rope], dim=-1), latent, k_rope
+
+
+def _mla_expand(cfg: ModelConfig, p: Params, latent: torch.Tensor,
+                k_rope: torch.Tensor, H: int):
+    """Per-head keys (B, H, L, qd) and values (B, H, L, v) of ``H`` heads
+    from L positions of the latent (B, L, kv_lora) and RoPE keys (B, L,
+    rope): the non-absorbed form."""
+    m: MLAConfig = cfg.mla
+    B, L = latent.shape[:2]
+    nope = m.qk_nope_head_dim
+    k_nope = _matmul(latent, p["w_uk"]).reshape(B, L, H, nope) \
+        .transpose(1, 2)
+    vv = _matmul(latent, p["w_uv"]).reshape(B, L, H, m.v_head_dim) \
+        .transpose(1, 2)
+    k_rope_h = k_rope[:, None].expand(B, H, L, m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1), vv
+
+
+def mla_shard_partials(cfg: ModelConfig, p: Params, q: torch.Tensor,
+                       latent: torch.Tensor, k_rope: torch.Tensor, *,
+                       offset: int, kv_len: int):
+    """A decode step's flash-decoding partials (:func:`shard_partials`)
+    over one sequence shard of the latent cache: ``latent`` (B, Sl,
+    kv_lora) and ``k_rope`` (B, Sl, rope) hold global positions ``offset
+    ...``; every head of ``q`` (B, H, 1, qd) is expanded over the shard's
+    positions below ``kv_len`` alone (none where the shard starts at or
+    beyond it)."""
+    m: MLAConfig = cfg.mla
+    n = max(0, min(latent.shape[1], kv_len - offset))
+    k, v = _mla_expand(cfg, p, latent[:, :n], k_rope[:, :n], q.shape[1])
+    return shard_partials(
+        q, k, v, scale=1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5,
+        offset=offset, limit=kv_len)
+
+
 def apply_mla(
     cfg: ModelConfig,
     p: Params,
@@ -486,52 +579,57 @@ def apply_mla(
     (``distributed.sharding.gather_for_compute``): H is read from ``wq``'s
     width, the rank computes its H/m heads from the whole latent and one
     ``reduce_from_model`` sums ``o @ wo``.  Without a model group the
-    partial output of those heads is returned."""
+    partial output of those heads is returned.
+
+    A decode step (S = 1, ``impl="flash_decode"``) whose ``latent`` and
+    ``k_rope`` are DTensors sharded on their sequence (dim 1), as
+    ``cache_shardings`` lays them out, reads them where they lie, as the
+    reference's flash-decode core compiles: the new token goes into the
+    one shard that holds its position, each rank expands every head over
+    its own filled positions (:func:`mla_shard_partials`), and the
+    partials are combined over the sequence's mesh dims
+    (:func:`combine_shards`)."""
     m: MLAConfig = cfg.mla
     B, S, D = x.shape
-    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
-    qd = nope + rope
-    H = p["wq"].shape[-1] // qd
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q, latent, k_rope = mla_project(cfg, p, x, positions)
+    H = q.shape[1]
 
-    q = (copy_to_model(x, H, cfg.n_heads) @ p["wq"]) \
-        .reshape(B, S, H, qd).transpose(1, 2)                # (B, H, S, qd)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-
-    # w_dkv is whole on every rank, but its latent and RoPE key feed this
-    # rank's heads alone: their gradient is summed over the model group
-    dkv = copy_to_model(x @ p["w_dkv"], H, cfg.n_heads)
-    latent, k_rope_flat = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
-    # decoupled RoPE key: one shared "head"
-    k_rope = apply_rope(k_rope_flat[:, None], positions,
-                        cfg.rope_theta)[:, 0]                 # (B, S, rope)
-
-    kv_len = None
-    if cache is not None:
+    if cache is not None and is_dtensor(cache["latent"]):
+        if S != 1 or impl != "flash_decode":
+            raise ValueError(f"a sequence-sharded latent cache is read by a "
+                             f"flash_decode step of one token, not {S} "
+                             f"tokens on {impl!r}")
         start = int(cache_index)
-        if start + S > cache["latent"].shape[1]:
-            raise ValueError(f"latent cache of {cache['latent'].shape[1]} "
-                             f"positions cannot take {S} tokens at {start}")
-        cache["latent"][:, start:start + S] = latent.to(
-            cache["latent"].dtype)
-        cache["k_rope"][:, start:start + S] = k_rope.to(cache["k_rope"].dtype)
-        kv_len = start + S
-        latent = cache["latent"][:, :kv_len]
-        k_rope = cache["k_rope"][:, :kv_len]
-
-    # expand the latent to per-head keys and values (non-absorbed form)
-    Skv = latent.shape[1]
-    k_nope = _matmul(latent, p["w_uk"]).reshape(B, Skv, H, nope) \
-        .transpose(1, 2)
-    vv = _matmul(latent, p["w_uv"]).reshape(B, Skv, H, m.v_head_dim) \
-        .transpose(1, 2)
-    k_rope_h = k_rope[:, None].expand(B, H, Skv, rope)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1)
-    # pad v to the q/k head dim so that one core takes it, then slice back
-    if m.v_head_dim != qd:
-        vv = nn.functional.pad(vv, (0, qd - m.v_head_dim))
-    o = attention_core(q_full, k_full, vv, causal=True, scale=1.0 / qd ** 0.5,
-                       impl=impl, kv_len=kv_len)[..., :m.v_head_dim]
+        write_rows(cache["latent"], latent, start, 1)
+        write_rows(cache["k_rope"], k_rope, start, 1)
+        offset, dims = seq_shard(cache["latent"], 1)
+        parts = mla_shard_partials(cfg, p, q, cache["latent"].to_local(),
+                                   cache["k_rope"].to_local(), offset=offset,
+                                   kv_len=start + 1)
+        o = combine_shards(parts, cache["latent"].device_mesh,
+                           dims).to(q.dtype)
+    else:
+        kv_len = None
+        if cache is not None:
+            start = int(cache_index)
+            if start + S > cache["latent"].shape[1]:
+                raise ValueError(f"latent cache of "
+                                 f"{cache['latent'].shape[1]} positions "
+                                 f"cannot take {S} tokens at {start}")
+            cache["latent"][:, start:start + S] = latent.to(
+                cache["latent"].dtype)
+            cache["k_rope"][:, start:start + S] = k_rope.to(
+                cache["k_rope"].dtype)
+            kv_len = start + S
+            latent = cache["latent"][:, :kv_len]
+            k_rope = cache["k_rope"][:, :kv_len]
+        k, vv = _mla_expand(cfg, p, latent, k_rope, H)
+        # pad v to the q/k head dim so that one core takes it, then slice
+        # back
+        if m.v_head_dim != qd:
+            vv = nn.functional.pad(vv, (0, qd - m.v_head_dim))
+        o = attention_core(q, k, vv, causal=True, scale=1.0 / qd ** 0.5,
+                           impl=impl, kv_len=kv_len)[..., :m.v_head_dim]
     o = o.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
     return reduce_from_model(o @ p["wo"], H, cfg.n_heads), cache

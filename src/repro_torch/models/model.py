@@ -29,7 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig, ParallelConfig
 from ..radar._device import DeviceLike, resolve_device
-from ..distributed.sharding import (constrain_like_params,
+from ..distributed.sharding import (cache_seq_dim, constrain_like_params,
                                     gather_for_compute, is_dtensor,
                                     kv_heads_local, rows_sharded, to_local)
 from .layers import (DP, apply_norm, constrain, embed_tokens,
@@ -497,7 +497,9 @@ def decode_step(
             if sharded:
                 # a prefill on this rank's heads (a GQA cache moved to
                 # them and back, the recurrent blocks all-gathering their
-                # new states' heads), a decode step on every head
+                # new states' heads), a decode step on every head (a
+                # flash-decode step's GQA and MLA caches read where they
+                # lie, each rank over its own positions)
                 up = gather_for_compute(cfg, up, attention=S > 1,
                                         heads=S > 1)
                 layer_caches, write_back = _local_caches(
@@ -538,10 +540,11 @@ def _local_caches(layer_caches, keep_kv: bool, heads: List[bool]):
     Where ``heads[i]`` holds, unit position ``i``'s ``k`` and ``v`` are
     this rank's KV heads instead (:func:`sharding.kv_heads_local`: a
     prefill's GQA block computing its heads).  With ``keep_kv`` (a
-    flash-decode step) attention's ``k`` and ``v`` stay DTensors where
-    their sequence is sharded: the decode core reduces each rank's own
-    keys (a sequence that does not divide the ranks is replicated by the
-    rules, and gathered as any other leaf)."""
+    flash-decode step) attention's ``k`` and ``v`` and MLA's ``latent``
+    and ``k_rope`` stay DTensors where their sequence is sharded: the
+    decode cores reduce each rank's own positions (a sequence that does
+    not divide the ranks is replicated by the rules, and gathered as any
+    other leaf)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -553,8 +556,8 @@ def _local_caches(layer_caches, keep_kv: bool, heads: List[bool]):
             backs.append(back)
             return view
         if not is_dtensor(c) or (
-                keep_kv and name in ("k", "v")
-                and any(isinstance(p, Shard) and p.dim == 2
+                keep_kv and cache_seq_dim(name) is not None
+                and any(isinstance(p, Shard) and p.dim == cache_seq_dim(name)
                         for p in c.placements)):
             return c
         mesh = c.device_mesh

@@ -252,14 +252,54 @@ def recording_shards():
     capacity dispatch's expert buffer; ``attn_weights``, the shapes of
     every GQA call's ``wq`` and ``wo`` as ``(wq, wo, tokens > 1)``;
     ``mla_heads``, ``ssm_heads`` and ``mlstm_heads``, the heads of every
-    MLA, Mamba-2 and mLSTM call as ``(H, tokens > 1)``."""
+    MLA, Mamba-2 and mLSTM call as ``(H, tokens > 1)``, an MLA call whose
+    latent cache is a sequence shard (a DTensor) as ``(H, tokens > 1,
+    the shard's positions, the cache's)``; ``mla_expanded``, every
+    expansion of the latent to per-head keys and values as ``(H,
+    positions)``, within a sequence shard's decode as ``(H, positions,
+    the shard's first position, its positions, kv_len)``;
+    ``redistributed``, the shape of every DTensor redistributed during a
+    model step (``model.decode_step``) as ``(shape, the step's
+    tokens)``."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.models import attention, moe, ssm, xlstm
+    from repro_torch.models import model as M
     seen = {"experts": set(), "buffers": set(), "attn_weights": set(),
-            "mla_heads": set(), "ssm_heads": set(), "mlstm_heads": set()}
+            "mla_heads": set(), "ssm_heads": set(), "mlstm_heads": set(),
+            "mla_expanded": set(), "redistributed": set()}
     apply_moe, ffn, apply_mla = (moe.apply_moe, moe._expert_ffn,
                                  attention.apply_mla)
     apply_attn = attention.apply_attn
     apply_mamba2, apply_mlstm = ssm.apply_mamba2, xlstm.apply_mlstm
+    expand, shard_partials = (attention._mla_expand,
+                              attention.mla_shard_partials)
+    decode_step, redistribute = M.decode_step, DTensor.redistribute
+    shard, step = [], []
+
+    def rec_expand(cfg, p, latent, k_rope, H):
+        seen["mla_expanded"].add((H, latent.shape[1], *shard))
+        return expand(cfg, p, latent, k_rope, H)
+
+    def rec_shard_partials(cfg, p, q, latent, k_rope, *, offset, kv_len):
+        shard[:] = [offset, latent.shape[1], kv_len]
+        try:
+            return shard_partials(cfg, p, q, latent, k_rope, offset=offset,
+                                  kv_len=kv_len)
+        finally:
+            shard.clear()
+
+    def rec_decode_step(cfg, pcfg, params, caches, tokens, *args, **kw):
+        step[:] = [tokens.shape[1]]
+        try:
+            return decode_step(cfg, pcfg, params, caches, tokens, *args,
+                               **kw)
+        finally:
+            step.clear()
+
+    def rec_redistribute(self, *args, **kw):
+        if step:
+            seen["redistributed"].add((tuple(self.shape), step[0]))
+        return redistribute(self, *args, **kw)
 
     def rec_moe(cfg, p, x, **kw):
         kind = "dropless" if kw.get("dropless") else kw.get("dispatch",
@@ -278,7 +318,11 @@ def recording_shards():
 
     def rec_mla(cfg, p, x, positions, **kw):
         qd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-        seen["mla_heads"].add((p["wq"].shape[-1] // qd, x.shape[1] > 1))
+        entry = (p["wq"].shape[-1] // qd, x.shape[1] > 1)
+        latent = (kw.get("cache") or {}).get("latent")
+        if isinstance(latent, DTensor):
+            entry += (latent.to_local().shape[1], latent.shape[1])
+        seen["mla_heads"].add(entry)
         return apply_mla(cfg, p, x, positions, **kw)
 
     def rec_mamba2(cfg, p, x, **kw):
@@ -293,6 +337,9 @@ def recording_shards():
     moe._expert_ffn, moe.apply_moe = rec_ffn, rec_moe
     attention.apply_mla, attention.apply_attn = rec_mla, rec_attn
     ssm.apply_mamba2, xlstm.apply_mlstm = rec_mamba2, rec_mlstm
+    attention._mla_expand = rec_expand
+    attention.mla_shard_partials = rec_shard_partials
+    M.decode_step, DTensor.redistribute = rec_decode_step, rec_redistribute
     try:
         yield seen
     finally:
@@ -300,6 +347,9 @@ def recording_shards():
         moe.apply_moe = apply_moe
         attention.apply_mla, attention.apply_attn = apply_mla, apply_attn
         ssm.apply_mamba2, xlstm.apply_mlstm = apply_mamba2, apply_mlstm
+        attention._mla_expand = expand
+        attention.mla_shard_partials = shard_partials
+        M.decode_step, DTensor.redistribute = decode_step, redistribute
 
 
 def expert_parallel_worker(rank, world, jobs, capacity_factor=None):

@@ -1,7 +1,7 @@
 """The dry run of DeepSeek-V2-Lite's serving cells on fake process groups
 of 256 and 512 ranks: ``prefill_32k`` (MLA and the MoE FFN, costed from
 the probes) and ``decode_32k`` (one token a step on the sequence-sharded
-flash-decode core), each in a subprocess so its fake group never meets
+flash-decode core, MLA's latent read where it lies), each in a subprocess so its fake group never meets
 another test; both meshes traced, the parameters' bytes per device the
 reference's specs' (``tests/test_torch_dryrun.py`` holds the rest);
 llama4-maverick's ``decode_32k``, its experts sharded over ``model``;
@@ -26,6 +26,13 @@ def test_deepseek_serving_cells_on_fake_groups(shape, tmp_path):
         per = pod["cost"]["per_collective"]
         assert per["all-reduce"] > 0 and per["all-gather"] > 0
         assert pod["cost_parts"] == {}
+        # each rank expands every head over its own positions of the
+        # latent cache, where they lie: at most the reference's 2.92 GiB
+        # a device (4.79 while each layer's latent was gathered whole and
+        # expanded over every position), and the 2.417e12 B of
+        # all-gathers less most of the latent's 0.9e12
+        assert pod["memory"]["peak_bytes_per_device"] / 2**30 <= 2.92
+        assert per["all-gather"] <= 1.6e12
     else:
         assert set(pod["cost_parts"]) == {"group0_x1", "group1_x26",
                                           "boundary"}

@@ -25,7 +25,7 @@ laid out: each rank runs its E/m experts and H/m heads, and one
   in serving, as one process does.
 * What each rank computes: E/m experts in every MoE call and capacity
   buffer, H/m heads in a prefill's and a training step's MLA, every head
-  in a decode step's.
+  in a decode step's, over the rank's positions of the latent cache.
 * ``_tp_block`` recognizes both blocks, and not where E or H does not
   divide ``model``; ``gather_for_compute`` keeps the rank's shard and
   gathers the router and ``w_dkv`` whole.
@@ -149,7 +149,8 @@ def test_each_rank_computes_its_experts_and_heads(meshed, world):
     """At ``--model-axis 2`` the reduced configurations' 4 experts and
     deepseek's 4 MLA heads are 2 a rank: in every MoE call (sorted in
     training, dropless serving a short prompt), every capacity buffer,
-    and every MLA call but a decode step's, which computes all 4."""
+    and every MLA call but a decode step's, which computes all 4 over
+    the rank's 10 of the latent cache's 20 positions, where they lie."""
     for rank_jobs in meshed[world]:
         for arch, (_res, seen) in zip(ARCHS, rank_jobs):
             assert seen["experts"] == {("sorted", 2)}, (arch, seen)
@@ -159,8 +160,8 @@ def test_each_rank_computes_its_experts_and_heads(meshed, world):
         for arch, (_res, seen) in zip(ARCHS, rank_jobs[len(ARCHS):
                                                        2 * len(ARCHS)]):
             assert seen["experts"] == {("dropless", 2)}, (arch, seen)
-            want = ({(2, True), (4, False)} if arch.startswith("deepseek")
-                    else set())
+            want = ({(2, True), (4, False, 10, 20)}
+                    if arch.startswith("deepseek") else set())
             assert seen["mla_heads"] == want, (arch, seen)
 
 

@@ -7,7 +7,8 @@ reference's at kv_len 64, 37 and 1 (``tests/test_serve.py``'s check,
 sequence-sharded combine under gloo at world 2 and 4 (the cache's keys
 over ``model``, at world 4 also its batch over ``data``) agrees with the
 single-process result within 1e-6; ``decode_step(attn_impl=
-"flash_decode")`` agrees with the reference's within 2e-3; a reduced model
+"flash_decode")`` of radar-lm (GQA) and deepseek-v2-lite (MLA) agrees
+with the reference's within 2e-3; a reduced model
 served with DTensor parameters and caches on a mesh of 2 (prefill, then
 flash-decode steps on the sharded cache) agrees with the same model
 unmeshed; ``_kernel_proxy_core`` equals the reference's.
@@ -107,9 +108,12 @@ JPCFG = JaxPCfg(compute_dtype="float32", kv_cache_dtype="float32",
                 remat="none")
 
 
-def test_decode_step_with_flash_decode_matches_the_reference():
-    jcfg = jax_config("radar-lm-100m").reduced()
-    tcfg = get_any_config("radar-lm-100m").reduced()
+@pytest.mark.parametrize("arch", ["radar-lm-100m", "deepseek-v2-lite-16b"])
+def test_decode_step_with_flash_decode_matches_the_reference(arch):
+    """GQA's decode step and MLA's (the latent expanded over the filled
+    positions, then the flash-decode core) against the reference's."""
+    jcfg = jax_config(arch).reduced()
+    tcfg = get_any_config(arch).reduced()
     jparams = JM.init_params(jcfg, jax.random.key(0))
     tparams = from_reference(tcfg, jax.tree.map(np.asarray, jparams),
                              device="cpu")
